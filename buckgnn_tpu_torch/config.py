@@ -1,8 +1,8 @@
-"""Typed configuration: the `TrainConfig` fields the serving path reads.
+"""Typed configuration: the `TrainConfig` fields the port reads.
 
 A subset of buckgnn_tpu/config.py::TrainConfig with the same names and
-defaults. The optimizer, scheduler and data-pipeline fields come with the
-training slice of the port.
+defaults: the model fields, and the optimizer and learning-rate schedule
+fields of the train step. The data-pipeline fields come with later slices.
 """
 
 from __future__ import annotations
@@ -12,15 +12,29 @@ import dataclasses
 
 @dataclasses.dataclass
 class TrainConfig:
-    """Model config (CONFIG_MANUAL_GLOB, TRAIN_FINAL.py:69-82)."""
+    """Model + optimization config (CONFIG_MANUAL_GLOB, TRAIN_FINAL.py:69-82,
+    scheduler globals :45-49)."""
 
+    lr: float = 1e-2                        # INITIAL_LR_GLOB
     hidden_channels: int = 128
     num_layers: int = 6
+    weight_decay: float = 1e-8
     loss_function: str = "relative_error"
     pooling_layer: str = "mean"
     dropout_rate: float = 0.1
     model_name: str = "GraphSage_addAggr_Shared"
     prediction_type: str = "buckling"
+
+    scheduler: str = "cosine"               # SCHEDULER_GLOB: 'cosine'|'restart'
+    use_lr_scheduler: bool = True           # USE_LR_SCHEDULER_GLOB
+    t_0: int = 500                          # T_0_GLOB
+    t_mult: int = 2                         # T_M_GLOB
+    min_lr: float | None = None             # MIN_LR_GLOB == lr/100 when None
+
     seed: int = 0
     compute_dtype: str = "float32"          # 'float32' | 'bfloat16'
     segment_impl: str = "banded_pallas"     # the fused banded path
+
+    @property
+    def eta_min(self) -> float:
+        return self.lr / 100.0 if self.min_lr is None else self.min_lr

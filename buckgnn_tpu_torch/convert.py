@@ -19,9 +19,8 @@ def params_from_flax(tree: dict, prefix: str = "") -> dict:
         if isinstance(value, dict):
             out.update(params_from_flax(value, key + "."))
         elif name == "kernel":
-            w = np.asarray(value, dtype=np.float32).T
-            out[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(w))
+            w = np.array(np.asarray(value, dtype=np.float32).T, order="C")
+            out[f"{prefix}weight"] = torch.from_numpy(w)
         else:
-            out[key] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(value, dtype=np.float32)))
+            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     return out

@@ -1,16 +1,22 @@
 // Fused GraphSAGE layer forward for Hopper (sm_90a), bf16 in, f32 accumulate.
 //
 // Replaces the TPU kernel buckgnn_tpu/ops/pallas_sage_layer.py::_fwd_kernel
-// (launched by _call_fwd) on the serving path: no spill, no dropout, no
-// saved residuals. Per node tile t (T rows) with slab start
+// (launched by _call_fwd) without spill edges. Per node tile t (T rows)
+// with slab start
 // s_t = clip(t*T - W/2, 0, max(N - (T+W), 0)):
 //
 //   acc  = band_t @ x[s_t : s_t+T+W]  (+ sel_t @ star-table window)   f32
 //   agg  = bf16(acc)
 //   out  = agg @ W_l + x_t @ W_r + b_l                                 f32
 //   y    = out * rsqrt(max(sum(out^2), 1e-24))
-//   z    = bf16(relu(y) (+ x_t))
+//   z    = bf16(dropout(relu(y) (+ x_t)))
 //   emit: per-block partials of sum_{rows with code c} z  -> table_reduce
+//
+// The training variant (save_res) also writes the backward's residuals:
+// agg and y in bf16 and inv = rsqrt(max(sum(out^2), 1e-24)) in f32, one per
+// row. Dropout keeps an element when sage::dropout_bits(seeds, global row,
+// column) < thr and scales it by `scale` (ops/dropout.py), after relu and
+// the skip and before the cast and the table emit, as the TPU kernel does.
 //
 // The int8 band is converted to bf16 in shared memory (counts <= 127 are
 // exact). The star selection is the same one-hot product the TPU kernel
@@ -39,6 +45,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "sage_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -59,7 +67,12 @@ struct Params {
   const int* acc_code;         // [N] accumulate codes (emit)
   __nv_bfloat16* z;            // [N, H]
   float* partial;              // [N / BM, 2GW, H] (emit)
-  int n, tile, width, gw, t0, has_super, skip, emit;
+  __nv_bfloat16* y_out;        // [N, H] (save_res)
+  float* inv_out;              // [N] (save_res)
+  __nv_bfloat16* agg_out;      // [N, H] (save_res)
+  int n, tile, width, gw, t0, has_super, skip, emit, save_res, dropout;
+  uint32_t thr, s0, s1;        // dropout threshold and seed words
+  float scale;
   int region0;                 // bytes of the f32 / phase-1 shared region
 };
 
@@ -151,7 +164,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) sage_fwd_kernel(Params p) {
   for (int i = tid; i < BM * H; i += NTHREADS) {
     const int r = i / H;
     const int c = i - r * H;
-    sagg[r * LDA + c] = __float2bfloat16_rn(sf[r * LDF + c]);
+    const __nv_bfloat16 a = __float2bfloat16_rn(sf[r * LDF + c]);
+    sagg[r * LDA + c] = a;
+    if (p.save_res) p.agg_out[(size_t)(row0 + r) * H + c] = a;
   }
   __syncthreads();
 
@@ -219,16 +234,27 @@ __global__ void __launch_bounds__(NTHREADS, 1) sage_fwd_kernel(Params p) {
     for (int off = 16; off > 0; off >>= 1)
       sq += __shfl_xor_sync(0xffffffffu, sq, off);
     const float inv = rsqrtf(fmaxf(sq, 1e-24f));
+    if (p.save_res && lane == 0) p.inv_out[row0 + r] = inv;
+    const uint32_t rk = sage::row_key(p.s0, (uint32_t)(row0 + r));
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       const int c = q * 64 + lane * 2;
-      float r0 = fmaxf(v[q][0] * inv, 0.f);
-      float r1 = fmaxf(v[q][1] * inv, 0.f);
+      const float y0 = v[q][0] * inv;
+      const float y1 = v[q][1] * inv;
+      if (p.save_res)
+        *reinterpret_cast<__nv_bfloat162*>(p.y_out + grow + c) =
+            __floats2bfloat162_rn(y0, y1);
+      float r0 = fmaxf(y0, 0.f);
+      float r1 = fmaxf(y1, 0.f);
       if (p.skip) {
         const __nv_bfloat162 xs =
             *reinterpret_cast<const __nv_bfloat162*>(p.x + grow + c);
         r0 += __bfloat162float(xs.x);
         r1 += __bfloat162float(xs.y);
+      }
+      if (p.dropout) {
+        r0 = sage::dropout_bits(rk, p.s1, c) < p.thr ? r0 * p.scale : 0.f;
+        r1 = sage::dropout_bits(rk, p.s1, c + 1) < p.thr ? r1 * p.scale : 0.f;
       }
       const __nv_bfloat162 zz = __floats2bfloat162_rn(r0, r1);
       *reinterpret_cast<__nv_bfloat162*>(p.z + grow + c) = zz;
@@ -252,33 +278,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) sage_fwd_kernel(Params p) {
   }
 }
 
-// ftab[r, c] = sum over blocks b whose tile window holds table row r of
-// partial[b, code(r), c], in block order (deterministic). Windows are not
-// monotone in t (empty tiles sit at base 0), so every tile is checked.
-__global__ void table_reduce_kernel(const float* partial, const int* gwin,
-                                    float* ftab, int n_tiles, int bpt,
-                                    int gw, int t0, int h) {
-  const int r = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= h) return;
-  const int g2 = 2 * gw;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int wb = gwin[t];
-    int code;
-    if (r >= wb && r < wb + gw) {
-      code = r - wb;
-    } else if (r >= t0 + wb && r < t0 + wb + gw) {
-      code = gw + r - t0 - wb;
-    } else {
-      continue;
-    }
-    for (int k = 0; k < bpt; ++k)
-      s += partial[((size_t)(t * bpt + k) * g2 + code) * h + c];
-  }
-  ftab[(size_t)r * h + c] = s;
-}
-
 template <int H>
 cudaError_t launch(Params p, int n_blocks, cudaStream_t stream) {
   const int S = p.tile + p.width;
@@ -300,9 +299,11 @@ cudaError_t launch(Params p, int n_blocks, cudaStream_t stream) {
 extern "C" int sage_layer_fwd(
     const void* x, const void* band, const void* w_l, const void* w_r,
     const void* b_l, const void* table, const void* code, const void* gwin,
-    const void* acc_code, void* z, void* partial, void* ftab, int n, int h,
-    int tile, int width, int gw, int t0, int tg, int has_super, int skip,
-    int emit, void* stream) {
+    const void* acc_code, void* z, void* partial, void* ftab, void* y_out,
+    void* inv_out, void* agg_out, int n, int h, int tile, int width, int gw,
+    int t0, int tg, int has_super, int skip, int emit, int save_res,
+    int dropout, unsigned int thr, unsigned int s0, unsigned int s1,
+    float scale, void* stream) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.band = static_cast<const int8_t*>(band);
@@ -315,6 +316,15 @@ extern "C" int sage_layer_fwd(
   p.acc_code = static_cast<const int*>(acc_code);
   p.z = static_cast<__nv_bfloat16*>(z);
   p.partial = static_cast<float*>(partial);
+  p.y_out = static_cast<__nv_bfloat16*>(y_out);
+  p.inv_out = static_cast<float*>(inv_out);
+  p.agg_out = static_cast<__nv_bfloat16*>(agg_out);
+  p.save_res = save_res;
+  p.dropout = dropout;
+  p.thr = thr;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.scale = scale;
   p.n = n;
   p.tile = tile;
   p.width = width;
@@ -336,7 +346,7 @@ extern "C" int sage_layer_fwd(
   if (e != cudaSuccess) return (int)e;
   if (emit) {
     dim3 grid((h + 255) / 256, tg);
-    table_reduce_kernel<<<grid, 256, 0, st>>>(
+    sage::table_reduce_kernel<<<grid, 256, 0, st>>>(
         static_cast<const float*>(partial), p.gwin, static_cast<float*>(ftab),
         n / tile, tile / BM, gw, t0, h);
   }

@@ -97,9 +97,20 @@ class SAGEConv(nn.Module):
                 self.lin_r.weight.t().to(dtype).contiguous())
 
     def forward(self, x, agg_ctx, *, skip: bool, weights=None,
-                table_in=None, emit_table: bool = False):
+                rate: float = 0.0, seed=None, deterministic: bool = True,
+                star_in=None, star_next: bool = False, table_in=None,
+                emit_table: bool = False):
+        """The fused layer (ops/sage_layer.py::fused_sage_layer, arguments
+        and results as there). ``weights``: the (W_l, b_l, W_r) of
+        `fused_weights`, cast once by the caller; None casts them here, in
+        every call, so that under autograd each call's weight gradient
+        reaches the float32 parameters before the tied calls are summed
+        (the JAX package casts in every layer call too)."""
         from buckgnn_tpu_torch.ops.sage_layer import fused_sage_layer
 
         w_l, b_l, w_r = weights or self.fused_weights(x.dtype)
         return fused_sage_layer(x, w_l, b_l, w_r, agg_ctx, skip=skip,
-                                table_in=table_in, emit_table=emit_table)
+                                rate=rate, seed=seed,
+                                deterministic=deterministic, star_in=star_in,
+                                star_next=star_next, table_in=table_in,
+                                emit_table=emit_table)

@@ -1,12 +1,16 @@
-"""The BuckGNN model (port of buckgnn_tpu/models/buckgnn.py), serving slice.
+"""The BuckGNN model (port of buckgnn_tpu/models/buckgnn.py).
 
 Covers the flagship variant ``GraphSage_addAggr_Shared`` with ``mean``
-pooling and the buckling head, forward only, on banded batches that the
-fused layer takes: node encoder -> L weight-tied fused SAGE layers (skip on
-0 < i < L-1, Models/BuckGNN.py:349-351) -> mean pool -> decoder. On
-supernode batches with local star windows each layer's kernel emits the
-next layer's star table (models/buckgnn.py:169-242 of the JAX package);
-without windows the table is rebuilt from x for each layer.
+pooling and the buckling head on banded batches that the fused layer
+takes: node encoder -> L weight-tied fused SAGE layers (skip on
+0 < i < L-1, Models/BuckGNN.py:349-351, dropout after each) -> mean pool
+-> decoder. On supernode batches with local star windows each layer's
+kernel emits the next layer's star table (models/buckgnn.py:169-242 of the
+JAX package); without windows the table is rebuilt from x for each layer.
+In training (``deterministic=False``) the layers also thread their
+deferred backward star tables from one to the next (`star_source` opens
+the chain at the encoder output), and each layer draws its two dropout
+seed words from the caller's ``torch.Generator``.
 
 Every other model name, pooling or prediction type raises
 NotImplementedError naming the ROADMAP item that brings it, and so does a
@@ -70,16 +74,22 @@ class BuckGNN(nn.Module):
         self.decoder = MLP(h, decoder_widths(h, 1), dtype=dtype,
                            generator=generator)
 
-    def forward(self, batch: GraphBatch, deterministic: bool = True):
+    def forward(self, batch: GraphBatch, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         """Returns ``(pred [G_cap], aux)`` with ``aux['real_node_mask']``
-        and ``aux['node_keep']`` as in the JAX model."""
+        and ``aux['node_keep']`` as in the JAX model. Training with dropout
+        (``deterministic=False``, ``dropout_rate`` > 0) needs ``generator``,
+        the source of each layer's dropout seeds."""
         from buckgnn_tpu_torch.ops.banded import make_agg_context
-        from buckgnn_tpu_torch.ops.sage_layer import supports_fused_layer
+        from buckgnn_tpu_torch.ops.sage_layer import (
+            star_source, supports_fused_layer,
+        )
 
-        if not deterministic and self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout comes with the training slice "
-                "(ROADMAP queue 2, kernel 2)")
+        training = not deterministic
+        rate = self.dropout_rate if training else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a torch.Generator "
+                             "for the layers' dropout seeds")
         if batch.band_senders is None:
             raise NotImplementedError(
                 "unbanded batches need the CSR path (ROADMAP queue 1, item 7)")
@@ -99,13 +109,25 @@ class BuckGNN(nn.Module):
                 f"the fused layer does not take this batch/width (h={h}); "
                 "the unfused banded path is ROADMAP queue 1, item 2")
         conv = self.shared_graphsage_block
-        weights = conv.fused_weights(x.dtype)  # tied: convert once
+        # serving casts the tied weights once; training casts them in every
+        # layer call, so their six gradients are summed in float32
+        weights = None if training else conv.fused_weights(x.dtype)
         thread_tables = batch.has_supernode_edges and batch.gwin is not None
+        star = None
+        if training and batch.has_supernode_edges:
+            x, star = star_source(x, agg_ctx)
         table = None
         for i in range(L):
             emit = thread_tables and i < L - 1
-            x, table = conv(x, agg_ctx, skip=0 < i < L - 1, weights=weights,
-                            table_in=table, emit_table=emit)
+            seed = draw_seed(generator) if rate > 0.0 else None
+            out = conv(x, agg_ctx, skip=0 < i < L - 1, weights=weights,
+                       rate=rate, seed=seed, deterministic=deterministic,
+                       star_in=star, star_next=star is not None and i < L - 1,
+                       table_in=table, emit_table=emit)
+            if star is None:
+                x, table = out
+            else:
+                x, star, table = out
 
         pooled = self._pool(x, batch)
         pred = self.decoder(pooled)
@@ -121,3 +143,10 @@ class BuckGNN(nn.Module):
                                             batch.n_graph_cap,
                                             keep=batch.node_mask)
         return total.float() / count.clamp_min(1.0)[:, None]
+
+
+def draw_seed(generator: torch.Generator) -> tuple[int, int]:
+    """One layer's two 32-bit dropout seed words (ops/dropout.py)."""
+    words = torch.randint(0, 2**32, (2,), generator=generator,
+                          dtype=torch.int64)
+    return int(words[0]), int(words[1])

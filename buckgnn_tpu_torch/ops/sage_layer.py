@@ -1,21 +1,28 @@
-"""Fully fused GraphSAGE layer forward — the serving hot path.
+"""Fully fused GraphSAGE layer: forward and backward kernels, and its VJP.
 
-The port of buckgnn_tpu/ops/pallas_sage_layer.py (forward only). One call
-computes the whole shared-SAGE layer (Models/BuckGNN.py:113-119, 338-352):
+The port of buckgnn_tpu/ops/pallas_sage_layer.py without spill edges. One
+forward call computes the whole shared-SAGE layer (Models/BuckGNN.py:113-119,
+338-352):
 
     agg  = band_t @ x_slab (+ star selection)   -> cast to x.dtype
     out  = agg @ W_l + x_t @ W_r + b_l           (f32)
     y    = out * rsqrt(max(rowsum(out^2), 1e-24))
-    z    = relu(y) (+ x_t)                       -> cast to x.dtype
+    z    = dropout(relu(y) (+ x_t))              -> cast to x.dtype
 
-and, with ``emit``, the next layer's supernode star table summed from z.
+and, with ``emit``, the next layer's supernode star table summed from z;
+with ``save_res`` also the backward's residuals y, inv and agg. One backward
+call (`sage_layer_bwd`) computes dx, dW_l, dW_r, db_l and the layer's own
+star table from dz and those residuals (the merged backward of the TPU
+kernel, see csrc/sage_layer_bwd.cu).
 
-`sage_layer_fwd` is the wrapper: on CUDA tensors it launches the
-hand-written kernel in ``csrc/sage_layer_fwd.cu`` (bf16 only) and counts
-the launch in ``LAUNCHES``; on CPU tensors it runs `sage_layer_plain`, the
-plain PyTorch version with the same casts. Spill edges and dropout are not
-on the serving path: the wrapper raises on them. The custom backward comes
-with the training slice.
+`sage_layer_fwd` and `sage_layer_bwd` are the wrappers: on CUDA tensors they
+launch the hand-written kernels in ``csrc/`` (bf16 only) and count each
+launch in ``LAUNCHES``; on CPU tensors they run `sage_layer_plain` and
+`sage_layer_bwd_plain`, the plain PyTorch versions with the same casts.
+`fused_sage_layer` is the layer as the model calls it: a
+``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom VJP)
+with supernode-star threading through ghost tables (`star_source`).
+Spill edges raise: they come with the virtual-edge slice.
 """
 
 from __future__ import annotations
@@ -26,11 +33,15 @@ import torch
 
 from buckgnn_tpu_torch.graph.batch import LOCAL_STAR_ROWS, star_table_geometry
 from buckgnn_tpu_torch.ops import segment
+from buckgnn_tpu_torch.ops.dropout import (
+    apply_dropout, dropout_scale, dropout_threshold,
+)
 
 # launches of each kernel wrapper (reset by callers that count a run)
-LAUNCHES = {"sage_layer_fwd": 0}
+LAUNCHES = {"sage_layer_fwd": 0, "sage_layer_bwd": 0}
 
-_BM = 64  # rows per kernel block (csrc/sage_layer_fwd.cu)
+_BM = 64  # rows per kernel block (csrc/sage_layer_{fwd,bwd}.cu)
+_KSPLIT = 16  # row chunks of the backward's weight pass (sage_layer_bwd.cu)
 
 # How close the kernel's outputs must be to the plain version's on the
 # same bf16 inputs, as (atol, rtol): |got - ref| <= atol + rtol * |ref|.
@@ -45,6 +56,35 @@ KERNEL_Z_TOL = (4e-3, 8e-3)
 # sums of the same bf16 values in another order, ~1e-3 for sums of ~1000
 # terms of O(1); a dropped or misplaced z row moves entries by |z|.
 KERNEL_TABLE_TOL = (1e-2, 1e-4)
+# The training variant's residuals against the plain ones: y within the z
+# gate (the same rounding of the same f32 values); inv, an f32 rsqrt of an
+# f32 sum of 512 squares in another order, to 1e-5 relative; agg is the
+# forward's bf16 cast of the band sum, one ulp like z.
+KERNEL_INV_TOL = (0.0, 1e-5)
+
+# Backward gates, kernel against `sage_layer_bwd_plain` on the same bf16
+# inputs, as (atol as a fraction of rms(ref), rtol):
+# |got - ref| <= atol * rms(ref) + rtol * |ref|. Both sides compute the
+# same bf16 products with f32 sums in another order, so a bf16 value (dout,
+# dagg, dxp, dx) can round to its neighbour: one ulp is at most 2^-7 of
+# |dx| (rtol 1.6e-2 takes two: dxp's and dx's), and a flipped dagg moves dx
+# rows by a band count times one ulp of dagg, which the atol of 5% of
+# rms(dx) covers. The own table sums a graph's bf16 dagg rows (tens to
+# hundreds of them), so dagg's flips add up in it the same way: dx's gate.
+# dW and db are f32 sums over every row of products of bf16 values in
+# which flips are rare and of random sign: 1e-3 relative to their rms.
+# A norm backward without its s term, or a dz without the next layer's
+# star, moves every row by O(rms) and fails them.
+KERNEL_BWD_TOL = {"dx": (5e-2, 1.6e-2), "dw_l": (1e-3, 1e-3),
+                  "dw_r": (1e-3, 1e-3), "db_l": (1e-3, 1e-3),
+                  "town": (5e-2, 1.6e-2)}
+
+
+def gate_tol(ref: torch.Tensor, tol) -> tuple[float, float]:
+    """(atol, rtol) of a KERNEL_BWD_TOL entry for this reference."""
+    frac, rtol = tol
+    rms = float(ref.float().pow(2).mean().sqrt())
+    return frac * rms, rtol
 
 
 def reset_launch_counts() -> None:
@@ -67,10 +107,16 @@ def _window_rows(gwin, gw: int, t0: int, n_tiles: int, device):
     return torch.cat([wb[:, None] + ar, t0 + wb[:, None] + ar], dim=1)
 
 
+def _check_dropout(rate: float, seed) -> None:
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout needs two seed words")
+
+
 def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
                      table=None, code=None, gwin=None, gw: int = 0,
                      t0: int = 0, acc_code=None, skip: bool = False,
-                     emit: bool = False):
+                     emit: bool = False, save_res: bool = False,
+                     rate: float = 0.0, seed=None):
     """Plain PyTorch version of the fused layer, operation by operation as
     the TPU kernel: products of x.dtype values accumulated in float32.
 
@@ -78,9 +124,13 @@ def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
     or None (no supernode). ``code``: per-row selector over the 2*GW window
     rows ([n_tiles, T] or [n_tiles, T, 1]; 2*GW selects nothing). ``gwin``:
     [n_tiles] window bases, or None for the whole table (GW == T0).
-    ``acc_code``: per-row accumulate codes for ``emit``. Returns
-    ``(z, ftab)``; ftab is the [tg, H] float32 next-layer table or None.
+    ``acc_code``: per-row accumulate codes for ``emit``. ``rate`` > 0 drops
+    with the keep mask of ``seed`` (ops/dropout.py). Returns ``(z, ftab)``;
+    ftab is the [tg, H] float32 next-layer table or None. With
+    ``save_res`` returns ``(z, ftab, y, inv, agg)``: y and agg in x.dtype,
+    inv float32 [N].
     """
+    _check_dropout(rate, seed)
     n, h = x.shape
     n_tiles = n // tile
     dt = x.dtype
@@ -100,14 +150,19 @@ def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
     out = (agg.float() @ w_l.float() + x.float() @ w_r.float()
            + b_l.reshape(1, h).float())
     sq = (out * out).sum(dim=-1, keepdim=True)
-    y = out * torch.rsqrt(sq.clamp_min(1e-24))
+    inv = torch.rsqrt(sq.clamp_min(1e-24))
+    y = out * inv
     r = torch.relu(y)
     if skip:
         r = r + x.float()
+    if rate > 0.0:
+        r = apply_dropout(r, seed, rate)
     z = r.to(dt)
     ftab = None
     if emit:
         ftab = emit_table_plain(z, acc_code, gwin, gw, t0, tile)
+    if save_res:
+        return z, ftab, y.to(dt), inv.reshape(n), agg
     return z, ftab
 
 
@@ -128,17 +183,25 @@ def emit_table_plain(z, acc_code, gwin, gw: int, t0: int, tile: int):
 
 def _check(cond: bool, what: str) -> None:
     if not cond:
-        raise ValueError(f"sage_layer_fwd kernel: {what}")
+        raise ValueError(f"fused SAGE layer kernel: {what}")
 
 
 def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
+def _dropout_args(rate: float, seed):
+    if rate <= 0.0:
+        return 0, 0, 0, 0, 1.0
+    s0, s1 = (int(v) & 0xFFFFFFFF for v in seed)
+    return 1, dropout_threshold(rate), s0, s1, dropout_scale(rate)
+
+
 def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
-            t0, acc_code, skip, emit):
+            t0, acc_code, skip, emit, save_res, rate, seed):
     from buckgnn_tpu_torch.utils import cuda_build
 
+    _check_dropout(rate, seed)
     n, h = x.shape
     has_super = table is not None
     bf16 = [x, w_l, b_l, w_r] + ([table] if has_super else [])
@@ -175,40 +238,197 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
         _check(acc_code.numel() == n, "one accumulate code per row")
 
     z = torch.empty_like(x)
-    partial = ftab = None
+    partial = ftab = y = inv = agg = None
     if emit:
         partial = torch.empty((n // _BM, 2 * gw, h), dtype=torch.float32,
                               device=dev)
         ftab = torch.empty((tg, h), dtype=torch.float32, device=dev)
+    if save_res:
+        y, agg = torch.empty_like(x), torch.empty_like(x)
+        inv = torch.empty((n,), dtype=torch.float32, device=dev)
+    drop, thr, s0, s1, scale = _dropout_args(rate, seed)
     lib = cuda_build.load("sage_layer_fwd")
     fn = lib.sage_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 12
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(x), _ptr(band), _ptr(w_l), _ptr(w_r), _ptr(b_l),
              _ptr(table), _ptr(code), _ptr(gwin), _ptr(acc_code), _ptr(z),
-             _ptr(partial), _ptr(ftab), n, h, tile, width, gw, t0, tg,
-             int(has_super), int(skip), int(emit), ctypes.c_void_p(stream))
+             _ptr(partial), _ptr(ftab), _ptr(y), _ptr(inv), _ptr(agg), n, h,
+             tile, width, gw, t0, tg, int(has_super), int(skip), int(emit),
+             int(save_res), drop, thr, s0, s1, scale, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sage_layer_fwd launch failed: CUDA error {err}")
     LAUNCHES["sage_layer_fwd"] += 1
+    if save_res:
+        return z, ftab, y, inv, agg
     return z, ftab
 
 
 def sage_layer_fwd(x, w_l, b_l, w_r, band, *, tile: int, width: int,
                    table=None, code=None, gwin=None, gw: int = 0,
                    t0: int = 0, acc_code=None, skip: bool = False,
-                   emit: bool = False):
-    """The fused layer (arguments as `sage_layer_plain`). CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version."""
+                   emit: bool = False, save_res: bool = False,
+                   rate: float = 0.0, seed=None):
+    """The fused layer (arguments and results as `sage_layer_plain`). CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
     kw = dict(tile=tile, width=width, table=table, code=code, gwin=gwin,
-              gw=gw, t0=t0, acc_code=acc_code, skip=skip, emit=emit)
+              gw=gw, t0=t0, acc_code=acc_code, skip=skip, emit=emit,
+              save_res=save_res, rate=rate, seed=seed)
     if x.device.type == "cuda":
         return _launch(x, w_l, b_l, w_r, band, **kw)
     if x.device.type == "cpu":
         return sage_layer_plain(x, w_l, b_l, w_r, band, **kw)
     raise ValueError(f"sage_layer_fwd: unsupported device {x.device}")
+
+
+def sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
+                         width: int, table_prev=None, code=None, gwin=None,
+                         gw: int = 0, t0: int = 0, acc_code=None,
+                         has_super: bool = False, skip: bool = False,
+                         rate: float = 0.0, seed=None):
+    """Plain PyTorch version of the merged backward, step by step as the
+    TPU kernel (_bwd_merged_kernel) with its casts.
+
+    ``dz``: cotangent of z. ``y``, ``inv``, ``agg``: the forward's
+    residuals. ``table_prev``: the next layer's deferred star table in
+    x.dtype (apply_prev), added at ``code`` before the dropout mask.
+    ``acc_code``: accumulate codes of the own star table (``has_super``).
+    Returns ``(dx, dW_l, dW_r, db_l, town)``: dx in x.dtype, the rest
+    float32; town is the [2*T0, H] own table or None. dx leaves the own
+    star out: it goes to the previous layer through town.
+    """
+    _check_dropout(rate, seed)
+    n, h = x.shape
+    n_tiles = n // tile
+    dt = x.dtype
+    dz_eff = dz.float()
+    if table_prev is not None:
+        rows = _window_rows(gwin, gw, t0, n_tiles, x.device)
+        ltab = table_prev.to(dt)[rows].float()           # [n_tiles, 2GW, H]
+        sel = (code.reshape(n_tiles, tile, 1)
+               == torch.arange(2 * gw, device=x.device)).to(dt).float()
+        dz_eff = dz_eff + torch.bmm(sel, ltab).reshape(n, h)
+    if rate > 0.0:
+        dz_eff = apply_dropout(dz_eff, seed, rate)
+    dout = _norm_backward(dz_eff, y.float(), inv.reshape(n, 1))
+    dout_c = dout.to(dt).float()
+    dagg = (dout_c @ w_l.float().t()).to(dt)
+    dxp = dout_c @ w_r.float().t()
+    if skip:
+        dxp = dxp + dz_eff
+    dxp = dxp.to(dt)
+    dwl = agg.float().t() @ dout_c
+    dwr = x.float().t() @ dout_c
+    dbl = dout.sum(dim=0)
+    town = (emit_table_plain(dagg, acc_code, gwin, gw, t0, tile)
+            if has_super else None)
+    starts = _slab_starts(n, tile, width, x.device)
+    idx = starts[:, None] + torch.arange(tile + width, device=x.device)
+    b = band.reshape(n_tiles, tile, tile + width).to(dt).float()
+    dx = (dxp.float() + torch.bmm(b, dagg[idx].float()).reshape(n, h)).to(dt)
+    return dx, dwl, dwr, dbl, town
+
+
+def _norm_backward(dz_eff, y, inv):
+    """The cotangent of out through relu and the L2 norm, in float32: dy =
+    dz_eff where y > 0; dout = (dy - y * rowsum(dy * y)) * inv."""
+    dy = torch.where(y > 0.0, dz_eff, torch.zeros((), device=y.device))
+    s = (dy * y).sum(dim=-1, keepdim=True)
+    return (dy - y * s) * inv
+
+
+def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
+                table_prev, code, gwin, gw, t0, acc_code, has_super, skip,
+                rate, seed):
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    _check_dropout(rate, seed)
+    n, h = x.shape
+    apply_prev = table_prev is not None
+    bf16 = [dz, y, agg, x, w_l, w_r] + ([table_prev] if apply_prev else [])
+    ints = (([code] if apply_prev else []) + ([acc_code] if has_super else [])
+            + ([gwin] if gwin is not None else []))
+    dev = x.device
+    for t in bf16 + ints + [band, inv]:
+        _check(t.device == dev, "all tensors on one CUDA device")
+        _check(t.is_contiguous(), "contiguous tensors")
+    for t in bf16:
+        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
+        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
+        _check(t.shape[-1] == h, "every [., H] operand of width H")
+    for t in ints:
+        _check(t.dtype == torch.int32, "int32 codes")
+    _check(inv.dtype == torch.float32 and inv.numel() == n, "inv f32 [N]")
+    _check(band.dtype == torch.int8, "int8 band")
+    _check(h in (128, 256, 512), "H in (128, 256, 512)")
+    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
+    _check(n // tile >= 2, "at least 2 node tiles")
+    _check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
+    _check(n >= tile + width, "N >= T+W")
+    _check(band.numel() == n * (tile + width), "band [N/T, T, T+W]")
+    for t in (dz, y, agg):
+        _check(tuple(t.shape) == (n, h), "dz, y, agg [N, H]")
+    _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h),
+           "W_l, W_r [H, H]")
+    tg = 2 * t0
+    if has_super:
+        _check(gwin is None or gwin.numel() == n // tile, "gwin [N/T]")
+        _check(gwin is not None or gw == t0, "full-table selection: GW == T0")
+        _check(acc_code.numel() == n, "one accumulate code per row")
+    if apply_prev:
+        _check(has_super, "apply_prev needs a supernode batch")
+        _check(tuple(table_prev.shape) == (tg, h), "table_prev [2*T0, H]")
+        _check(code.numel() == n, "one code per row")
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    dout, dagg, dxp, dx = (torch.empty_like(x) for _ in range(4))
+    db_part = torch.empty((n // _BM, h), **f32)
+    dw_part = torch.empty((2, _KSPLIT, h, h), **f32)
+    dwl, dwr = torch.empty((h, h), **f32), torch.empty((h, h), **f32)
+    dbl = torch.empty((h,), **f32)
+    t_part = town = None
+    if has_super:
+        t_part = torch.empty((n // _BM, 2 * gw, h), **f32)
+        town = torch.empty((tg, h), **f32)
+    drop, thr, s0, s1, scale = _dropout_args(rate, seed)
+    lib = cuda_build.load("sage_layer_bwd")
+    fn = lib.sage_layer_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 11
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(dz), _ptr(y), _ptr(inv), _ptr(agg), _ptr(x), _ptr(w_l),
+             _ptr(w_r), _ptr(band), _ptr(table_prev), _ptr(code), _ptr(gwin),
+             _ptr(acc_code), _ptr(dout), _ptr(dagg), _ptr(dxp), _ptr(dx),
+             _ptr(db_part), _ptr(t_part), _ptr(dw_part), _ptr(dwl),
+             _ptr(dwr), _ptr(dbl), _ptr(town), n, h, tile, width, gw, t0, tg,
+             int(apply_prev), int(has_super), int(skip), drop, thr, s0, s1,
+             scale, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sage_layer_bwd launch failed: CUDA error {err}")
+    LAUNCHES["sage_layer_bwd"] += 1
+    return dx, dwl, dwr, dbl, town
+
+
+def sage_layer_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
+                   width: int, table_prev=None, code=None, gwin=None,
+                   gw: int = 0, t0: int = 0, acc_code=None,
+                   has_super: bool = False, skip: bool = False,
+                   rate: float = 0.0, seed=None):
+    """The merged backward (arguments and results as
+    `sage_layer_bwd_plain`). CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
+    kw = dict(tile=tile, width=width, table_prev=table_prev, code=code,
+              gwin=gwin, gw=gw, t0=t0, acc_code=acc_code,
+              has_super=has_super, skip=skip, rate=rate, seed=seed)
+    if x.device.type == "cuda":
+        return _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, **kw)
+    if x.device.type == "cpu":
+        return sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, **kw)
+    raise ValueError(f"sage_layer_bwd: unsupported device {x.device}")
 
 
 def supports_fused_layer(ctx, x, aggr: str, normalize: bool) -> bool:
@@ -248,26 +468,128 @@ def star_codes(batch):
     return batch.gcode, None, t0, batch.gacc
 
 
-def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
-                     deterministic: bool = True, table_in=None,
-                     emit_table: bool = False):
-    """One full shared-SAGE layer: conv + normalize + relu (+skip).
+def star_apply(ct, table, gcode_flat, tg: int):
+    """ct + table[gcode] in ct's dtype (the JAX package's `_star_apply`,
+    its one-hot product written as the gather it equals); the sentinel code
+    tg adds nothing."""
+    t = torch.cat([table.to(ct.dtype),
+                   table.new_zeros((1, table.shape[1]), dtype=ct.dtype)])
+    return ct + t[gcode_flat.long()]
 
-    ``table_in``: the previous layer's emitted star table (float32), else
-    the table is built here from x. Returns ``(z, ftab)``; ``ftab`` is the
-    next layer's table when ``emit_table`` (local windows only), else None.
+
+class _StarSource(torch.autograd.Function):
+    """Opens a star-threading chain at the encoder boundary: forward is
+    (x, zeros [tg, H] float32); backward folds the ghost's cotangent (the
+    first fused layer's deferred star table) into dx."""
+
+    @staticmethod
+    def forward(ctx, x, gcode_flat, tg):
+        ctx.gcode_flat, ctx.tg, ctx.dtype = gcode_flat, tg, x.dtype
+        ctx.set_materialize_grads(False)
+        return x.view_as(x), x.new_zeros((tg, x.shape[1]),
+                                         dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dx, dt):
+        if dt is None:
+            return dx, None, None
+        if dx is None:
+            dx = dt.new_zeros((ctx.gcode_flat.numel(), dt.shape[1]),
+                              dtype=ctx.dtype)
+        return star_apply(dx, dt, ctx.gcode_flat, ctx.tg), None, None
+
+
+def star_source(x, ctx):
+    """``(x, t0)``: t0 is a ghost [tg, H] zeros whose cotangent, the first
+    fused layer's deferred star table, is added to x's gradient at the
+    batch's global codes (`star_apply`)."""
+    batch = ctx.batch
+    _, tg = star_table_geometry(batch.n_graph_cap)
+    return _StarSource.apply(x, batch.gcode.reshape(-1), tg)
+
+
+class _FusedLayer(torch.autograd.Function):
+    """The fused layer with its merged backward (the JAX package's
+    ``_fused_layer`` custom VJP, no-spill branch).
+
+    Differentiable inputs: x, w_l, b_l, w_r and the ghost ``t_in``. Outputs
+    ``(z, t_out, ftab)``: ``t_out`` is a ghost zeros table whose cotangent
+    is the next layer's deferred star table (added to dz at the star codes
+    before the mask when ``apply_prev``); ``t_in``'s cotangent is this
+    layer's own star table. Without threading (``t_in`` None) the own star
+    is folded into dx here. ``ftab`` (the next layer's forward table) and
+    the star ``table`` (built from x outside, or threaded) carry zero
+    cotangent by declaration: the symmetric star operator's whole gradient
+    already arrives through the own table.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w_l, b_l, w_r, t_in, spec):
+        z, ftab, y, inv, agg = sage_layer_fwd(
+            x, w_l, b_l, w_r, spec["band"], save_res=True, **spec["fwd"])
+        ctx.save_for_backward(x, w_l, w_r, y, inv, agg)
+        ctx.spec = spec
+        ctx.b_dtype = b_l.dtype
+        ctx.thread = t_in is not None
+        ctx.set_materialize_grads(False)
+        t_out = x.new_zeros((spec["tg"], x.shape[1]), dtype=torch.float32)
+        if ftab is None:
+            ftab = x.new_zeros((0,), dtype=torch.float32)
+        ctx.mark_non_differentiable(ftab)
+        return z, t_out, ftab
+
+    @staticmethod
+    def backward(ctx, dz, dt_out, _dftab):
+        x, w_l, w_r, y, inv, agg = ctx.saved_tensors
+        spec = ctx.spec
+        dz = torch.zeros_like(x) if dz is None else dz.contiguous()
+        table_prev = None
+        if spec["apply_prev"]:
+            if dt_out is None:
+                dt_out = x.new_zeros((spec["tg"], x.shape[1]))
+            table_prev = dt_out.to(x.dtype).contiguous()
+        dx, dwl, dwr, dbl, town = sage_layer_bwd(
+            dz, y, inv, agg, x, w_l, w_r, spec["band"],
+            table_prev=table_prev, **spec["bwd"])
+        dt_in = None
+        if town is not None:
+            if ctx.thread:
+                dt_in = town
+            else:
+                dx = star_apply(dx, town, spec["gcode_flat"], spec["tg"])
+        return (dx, dwl.to(w_l.dtype), dbl.to(ctx.b_dtype),
+                dwr.to(w_r.dtype), dt_in, None)
+
+
+def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
+                     seed=None, deterministic: bool = True, star_in=None,
+                     star_next: bool = False, table_in=None,
+                     emit_table: bool = False):
+    """One full shared-SAGE layer: conv + normalize + relu (+skip) +
+    dropout, differentiable in x and the weights.
+
+    ``seed``: two ints (dropout words, ops/dropout.py); needed when
+    training with ``rate`` > 0. ``table_in``: the previous layer's emitted
+    star table (float32), else the table is built here from x (outside the
+    gradient). Star threading (supernode batches): pass ``star_in`` (the
+    previous layer's star_out, or ``star_source(x0, ctx)[1]``) to get
+    ``(z, star_out, ftab)`` back, and set ``star_next`` on every layer whose
+    star_out the next layer consumes. Without ``star_in`` returns
+    ``(z, ftab)`` with self-contained gradients. ``ftab`` is the next
+    layer's table when ``emit_table`` (local windows only), else None.
     Requires ``supports_fused_layer(...)``.
     """
     batch = ctx.batch
-    if not deterministic and rate > 0.0:
-        raise NotImplementedError(
-            "dropout in the fused layer comes with the training slice "
-            "(ROADMAP queue 2, kernel 2)")
+    rate = float(rate) if not deterministic else 0.0
+    _check_dropout(rate, seed)
     if batch.has_spill_edges:
         raise NotImplementedError(
             "spill edges in the fused layer come with the spill slice "
             "(ROADMAP queue 1, item 5)")
     has_super = batch.has_supernode_edges
+    thread = star_in is not None
+    if thread and not has_super:
+        raise ValueError("star threading requires a supernode batch")
     if emit_table and (not has_super or batch.gwin is None):
         raise ValueError("emit_table requires a supernode batch with local "
                          "star windows")
@@ -279,11 +601,26 @@ def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
         if table_in is not None:
             table = table_in.to(x.dtype)
         else:
-            table = _super_tables(x, batch.node_graph, batch.node_mask,
-                                  batch.supernode_index, batch.n_graph_cap,
-                                  tg)
-    return sage_layer_fwd(
-        x, w_l, b_l, w_r, ctx.band, tile=batch.band_tile,
-        width=batch.band_width, table=table, code=code, gwin=gwin, gw=gw,
-        t0=t0, acc_code=acc if emit_table else None, skip=skip,
-        emit=emit_table)
+            table = _super_tables(x.detach(), batch.node_graph,
+                                  batch.node_mask, batch.supernode_index,
+                                  batch.n_graph_cap, tg)
+    fwd = dict(tile=batch.band_tile, width=batch.band_width, table=table,
+               code=code, gwin=gwin, gw=gw, t0=t0,
+               acc_code=acc if emit_table else None, skip=skip,
+               emit=emit_table, rate=rate, seed=seed)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w_l, b_l, w_r))
+    if not needs_grad:
+        z, ftab = sage_layer_fwd(x, w_l, b_l, w_r, ctx.band, **fwd)
+        if thread:
+            return z, x.new_zeros((tg, x.shape[1]), dtype=torch.float32), ftab
+        return z, ftab
+    spec = dict(
+        band=ctx.band, fwd=fwd, tg=tg, apply_prev=has_super and star_next,
+        gcode_flat=batch.gcode.reshape(-1) if has_super else None,
+        bwd=dict(tile=batch.band_tile, width=batch.band_width, code=code,
+                 gwin=gwin, gw=gw, t0=t0, acc_code=acc, has_super=has_super,
+                 skip=skip, rate=rate, seed=seed))
+    z, t_out, ftab = _FusedLayer.apply(x, w_l, b_l, w_r, star_in, spec)
+    ftab = ftab if emit_table else None
+    return (z, t_out, ftab) if thread else (z, ftab)

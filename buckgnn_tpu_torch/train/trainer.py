@@ -1,11 +1,16 @@
-"""Model construction, loss/metric assembly and the eval step (serving).
+"""Model construction, the optimizer, loss/metric assembly and the steps.
 
-The port of buckgnn_tpu/train/trainer.py:51-67, 96-146, 182-191. The model
-object carries its parameters (the JAX ``TrainState`` role); the optimizer
-and the train step come with the training slice.
+The port of buckgnn_tpu/train/trainer.py:43-76, 96-208. `TrainState` holds
+the model (its parameters), the optimizer (its moments) and the epoch: the
+JAX ``TrainState``'s role. `make_train_step` gives one eager optimization
+step, `train_step(batch, lr, generator)`: a forward with dropout seeds
+drawn from ``generator``, the loss on denormalized targets, the backward
+through the fused layers' kernels, and an Adam step at ``lr``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -42,6 +47,30 @@ def build_model(cfg: TrainConfig, num_node_features: int,
     return model.to(device).eval()
 
 
+@dataclasses.dataclass
+class TrainState:
+    model: BuckGNN
+    optimizer: torch.optim.Optimizer
+    epoch: int = 0
+
+
+def make_optimizer(cfg: TrainConfig, model: BuckGNN) -> torch.optim.Adam:
+    """Adam with the JAX package's optax chain semantics: weight decay adds
+    wd * param to the gradient before the moments (torch's Adam
+    weight_decay, as the reference uses it); the learning rate is set by
+    each train step (the per-epoch schedule, train/schedule.py)."""
+    return torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay)
+
+
+def init_state(model: BuckGNN,
+               optimizer: torch.optim.Optimizer) -> TrainState:
+    """The state of a new run: the model's weights are the ones
+    `build_model` drew from ``cfg.seed``, the optimizer has no moments."""
+    return TrainState(model=model, optimizer=optimizer)
+
+
 def make_loss_and_metrics(criterion, cfg: TrainConfig,
                           normalizer: DatasetNormalizer | None):
     """Shared per-batch loss/metric assembly (buckling): loss on
@@ -66,6 +95,33 @@ def make_loss_and_metrics(criterion, cfg: TrainConfig,
                                    ev_scale, ev_center)}
 
     return compute_loss, compute_metrics
+
+
+def make_train_step(model: BuckGNN, optimizer: torch.optim.Optimizer,
+                    criterion, cfg: TrainConfig,
+                    normalizer: DatasetNormalizer | None):
+    """``(train_step, eval_step)``. ``train_step(batch, lr, generator)``
+    runs one optimization step in place on the model and the optimizer and
+    returns the metrics (``loss``, ``mape``) as detached device scalars,
+    without waiting for the device."""
+    compute_loss, compute_metrics = make_loss_and_metrics(criterion, cfg,
+                                                          normalizer)
+
+    def train_step(batch: GraphBatch, lr: float,
+                   generator: torch.Generator | None):
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr)
+        optimizer.zero_grad(set_to_none=True)
+        pred, aux = model(batch, deterministic=False, generator=generator)
+        loss = compute_loss(pred, aux, batch)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            metrics = compute_metrics(pred.detach(), aux, batch)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return train_step, make_eval_step(model, criterion, cfg, normalizer)
 
 
 def make_eval_step(model: BuckGNN, criterion, cfg: TrainConfig,

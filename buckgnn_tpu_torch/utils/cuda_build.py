@@ -2,13 +2,15 @@
 
 Each source under ``buckgnn_tpu_torch/csrc/`` has a plain C interface and
 is compiled at first use for ``sm_90a`` into ``buckgnn_tpu_torch/_build/``
-(listed in .gitignore), keyed by a hash of the source. Nothing here runs at
+(listed in .gitignore), keyed by a hash of the source and the shared
+headers (``csrc/*.cuh``). Nothing here runs at
 import time; a machine without nvcc only fails when a kernel is asked for.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -19,6 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "sage_layer_fwd": os.path.join(_PKG, "csrc", "sage_layer_fwd.cu"),
+    "sage_layer_bwd": os.path.join(_PKG, "csrc", "sage_layer_bwd.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,8 +39,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
+    for path in [SOURCES[name], *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    tag = digest.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
