@@ -1,11 +1,14 @@
-"""Benchmark setups: the flagship model serving and training one packed batch.
+"""Benchmark setups: the 6-layer SAGE model serving and training one batch.
 
 The port of the repo-root bench.py (build_bench_setup and run_bench). The
-flagship cell: 128 synthetic supernode panels (24-32 nodes a side),
-normalized, RCM-ordered and packed into one batch on the band that
-`select_band_geometry` picks, for the 6-layer, hidden-512, bf16
-``GraphSage_addAggr_Shared`` model with random weights from a seeded
-generator. ``build_serve_setup()`` answers it with eval_step;
+cells: 128 synthetic panels (24-32 nodes a side), normalized, RCM-ordered
+and packed into one batch on the band that `select_band_geometry` picks,
+for the 6-layer, hidden-512, bf16 ``GraphSage_addAggr_Shared`` model with
+random weights from a seeded generator. ``use_super_node=True`` (the
+flagship) gives each panel a supernode; ``use_super_node=False`` gives it
+virtual edges instead, the data path of the ``TrainConfig`` defaults and of
+``bench.py::build_bench_setup``'s own default, whose out-of-band edges take
+the spill path. ``build_serve_setup()`` answers it with eval_step;
 ``build_train_setup()`` trains on it with the TrainConfig defaults of the
 JAX bench (dropout 0.1, relative-error loss, Adam with weight decay 1e-8)
 at lr 1e-3, the JAX bench's own rate. The JAX bench chains 10 steps into
@@ -44,9 +47,10 @@ def pack_exact(normed, batch_size: int, band_width: int | None,
 TRAIN_LR = 1e-3  # the learning rate of the JAX bench's train steps
 
 
-def _flagship(device):
+def _flagship(device, use_super_node: bool = True):
     """(cfg, normalized dataset, normalizer, packed batch, model) of the
-    flagship cell on ``device``."""
+    flagship cell (``use_super_node``) or the virtual-edge cell on
+    ``device``."""
     from buckgnn_tpu_torch.graph.batch import select_band_geometry
     from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
     from buckgnn_tpu_torch.graph.synthetic import generate_dataset
@@ -54,7 +58,8 @@ def _flagship(device):
 
     batch_size = 128
     dataset = generate_dataset(batch_size, seed=0, min_side=24, max_side=32,
-                               use_super_node=True, use_virtual_edges=False)
+                               use_super_node=use_super_node,
+                               use_virtual_edges=not use_super_node)
     normed, nz = normalize_dataset(dataset)
     cfg = TrainConfig(hidden_channels=512, num_layers=6,
                       compute_dtype="bfloat16", seed=0)
@@ -65,14 +70,16 @@ def _flagship(device):
     return cfg, normed, nz, batch, model
 
 
-def build_serve_setup(device=None):
-    """The flagship cell served. Returns dict(model, batch, eval_step,
+def build_serve_setup(device=None, use_super_node: bool = True):
+    """The flagship cell (or, with ``use_super_node=False``, the
+    virtual-edge cell) served. Returns dict(model, batch, eval_step,
     normalizer, dataset, cfg, n_edges, n_graphs) on ``device`` (the CUDA
     card unless "cpu")."""
     from buckgnn_tpu_torch.train.losses import get_loss_function
     from buckgnn_tpu_torch.train.trainer import make_eval_step
 
-    cfg, normed, nz, batch, model = _flagship(resolve_device(device))
+    cfg, normed, nz, batch, model = _flagship(resolve_device(device),
+                                              use_super_node)
     eval_step = make_eval_step(model, get_loss_function(cfg.loss_function),
                                cfg, nz)
     return dict(model=model, batch=batch, eval_step=eval_step,
@@ -81,8 +88,9 @@ def build_serve_setup(device=None):
                 n_graphs=int(batch.graph_mask.sum()))
 
 
-def build_train_setup(device=None):
-    """The flagship cell trained. Returns dict(state, batch, train_step,
+def build_train_setup(device=None, use_super_node: bool = True):
+    """The flagship cell (or, with ``use_super_node=False``, the
+    virtual-edge cell) trained. Returns dict(state, batch, train_step,
     eval_step, lr, generator, normalizer, dataset, cfg, n_edges, n_graphs)
     on ``device`` (the CUDA card unless "cpu"); ``generator`` (seed 0)
     draws the layers' dropout seeds."""
@@ -91,7 +99,8 @@ def build_train_setup(device=None):
         init_state, make_optimizer, make_train_step,
     )
 
-    cfg, normed, nz, batch, model = _flagship(resolve_device(device))
+    cfg, normed, nz, batch, model = _flagship(resolve_device(device),
+                                              use_super_node)
     optimizer = make_optimizer(cfg, model)
     train_step, eval_step = make_train_step(
         model, optimizer, get_loss_function(cfg.loss_function), cfg, nz)

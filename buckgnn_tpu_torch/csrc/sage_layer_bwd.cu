@@ -1,7 +1,16 @@
-// Fused GraphSAGE layer backward for Hopper (sm_90a), no spill edges.
+// Fused GraphSAGE layer backward for Hopper (sm_90a): the merged backward
+// (batches without spill edges) and the split backward's tile kernel
+// (batches with spill edges).
 //
-// Replaces the TPU kernel buckgnn_tpu/ops/pallas_sage_layer.py::
-// _bwd_merged_kernel (launched by _call_bwd_merged). From the forward's
+// sage_layer_bwd replaces the TPU kernel buckgnn_tpu/ops/
+// pallas_sage_layer.py::_bwd_merged_kernel (launched by _call_bwd_merged).
+// sage_layer_bwd_tile replaces _bwd_kernel (launched by _call_bwd_tile):
+// passes 1, 3 and 4 below without apply_prev (the caller adds the next
+// layer's table to dz) and without the band pass (the caller runs
+// banded_matmul.cu on dagg, with the spill window, the own star and dxp);
+// dagg and dxp are its outputs, and the own star table is summed by the
+// global accumulate codes over the whole table (gw = T0, one window at
+// base 0), from the bf16 dagg as on the TPU. From the forward's
 // residuals y (bf16), inv (f32, one per row) and agg (bf16), for each row:
 //
 //   dz_eff = dz + bf16(table_prev)[code]          (apply_prev: the next
@@ -24,7 +33,8 @@
 //   1. tile pass, one block per 64 rows: dout, dagg and dxp to device
 //      memory in bf16, plus per-block f32 partials of db_l and of the star
 //      table;
-//   2. band pass, one block per 64 rows: dx = dxp + band @ dagg slab;
+//   2. band pass, one block per 64 rows: dx = dxp + band @ dagg slab,
+//      banded.cuh::banded_kernel with its acc add (the banded SpMM's kernel);
 //   3. weight pass: [agg | x]^T @ dout split over a fixed number of row
 //      chunks (split-K), f32 partials per chunk;
 //   4. reductions of the dW, db and table partials, each in a fixed order.
@@ -36,20 +46,25 @@
 // 989 TFLOP/s). This design also writes and reads dagg, dxp and dout
 // (~318 MB each way) and the table partials, a known cost: the TPU kernel
 // keeps dagg in VMEM. Products use wmma 16x16x16 bf16 fragments with f32
-// accumulators; there is no TMA, wgmma or pipelining yet.
+// accumulators; there is no TMA, wgmma or pipelining yet. The split tile
+// kernel at the virtual-edge shape (the same N, T, W and H, no supernodes)
+// does ~217 GFLOP (0.22 ms at 989 TFLOP/s) against ~0.64 GB of compulsory
+// traffic (dz, y, agg, x read; dagg, dxp written: 0.19 ms at 3.35 TB/s),
+// so it is bound by operations too; it also writes and reads dout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "banded.cuh"
 #include "sage_common.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;  // rows per block of the tile and band passes
+constexpr int BM = 64;  // rows per block of the tile pass
 constexpr int NWARP = 8;
 constexpr int NTHREADS = NWARP * 32;
 constexpr int KSPLIT = 16;  // row chunks of the weight pass
@@ -283,74 +298,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) bwd_tile_kernel(Params p) {
   }
 }
 
-// ---- pass 2: dx = dxp + band_t @ dagg slab --------------------------------
-template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) bwd_band_kernel(Params p) {
-  constexpr int WN = H / NWARP;
-  constexpr int NF = WN / 16;
-  constexpr int MF = BM / 16;
-  constexpr int LDF = H + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // aliases sf
-
-  const int S = p.tile + p.width;
-  const int LD1 = S + 8;
-  const int bpt = p.tile / BM;
-  const int t = blockIdx.x / bpt;
-  const int row0 = blockIdx.x * BM;
-  const int start = max(0, min(t * p.tile - p.width / 2, max(p.n - S, 0)));
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = warp * WN;
-
-  const int8_t* band = p.band + (size_t)row0 * S;
-  for (int i = tid; i < BM * S; i += NTHREADS) {
-    const int r = i / S;
-    const int k = i - r * S;
-    sA[r * LD1 + k] = __float2bfloat16((float)band[i]);
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = 0; k0 < S; k0 += 16) {
-    const bf16* brow = p.dagg + (size_t)(start + k0) * H;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[MF];
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-      wmma::load_matrix_sync(a[i], sA + i * 16 * LD1 + k0, LD1);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, brow + n0 + j * 16, H);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-  __syncthreads();  // every warp is done with sA before sf overwrites it
-  store_acc<H>(acc, sf, LDF, n0);
-  __syncthreads();
-  constexpr int NQ = H / 64;
-  for (int rr = 0; rr < BM / NWARP; ++rr) {
-    const int r = warp * (BM / NWARP) + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const __nv_bfloat162 b2 =
-          *reinterpret_cast<const __nv_bfloat162*>(p.dxp + gh + c);
-      *reinterpret_cast<__nv_bfloat162*>(p.dx + gh + c) =
-          __floats2bfloat162_rn(__bfloat162float(b2.x) + sf[r * LDF + c],
-                                __bfloat162float(b2.y) + sf[r * LDF + c + 1]);
-    }
-  }
-}
-
 // ---- pass 3: weight gradients, split over KSPLIT row chunks --------------
 // part[w, chunk, i, j] = sum_{k in chunk} A_w[k, i] * dout[k, j], with
 // A_0 = agg and A_1 = x. Blocks of 8 warps own a 128 x 128 output tile;
@@ -452,39 +399,59 @@ __global__ void db_reduce_kernel(const float* part, float* db, int n_blocks,
 }
 
 template <int H>
-cudaError_t launch(Params p, float* dwl, float* dwr, float* db, float* town,
-                   int tg, cudaStream_t st) {
-  const int n_blocks = p.n / BM;
+cudaError_t launch_tile(const Params& p, cudaStream_t st) {
   const int tile_smem = BM * (H + 4) * 4 + BM * (H + 8) * 2 + 2 * BM * 4;
   cudaError_t e = cudaFuncSetAttribute(
       bwd_tile_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       tile_smem);
   if (e != cudaSuccess) return e;
-  bwd_tile_kernel<H><<<n_blocks, NTHREADS, tile_smem, st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_tile_kernel<H><<<p.n / BM, NTHREADS, tile_smem, st>>>(p);
+  return cudaGetLastError();
+}
 
-  int band_smem = BM * (H + 4) * 4;
-  const int a_bytes = BM * (p.tile + p.width + 8) * 2;
-  if (a_bytes > band_smem) band_smem = a_bytes;
-  e = cudaFuncSetAttribute(bwd_band_kernel<H>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           band_smem);
-  if (e != cudaSuccess) return e;
-  bwd_band_kernel<H><<<n_blocks, NTHREADS, band_smem, st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
+// passes 3 and 4: dW, db and (has_super) the own table from the partials
+template <int H>
+cudaError_t launch_weights(const Params& p, float* dwl, float* dwr,
+                           float* db, float* town, int tg, cudaStream_t st) {
+  cudaError_t e;
   dw_kernel<H><<<dim3(H / TI, H / TJ, 2 * KSPLIT), NTHREADS, 0, st>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   dw_reduce_kernel<<<dim3((H * H + 255) / 256, 2), 256, 0, st>>>(
       p.dw_part, dwl, dwr, H * H);
   db_reduce_kernel<<<(H + 31) / 32, NTHREADS, 0, st>>>(p.db_part, db,
-                                                       n_blocks, H);
+                                                       p.n / BM, H);
   if (p.has_super) {
     dim3 grid((H + 255) / 256, tg);
     sage::table_reduce_kernel<<<grid, 256, 0, st>>>(
         p.t_part, p.gwin, town, p.n / p.tile, p.tile / BM, p.gw, p.t0, H);
   }
   return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t launch(Params p, float* dwl, float* dwr, float* db, float* town,
+                   int tg, cudaStream_t st) {
+  cudaError_t e = launch_tile<H>(p, st);
+  if (e != cudaSuccess) return e;
+  sage::BandParams bp = {};  // pass 2: dx = bf16(band @ dagg slab + dxp)
+  bp.x = p.dagg;
+  bp.band = p.band;
+  bp.acc = p.dxp;
+  bp.out = p.dx;
+  bp.n = p.n;
+  bp.tile = p.tile;
+  bp.width = p.width;
+  bp.has_acc = 1;
+  if ((e = sage::launch_banded<H>(bp, st)) != cudaSuccess) return e;
+  return launch_weights<H>(p, dwl, dwr, db, town, tg, st);
+}
+
+template <int H>
+cudaError_t launch_split(Params p, float* dwl, float* dwr, float* db,
+                         float* tbwd, int tg, cudaStream_t st) {
+  cudaError_t e = launch_tile<H>(p, st);
+  if (e != cudaSuccess) return e;
+  return launch_weights<H>(p, dwl, dwr, db, tbwd, tg, st);
 }
 
 }  // namespace
@@ -542,6 +509,55 @@ extern "C" int sage_layer_bwd(
     case 128: e = launch<128>(p, fl, fr, fb, ft, tg, st); break;
     case 256: e = launch<256>(p, fl, fr, fb, ft, tg, st); break;
     case 512: e = launch<512>(p, fl, fr, fb, ft, tg, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)e;
+}
+
+extern "C" int sage_layer_bwd_tile(
+    const void* dz, const void* y, const void* inv, const void* agg,
+    const void* x, const void* w_l, const void* w_r, const void* acc_code,
+    void* dout, void* dagg, void* dxp, void* db_part, void* t_part,
+    void* dw_part, void* dwl, void* dwr, void* db, void* tbwd, int n, int h,
+    int tile, int tg, int has_super, int skip, int dropout, unsigned int thr,
+    unsigned int s0, unsigned int s1, float scale, void* stream) {
+  Params p = {};
+  p.dz = static_cast<const bf16*>(dz);
+  p.y = static_cast<const bf16*>(y);
+  p.inv = static_cast<const float*>(inv);
+  p.agg = static_cast<const bf16*>(agg);
+  p.x = static_cast<const bf16*>(x);
+  p.w_l = static_cast<const bf16*>(w_l);
+  p.w_r = static_cast<const bf16*>(w_r);
+  p.acc_code = static_cast<const int*>(acc_code);
+  p.dout = static_cast<bf16*>(dout);
+  p.dagg = static_cast<bf16*>(dagg);
+  p.dxp = static_cast<bf16*>(dxp);
+  p.db_part = static_cast<float*>(db_part);
+  p.t_part = static_cast<float*>(t_part);
+  p.dw_part = static_cast<float*>(dw_part);
+  p.n = n;
+  p.tile = tile;
+  p.gw = tg / 2;  // global codes: the whole table is the one window
+  p.t0 = tg / 2;
+  p.apply_prev = 0;
+  p.has_super = has_super;
+  p.skip = skip;
+  p.dropout = dropout;
+  p.thr = thr;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* fl = static_cast<float*>(dwl);
+  float* fr = static_cast<float*>(dwr);
+  float* fb = static_cast<float*>(db);
+  float* ft = static_cast<float*>(tbwd);
+  cudaError_t e;
+  switch (h) {
+    case 128: e = launch_split<128>(p, fl, fr, fb, ft, tg, st); break;
+    case 256: e = launch_split<256>(p, fl, fr, fb, ft, tg, st); break;
+    case 512: e = launch_split<512>(p, fl, fr, fb, ft, tg, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)e;

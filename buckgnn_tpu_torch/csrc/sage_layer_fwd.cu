@@ -1,11 +1,12 @@
 // Fused GraphSAGE layer forward for Hopper (sm_90a), bf16 in, f32 accumulate.
 //
 // Replaces the TPU kernel buckgnn_tpu/ops/pallas_sage_layer.py::_fwd_kernel
-// (launched by _call_fwd) without spill edges. Per node tile t (T rows)
-// with slab start
-// s_t = clip(t*T - W/2, 0, max(N - (T+W), 0)):
+// (launched by _call_fwd). Per node tile t (T rows) with slab start
+// s_t = clip(t*T - W/2, 0, max(N - (T+W), 0)) and, with spill edges, the
+// spill window start w_t = clip(off[t] / 16 * 16, 0, Es - 256):
 //
 //   acc  = band_t @ x[s_t : s_t+T+W]  (+ sel_t @ star-table window)   f32
+//        + sum_{m in [lo_r, hi_r)} msgs[w_t + m]          (spill, f32)
 //   agg  = bf16(acc)
 //   out  = agg @ W_l + x_t @ W_r + b_l                                 f32
 //   y    = out * rsqrt(max(sum(out^2), 1e-24))
@@ -23,7 +24,11 @@
 // runs: its 2*GW one-hot columns are appended to the band's K dimension,
 // and the matching table rows (wb.. and T0+wb.., or the whole table when
 // GW == T0) to the slab's rows, so it lands in the same f32 accumulator
-// before the cast, as on the TPU.
+// before the cast, as on the TPU. The spill term (the TPU's one-hot
+// [T, 256] product with the tile's message window, pallas_sage_layer.py:
+// 313-349) is the same f32 sum taken directly (sage_common.cuh::
+// add_spill_run), which each row's warp adds to the staged accumulator,
+// also before the cast.
 //
 // What bounds it on an H100: at the flagship shape (N = 103,424, T = 256,
 // W = 64, H = 512) a layer does ~149 GFLOP of bf16 products against
@@ -65,12 +70,17 @@ struct Params {
   const int* code;             // [N] selector codes in [0, 2GW], 2GW = none
   const int* gwin;             // [n_tiles] window bases, or null (wb = 0)
   const int* acc_code;         // [N] accumulate codes (emit)
+  const __nv_bfloat16* msgs;   // [Es, H] x at the spill senders (has_spill)
+  const int* spill_off;        // [n_tiles + 1] spill offsets (has_spill)
+  const int* spill_lo;         // [N] first window column of each row
+  const int* spill_hi;         // [N] end window column of each row
   __nv_bfloat16* z;            // [N, H]
   float* partial;              // [N / BM, 2GW, H] (emit)
   __nv_bfloat16* y_out;        // [N, H] (save_res)
   float* inv_out;              // [N] (save_res)
   __nv_bfloat16* agg_out;      // [N, H] (save_res)
   int n, tile, width, gw, t0, has_super, skip, emit, save_res, dropout;
+  int n_spill, has_spill;      // spill list rows, spill term on
   uint32_t thr, s0, s1;        // dropout threshold and seed words
   float scale;
   int region0;                 // bytes of the f32 / phase-1 shared region
@@ -161,6 +171,28 @@ __global__ void __launch_bounds__(NTHREADS, 1) sage_fwd_kernel(Params p) {
       wmma::store_matrix_sync(sf + i * 16 * LDF + n0 + j * 16, acc[i][j], LDF,
                               wmma::mem_row_major);
   __syncthreads();
+  if (p.has_spill) {
+    // spill term: each warp adds its rows' message runs
+    constexpr int NQS = H / 64;
+    const int ws = sage::spill_window_start(p.spill_off[t], p.n_spill);
+    for (int rr = 0; rr < BM / NWARP; ++rr) {
+      const int r = warp * (BM / NWARP) + rr;
+      float v[NQS][2];
+#pragma unroll
+      for (int q = 0; q < NQS; ++q) {
+        v[q][0] = sf[r * LDF + q * 64 + lane * 2];
+        v[q][1] = sf[r * LDF + q * 64 + lane * 2 + 1];
+      }
+      sage::add_spill_run<H>(p.msgs, ws, p.spill_lo[row0 + r],
+                             p.spill_hi[row0 + r], lane, v);
+#pragma unroll
+      for (int q = 0; q < NQS; ++q) {
+        sf[r * LDF + q * 64 + lane * 2] = v[q][0];
+        sf[r * LDF + q * 64 + lane * 2 + 1] = v[q][1];
+      }
+    }
+    __syncthreads();
+  }
   for (int i = tid; i < BM * H; i += NTHREADS) {
     const int r = i / H;
     const int c = i - r * H;
@@ -299,11 +331,13 @@ cudaError_t launch(Params p, int n_blocks, cudaStream_t stream) {
 extern "C" int sage_layer_fwd(
     const void* x, const void* band, const void* w_l, const void* w_r,
     const void* b_l, const void* table, const void* code, const void* gwin,
-    const void* acc_code, void* z, void* partial, void* ftab, void* y_out,
-    void* inv_out, void* agg_out, int n, int h, int tile, int width, int gw,
-    int t0, int tg, int has_super, int skip, int emit, int save_res,
-    int dropout, unsigned int thr, unsigned int s0, unsigned int s1,
-    float scale, void* stream) {
+    const void* acc_code, const void* msgs, const void* spill_off,
+    const void* spill_lo, const void* spill_hi, void* z, void* partial,
+    void* ftab, void* y_out, void* inv_out, void* agg_out, int n, int h,
+    int tile, int width, int gw, int t0, int tg, int has_super, int skip,
+    int emit, int save_res, int n_spill, int has_spill, int dropout,
+    unsigned int thr, unsigned int s0, unsigned int s1, float scale,
+    void* stream) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.band = static_cast<const int8_t*>(band);
@@ -314,6 +348,12 @@ extern "C" int sage_layer_fwd(
   p.code = static_cast<const int*>(code);
   p.gwin = static_cast<const int*>(gwin);
   p.acc_code = static_cast<const int*>(acc_code);
+  p.msgs = static_cast<const __nv_bfloat16*>(msgs);
+  p.spill_off = static_cast<const int*>(spill_off);
+  p.spill_lo = static_cast<const int*>(spill_lo);
+  p.spill_hi = static_cast<const int*>(spill_hi);
+  p.n_spill = n_spill;
+  p.has_spill = has_spill;
   p.z = static_cast<__nv_bfloat16*>(z);
   p.partial = static_cast<float*>(partial);
   p.y_out = static_cast<__nv_bfloat16*>(y_out);

@@ -4,12 +4,14 @@ Covers the flagship variant ``GraphSage_addAggr_Shared`` with ``mean``
 pooling and the buckling head on banded batches that the fused layer
 takes: node encoder -> L weight-tied fused SAGE layers (skip on
 0 < i < L-1, Models/BuckGNN.py:349-351, dropout after each) -> mean pool
--> decoder. On supernode batches with local star windows each layer's
-kernel emits the next layer's star table (models/buckgnn.py:169-242 of the
-JAX package); without windows the table is rebuilt from x for each layer.
-In training (``deterministic=False``) the layers also thread their
-deferred backward star tables from one to the next (`star_source` opens
-the chain at the encoder output), and each layer draws its two dropout
+-> decoder. Batches with spill edges (the virtual-edge config) add the
+spill window in every layer and take the split backward. On supernode
+batches without spill edges the layers thread their deferred backward star
+tables from one to the next (`star_source` opens the chain at the encoder
+output), and with local star windows each layer's kernel also emits the
+next layer's star table; otherwise the table is rebuilt from x for each
+layer (models/buckgnn.py:169-242 of the JAX package, `star_threading`).
+In training (``deterministic=False``) each layer draws its two dropout
 seed words from the caller's ``torch.Generator``.
 
 Every other model name, pooling or prediction type raises
@@ -93,10 +95,6 @@ class BuckGNN(nn.Module):
         if batch.band_senders is None:
             raise NotImplementedError(
                 "unbanded batches need the CSR path (ROADMAP queue 1, item 7)")
-        if batch.has_spill_edges:
-            raise NotImplementedError(
-                "batches with spill edges need the spill path "
-                "(ROADMAP queue 1, item 5)")
         h = self.hidden_channels
         L = self.num_layers
         # 'mean' pooling does not look for supernodes (BuckGNN.py:315-316)
@@ -106,15 +104,16 @@ class BuckGNN(nn.Module):
         agg_ctx = make_agg_context(batch)
         if not supports_fused_layer(agg_ctx, x, "add", True):
             raise NotImplementedError(
-                f"the fused layer does not take this batch/width (h={h}); "
-                "the unfused banded path is ROADMAP queue 1, item 2")
+                f"the fused layer does not take this batch/width (h={h}, "
+                f"spill2 overflow edges: {batch.has_spill2_edges}); the "
+                "unfused banded path is ROADMAP queue 1, item 2")
         conv = self.shared_graphsage_block
         # serving casts the tied weights once; training casts them in every
         # layer call, so their six gradients are summed in float32
         weights = None if training else conv.fused_weights(x.dtype)
-        thread_tables = batch.has_supernode_edges and batch.gwin is not None
+        thread, thread_tables = star_threading(batch)
         star = None
-        if training and batch.has_supernode_edges:
+        if thread:
             x, star = star_source(x, agg_ctx)
         table = None
         for i in range(L):
@@ -122,7 +121,7 @@ class BuckGNN(nn.Module):
             seed = draw_seed(generator) if rate > 0.0 else None
             out = conv(x, agg_ctx, skip=0 < i < L - 1, weights=weights,
                        rate=rate, seed=seed, deterministic=deterministic,
-                       star_in=star, star_next=star is not None and i < L - 1,
+                       star_in=star, star_next=thread and i < L - 1,
                        table_in=table, emit_table=emit)
             if star is None:
                 x, table = out
@@ -143,6 +142,17 @@ class BuckGNN(nn.Module):
                                             batch.n_graph_cap,
                                             keep=batch.node_mask)
         return total.float() / count.clamp_min(1.0)[:, None]
+
+
+def star_threading(batch: GraphBatch) -> tuple[bool, bool]:
+    """``(thread, thread_tables)`` as the JAX model decides them
+    (models/buckgnn.py:193-211): the layers thread their backward star
+    tables on supernode batches without spill edges that carry star codes,
+    and emit the next layer's forward table when the batch also has local
+    star windows."""
+    thread = (batch.has_supernode_edges and not batch.has_spill_edges
+              and batch.gcode is not None)
+    return thread, thread and batch.gwin is not None
 
 
 def draw_seed(generator: torch.Generator) -> tuple[int, int]:

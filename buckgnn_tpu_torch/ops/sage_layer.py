@@ -1,28 +1,35 @@
 """Fully fused GraphSAGE layer: forward and backward kernels, and its VJP.
 
-The port of buckgnn_tpu/ops/pallas_sage_layer.py without spill edges. One
-forward call computes the whole shared-SAGE layer (Models/BuckGNN.py:113-119,
-338-352):
+The port of buckgnn_tpu/ops/pallas_sage_layer.py. One forward call computes
+the whole shared-SAGE layer (Models/BuckGNN.py:113-119, 338-352):
 
-    agg  = band_t @ x_slab (+ star selection)   -> cast to x.dtype
+    agg  = band_t @ x_slab (+ spill window) (+ star selection)  -> x.dtype
     out  = agg @ W_l + x_t @ W_r + b_l           (f32)
     y    = out * rsqrt(max(rowsum(out^2), 1e-24))
     z    = dropout(relu(y) (+ x_t))              -> cast to x.dtype
 
 and, with ``emit``, the next layer's supernode star table summed from z;
-with ``save_res`` also the backward's residuals y, inv and agg. One backward
-call (`sage_layer_bwd`) computes dx, dW_l, dW_r, db_l and the layer's own
-star table from dz and those residuals (the merged backward of the TPU
-kernel, see csrc/sage_layer_bwd.cu).
+with ``save_res`` also the backward's residuals y, inv and agg. The spill
+term (out-of-band edges, ops/banded_matmul.py) enters the f32 accumulator
+before agg's cast, as on the TPU.
 
-`sage_layer_fwd` and `sage_layer_bwd` are the wrappers: on CUDA tensors they
-launch the hand-written kernels in ``csrc/`` (bf16 only) and count each
-launch in ``LAUNCHES``; on CPU tensors they run `sage_layer_plain` and
-`sage_layer_bwd_plain`, the plain PyTorch versions with the same casts.
-`fused_sage_layer` is the layer as the model calls it: a
-``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom VJP)
-with supernode-star threading through ghost tables (`star_source`).
-Spill edges raise: they come with the virtual-edge slice.
+Two backward routes, chosen by the batch as the JAX package does:
+- without spill edges, one merged call (`sage_layer_bwd`) computes dx,
+  dW_l, dW_r, db_l and the layer's own star table from dz and the
+  residuals (csrc/sage_layer_bwd.cu);
+- with spill edges, the split backward: `sage_layer_bwd_tile` computes
+  dagg, dxp, dW_l, dW_r, db_l and the own table by global codes, then
+  `banded_matmul` computes dx = band @ dagg + spill window of dagg + own
+  star + dxp.
+
+`sage_layer_fwd`, `sage_layer_bwd` and `sage_layer_bwd_tile` are the
+wrappers: on CUDA tensors they launch the hand-written kernels in ``csrc/``
+(bf16 only) and count each launch in ``LAUNCHES``; on CPU tensors they run
+the plain PyTorch versions (`sage_layer_plain`, `sage_layer_bwd_plain`,
+`sage_layer_bwd_tile_plain`) with the same casts. `fused_sage_layer` is the
+layer as the model calls it: a ``torch.autograd.Function`` (the JAX
+package's ``_fused_layer`` custom VJP) with supernode-star threading
+through ghost tables (`star_source`) on spill-free batches.
 """
 
 from __future__ import annotations
@@ -31,14 +38,20 @@ import ctypes
 
 import torch
 
-from buckgnn_tpu_torch.graph.batch import LOCAL_STAR_ROWS, star_table_geometry
+from buckgnn_tpu_torch.graph.batch import (
+    LOCAL_STAR_ROWS, SPILL_CHUNK, star_table_geometry,
+)
 from buckgnn_tpu_torch.ops import segment
+from buckgnn_tpu_torch.ops.banded_matmul import (
+    banded_matmul, slab_starts, spill_term_plain,
+)
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
 )
 
 # launches of each kernel wrapper (reset by callers that count a run)
-LAUNCHES = {"sage_layer_fwd": 0, "sage_layer_bwd": 0}
+LAUNCHES = {"sage_layer_fwd": 0, "sage_layer_bwd": 0,
+            "sage_layer_bwd_tile": 0, "banded_matmul": 0}
 
 _BM = 64  # rows per kernel block (csrc/sage_layer_{fwd,bwd}.cu)
 _KSPLIT = 16  # row chunks of the backward's weight pass (sage_layer_bwd.cu)
@@ -74,10 +87,13 @@ KERNEL_INV_TOL = (0.0, 1e-5)
 # dW and db are f32 sums over every row of products of bf16 values in
 # which flips are rare and of random sign: 1e-3 relative to their rms.
 # A norm backward without its s term, or a dz without the next layer's
-# star, moves every row by O(rms) and fails them.
+# star, moves every row by O(rms) and fails them. The split backward's
+# dagg and dxp are bf16 values like dx and take its gate; its own table
+# tbwd is summed from bf16 dagg like town.
 KERNEL_BWD_TOL = {"dx": (5e-2, 1.6e-2), "dw_l": (1e-3, 1e-3),
                   "dw_r": (1e-3, 1e-3), "db_l": (1e-3, 1e-3),
-                  "town": (5e-2, 1.6e-2)}
+                  "town": (5e-2, 1.6e-2), "dagg": (5e-2, 1.6e-2),
+                  "dxp": (5e-2, 1.6e-2), "tbwd": (5e-2, 1.6e-2)}
 
 
 def gate_tol(ref: torch.Tensor, tol) -> tuple[float, float]:
@@ -90,12 +106,6 @@ def gate_tol(ref: torch.Tensor, tol) -> tuple[float, float]:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _slab_starts(n: int, tile: int, width: int, device) -> torch.Tensor:
-    slab = tile + width
-    t = torch.arange(n // tile, device=device)
-    return (t * tile - width // 2).clamp(0, max(n - slab, 0))
 
 
 def _window_rows(gwin, gw: int, t0: int, n_tiles: int, device):
@@ -116,7 +126,8 @@ def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
                      table=None, code=None, gwin=None, gw: int = 0,
                      t0: int = 0, acc_code=None, skip: bool = False,
                      emit: bool = False, save_res: bool = False,
-                     rate: float = 0.0, seed=None):
+                     rate: float = 0.0, seed=None, spill_offsets=None,
+                     spill_lo=None, spill_hi=None, spill_messages=None):
     """Plain PyTorch version of the fused layer, operation by operation as
     the TPU kernel: products of x.dtype values accumulated in float32.
 
@@ -125,20 +136,25 @@ def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
     rows ([n_tiles, T] or [n_tiles, T, 1]; 2*GW selects nothing). ``gwin``:
     [n_tiles] window bases, or None for the whole table (GW == T0).
     ``acc_code``: per-row accumulate codes for ``emit``. ``rate`` > 0 drops
-    with the keep mask of ``seed`` (ops/dropout.py). Returns ``(z, ftab)``;
-    ftab is the [tg, H] float32 next-layer table or None. With
-    ``save_res`` returns ``(z, ftab, y, inv, agg)``: y and agg in x.dtype,
-    inv float32 [N].
+    with the keep mask of ``seed`` (ops/dropout.py). ``spill_offsets``,
+    ``spill_lo``, ``spill_hi`` and ``spill_messages`` (x[spill_senders])
+    add the spill window (ops/banded_matmul.py) to the accumulator before
+    agg's cast. Returns ``(z, ftab)``; ftab is the [tg, H] float32
+    next-layer table or None. With ``save_res`` returns
+    ``(z, ftab, y, inv, agg)``: y and agg in x.dtype, inv float32 [N].
     """
     _check_dropout(rate, seed)
     n, h = x.shape
     n_tiles = n // tile
     dt = x.dtype
-    starts = _slab_starts(n, tile, width, x.device)
+    starts = slab_starts(n, tile, width, x.device)
     idx = starts[:, None] + torch.arange(tile + width, device=x.device)
     xs = x[idx].float()                                   # [n_tiles, S, H]
     b = band.reshape(n_tiles, tile, tile + width).to(dt).float()
     acc = torch.bmm(b, xs)                                # [n_tiles, T, H]
+    if spill_offsets is not None:
+        acc = acc + spill_term_plain(spill_messages, spill_offsets, spill_lo,
+                                     spill_hi, n_tiles, tile, dt)
     rows = None
     if table is not None:
         rows = _window_rows(gwin, gw, t0, n_tiles, x.device)
@@ -198,15 +214,19 @@ def _dropout_args(rate: float, seed):
 
 
 def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
-            t0, acc_code, skip, emit, save_res, rate, seed):
+            t0, acc_code, skip, emit, save_res, rate, seed, spill_offsets,
+            spill_lo, spill_hi, spill_messages):
     from buckgnn_tpu_torch.utils import cuda_build
 
     _check_dropout(rate, seed)
     n, h = x.shape
     has_super = table is not None
-    bf16 = [x, w_l, b_l, w_r] + ([table] if has_super else [])
+    has_spill = spill_offsets is not None
+    bf16 = [x, w_l, b_l, w_r] + ([table] if has_super else []) + (
+        [spill_messages] if has_spill else [])
     ints = ([code] if has_super else []) + (
-        [gwin] if gwin is not None else []) + ([acc_code] if emit else [])
+        [gwin] if gwin is not None else []) + ([acc_code] if emit else []) + (
+        [spill_offsets, spill_lo, spill_hi] if has_spill else [])
     dev = x.device
     for t in bf16 + ints + [band]:
         _check(t.device == dev, "all tensors on one CUDA device")
@@ -236,6 +256,14 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
         _check(has_super and gwin is not None and 2 * gw <= 2 * LOCAL_STAR_ROWS,
                "emit needs the local star windows")
         _check(acc_code.numel() == n, "one accumulate code per row")
+    n_spill = 0
+    if has_spill:
+        n_spill = spill_messages.shape[0]
+        _check(tuple(spill_messages.shape) == (n_spill, h)
+               and n_spill >= SPILL_CHUNK, "spill messages [Es >= 256, H]")
+        _check(spill_offsets.numel() == n // tile + 1, "offsets [N/T + 1]")
+        _check(spill_lo.numel() == n and spill_hi.numel() == n,
+               "spill lo, hi [N/T, T, 1]")
 
     z = torch.empty_like(x)
     partial = ftab = y = inv = agg = None
@@ -250,14 +278,17 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
     lib = cuda_build.load("sage_layer_fwd")
     fn = lib.sage_layer_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 14
                    + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(x), _ptr(band), _ptr(w_l), _ptr(w_r), _ptr(b_l),
-             _ptr(table), _ptr(code), _ptr(gwin), _ptr(acc_code), _ptr(z),
-             _ptr(partial), _ptr(ftab), _ptr(y), _ptr(inv), _ptr(agg), n, h,
-             tile, width, gw, t0, tg, int(has_super), int(skip), int(emit),
-             int(save_res), drop, thr, s0, s1, scale, ctypes.c_void_p(stream))
+             _ptr(table), _ptr(code), _ptr(gwin), _ptr(acc_code),
+             _ptr(spill_messages), _ptr(spill_offsets), _ptr(spill_lo),
+             _ptr(spill_hi), _ptr(z), _ptr(partial), _ptr(ftab), _ptr(y),
+             _ptr(inv), _ptr(agg), n, h, tile, width, gw, t0, tg,
+             int(has_super), int(skip), int(emit), int(save_res), n_spill,
+             int(has_spill), drop, thr, s0, s1, scale,
+             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sage_layer_fwd launch failed: CUDA error {err}")
     LAUNCHES["sage_layer_fwd"] += 1
@@ -270,13 +301,16 @@ def sage_layer_fwd(x, w_l, b_l, w_r, band, *, tile: int, width: int,
                    table=None, code=None, gwin=None, gw: int = 0,
                    t0: int = 0, acc_code=None, skip: bool = False,
                    emit: bool = False, save_res: bool = False,
-                   rate: float = 0.0, seed=None):
+                   rate: float = 0.0, seed=None, spill_offsets=None,
+                   spill_lo=None, spill_hi=None, spill_messages=None):
     """The fused layer (arguments and results as `sage_layer_plain`). CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     kw = dict(tile=tile, width=width, table=table, code=code, gwin=gwin,
               gw=gw, t0=t0, acc_code=acc_code, skip=skip, emit=emit,
-              save_res=save_res, rate=rate, seed=seed)
+              save_res=save_res, rate=rate, seed=seed,
+              spill_offsets=spill_offsets, spill_lo=spill_lo,
+              spill_hi=spill_hi, spill_messages=spill_messages)
     if x.device.type == "cuda":
         return _launch(x, w_l, b_l, w_r, band, **kw)
     if x.device.type == "cpu":
@@ -313,6 +347,22 @@ def sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
         dz_eff = dz_eff + torch.bmm(sel, ltab).reshape(n, h)
     if rate > 0.0:
         dz_eff = apply_dropout(dz_eff, seed, rate)
+    dagg, dxp, dwl, dwr, dbl = _tile_grads(dz_eff, y, inv, agg, x, w_l, w_r,
+                                           skip)
+    town = (emit_table_plain(dagg, acc_code, gwin, gw, t0, tile)
+            if has_super else None)
+    starts = slab_starts(n, tile, width, x.device)
+    idx = starts[:, None] + torch.arange(tile + width, device=x.device)
+    b = band.reshape(n_tiles, tile, tile + width).to(dt).float()
+    dx = (dxp.float() + torch.bmm(b, dagg[idx].float()).reshape(n, h)).to(dt)
+    return dx, dwl, dwr, dbl, town
+
+
+def _tile_grads(dz_eff, y, inv, agg, x, w_l, w_r, skip: bool):
+    """The backward's per-row math from the masked float32 dz_eff, with the
+    TPU kernel's casts: (dagg, dxp) in x.dtype, (dW_l, dW_r, db_l) float32."""
+    n = x.shape[0]
+    dt = x.dtype
     dout = _norm_backward(dz_eff, y.float(), inv.reshape(n, 1))
     dout_c = dout.to(dt).float()
     dagg = (dout_c @ w_l.float().t()).to(dt)
@@ -323,13 +373,31 @@ def sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
     dwl = agg.float().t() @ dout_c
     dwr = x.float().t() @ dout_c
     dbl = dout.sum(dim=0)
-    town = (emit_table_plain(dagg, acc_code, gwin, gw, t0, tile)
-            if has_super else None)
-    starts = _slab_starts(n, tile, width, x.device)
-    idx = starts[:, None] + torch.arange(tile + width, device=x.device)
-    b = band.reshape(n_tiles, tile, tile + width).to(dt).float()
-    dx = (dxp.float() + torch.bmm(b, dagg[idx].float()).reshape(n, h)).to(dt)
-    return dx, dwl, dwr, dbl, town
+    return dagg, dxp, dwl, dwr, dbl
+
+
+def sage_layer_bwd_tile_plain(dz, y, inv, agg, x, w_l, w_r, *, tile: int,
+                              skip: bool = False, rate: float = 0.0,
+                              seed=None, acc_code=None, tg: int = 0):
+    """Plain PyTorch version of the split backward's tile kernel
+    (_bwd_kernel) with its casts: the dropout mask on dz, the relu and norm
+    backward, ``dagg = dout @ W_l^T`` and ``dxp = dout @ W_r^T (+ dz)``.
+    ``acc_code``: the global accumulate codes ([n_tiles, 1, T], tg sums
+    none) of a supernode batch. Returns ``(dagg, dxp, dW_l, dW_r, db_l,
+    tbwd)``: dagg and dxp in x.dtype, the rest float32; tbwd is the [tg, H]
+    own star table summed from x.dtype dagg, or None without ``acc_code``.
+    """
+    _check_dropout(rate, seed)
+    dz_eff = dz.float()
+    if rate > 0.0:
+        dz_eff = apply_dropout(dz_eff, seed, rate)
+    dagg, dxp, dwl, dwr, dbl = _tile_grads(dz_eff, y, inv, agg, x, w_l, w_r,
+                                           skip)
+    tbwd = None
+    if acc_code is not None:
+        t0 = tg // 2  # the whole table: GW == T0, one window at base 0
+        tbwd = emit_table_plain(dagg, acc_code, None, t0, t0, tile)
+    return dagg, dxp, dwl, dwr, dbl, tbwd
 
 
 def _norm_backward(dz_eff, y, inv):
@@ -431,6 +499,81 @@ def sage_layer_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
     raise ValueError(f"sage_layer_bwd: unsupported device {x.device}")
 
 
+def _launch_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile, skip, rate, seed,
+                     acc_code, tg):
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    _check_dropout(rate, seed)
+    n, h = x.shape
+    has_super = acc_code is not None
+    bf16 = [dz, y, agg, x, w_l, w_r]
+    dev = x.device
+    for t in bf16 + [inv] + ([acc_code] if has_super else []):
+        _check(t.device == dev, "all tensors on one CUDA device")
+        _check(t.is_contiguous(), "contiguous tensors")
+    for t in bf16:
+        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
+        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
+        _check(t.shape[-1] == h, "every [., H] operand of width H")
+    _check(inv.dtype == torch.float32 and inv.numel() == n, "inv f32 [N]")
+    _check(h in (128, 256, 512), "H in (128, 256, 512)")
+    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
+    for t in (dz, y, agg):
+        _check(tuple(t.shape) == (n, h), "dz, y, agg [N, H]")
+    _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h),
+           "W_l, W_r [H, H]")
+    if has_super:
+        _check(acc_code.dtype == torch.int32 and acc_code.numel() == n,
+               "one int32 accumulate code per row")
+        _check(tg > 0 and tg % 2 == 0, "tg = 2 * T0")
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    dout, dagg, dxp = (torch.empty_like(x) for _ in range(3))
+    db_part = torch.empty((n // _BM, h), **f32)
+    dw_part = torch.empty((2, _KSPLIT, h, h), **f32)
+    dwl, dwr = torch.empty((h, h), **f32), torch.empty((h, h), **f32)
+    dbl = torch.empty((h,), **f32)
+    t_part = tbwd = None
+    if has_super:
+        # per-block partials over the whole table (global codes): [N/64,
+        # tg, H] f32, a cost that only supernode batches with spill pay
+        t_part = torch.empty((n // _BM, tg, h), **f32)
+        tbwd = torch.empty((tg, h), **f32)
+    drop, thr, s0, s1, scale = _dropout_args(rate, seed)
+    lib = cuda_build.load("sage_layer_bwd")
+    fn = lib.sage_layer_bwd_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(dz), _ptr(y), _ptr(inv), _ptr(agg), _ptr(x), _ptr(w_l),
+             _ptr(w_r), _ptr(acc_code), _ptr(dout), _ptr(dagg), _ptr(dxp),
+             _ptr(db_part), _ptr(t_part), _ptr(dw_part), _ptr(dwl),
+             _ptr(dwr), _ptr(dbl), _ptr(tbwd), n, h, tile, tg,
+             int(has_super), int(skip), drop, thr, s0, s1, scale,
+             ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"sage_layer_bwd_tile launch failed: CUDA error {err}")
+    LAUNCHES["sage_layer_bwd_tile"] += 1
+    return dagg, dxp, dwl, dwr, dbl, tbwd
+
+
+def sage_layer_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile: int,
+                        skip: bool = False, rate: float = 0.0, seed=None,
+                        acc_code=None, tg: int = 0):
+    """The split backward's tile kernel (arguments and results as
+    `sage_layer_bwd_tile_plain`). CUDA tensors launch the kernel (or raise);
+    CPU tensors take the plain version."""
+    kw = dict(tile=tile, skip=skip, rate=rate, seed=seed, acc_code=acc_code,
+              tg=tg)
+    if x.device.type == "cuda":
+        return _launch_bwd_tile(dz, y, inv, agg, x, w_l, w_r, **kw)
+    if x.device.type == "cpu":
+        return sage_layer_bwd_tile_plain(dz, y, inv, agg, x, w_l, w_r, **kw)
+    raise ValueError(f"sage_layer_bwd_tile: unsupported device {x.device}")
+
+
 def supports_fused_layer(ctx, x, aggr: str, normalize: bool) -> bool:
     """Static eligibility of the fused layer for this batch/config."""
     if ctx is None or ctx.band is None:
@@ -508,9 +651,26 @@ def star_source(x, ctx):
     return _StarSource.apply(x, batch.gcode.reshape(-1), tg)
 
 
+def _spill_kw(spill, msgs):
+    """The banded/forward kernels' spill operands for messages ``msgs``
+    (rows of x or of dagg at the spill senders)."""
+    return dict(spill_offsets=spill["offsets"], spill_lo=spill["lo"],
+                spill_hi=spill["hi"], spill_messages=msgs)
+
+
+def _layer_fwd(x, w_l, b_l, w_r, spec, save_res: bool = False):
+    """The forward kernel with the spec's operands; the spill messages are
+    gathered from x here (XLA glue in the JAX package)."""
+    fwd = spec["fwd"]
+    if spec["spill"] is not None:
+        fwd = dict(fwd, **_spill_kw(spec["spill"], x[spec["spill"]["s"]]))
+    return sage_layer_fwd(x, w_l, b_l, w_r, spec["band"], save_res=save_res,
+                          **fwd)
+
+
 class _FusedLayer(torch.autograd.Function):
-    """The fused layer with its merged backward (the JAX package's
-    ``_fused_layer`` custom VJP, no-spill branch).
+    """The fused layer with its custom backward (the JAX package's
+    ``_fused_layer`` custom VJP).
 
     Differentiable inputs: x, w_l, b_l, w_r and the ghost ``t_in``. Outputs
     ``(z, t_out, ftab)``: ``t_out`` is a ghost zeros table whose cotangent
@@ -521,12 +681,19 @@ class _FusedLayer(torch.autograd.Function):
     the star ``table`` (built from x outside, or threaded) carry zero
     cotangent by declaration: the symmetric star operator's whole gradient
     already arrives through the own table.
+
+    A batch without spill edges takes the merged backward
+    (`sage_layer_bwd`). One with spill edges takes the split backward
+    (JAX _fused_layer_bwd, has_spill branch): `sage_layer_bwd_tile`, then
+    `banded_matmul` of dagg with the spill window of dagg[spill_s], the own
+    star table by global codes and dxp added; nothing is deferred, so
+    ``t_in``'s cotangent is None.
     """
 
     @staticmethod
     def forward(ctx, x, w_l, b_l, w_r, t_in, spec):
-        z, ftab, y, inv, agg = sage_layer_fwd(
-            x, w_l, b_l, w_r, spec["band"], save_res=True, **spec["fwd"])
+        z, ftab, y, inv, agg = _layer_fwd(x, w_l, b_l, w_r, spec,
+                                          save_res=True)
         ctx.save_for_backward(x, w_l, w_r, y, inv, agg)
         ctx.spec = spec
         ctx.b_dtype = b_l.dtype
@@ -543,22 +710,54 @@ class _FusedLayer(torch.autograd.Function):
         x, w_l, w_r, y, inv, agg = ctx.saved_tensors
         spec = ctx.spec
         dz = torch.zeros_like(x) if dz is None else dz.contiguous()
-        table_prev = None
-        if spec["apply_prev"]:
-            if dt_out is None:
-                dt_out = x.new_zeros((spec["tg"], x.shape[1]))
-            table_prev = dt_out.to(x.dtype).contiguous()
-        dx, dwl, dwr, dbl, town = sage_layer_bwd(
-            dz, y, inv, agg, x, w_l, w_r, spec["band"],
-            table_prev=table_prev, **spec["bwd"])
-        dt_in = None
-        if town is not None:
-            if ctx.thread:
-                dt_in = town
-            else:
-                dx = star_apply(dx, town, spec["gcode_flat"], spec["tg"])
+        if spec["spill"] is not None:
+            dx, dwl, dwr, dbl = _split_backward(dz, dt_out, y, inv, agg, x,
+                                                w_l, w_r, spec)
+            dt_in = None
+        else:
+            dx, dwl, dwr, dbl, dt_in = _merged_backward(
+                dz, dt_out, y, inv, agg, x, w_l, w_r, spec, ctx.thread)
         return (dx, dwl.to(w_l.dtype), dbl.to(ctx.b_dtype),
                 dwr.to(w_r.dtype), dt_in, None)
+
+
+def _merged_backward(dz, dt_out, y, inv, agg, x, w_l, w_r, spec, thread):
+    """dx, dW_l, dW_r, db_l and t_in's cotangent of a spill-free batch: one
+    merged call; the own star table leaves through t_in when threaded, else
+    it is folded into dx here."""
+    table_prev = None
+    if spec["apply_prev"]:
+        if dt_out is None:
+            dt_out = x.new_zeros((spec["tg"], x.shape[1]))
+        table_prev = dt_out.to(x.dtype).contiguous()
+    dx, dwl, dwr, dbl, town = sage_layer_bwd(
+        dz, y, inv, agg, x, w_l, w_r, spec["band"],
+        table_prev=table_prev, **spec["bwd"])
+    dt_in = None
+    if town is not None:
+        if thread:
+            dt_in = town
+        else:
+            dx = star_apply(dx, town, spec["gcode"].reshape(-1), spec["tg"])
+    return dx, dwl, dwr, dbl, dt_in
+
+
+def _split_backward(dz, dt_out, y, inv, agg, x, w_l, w_r, spec):
+    """dx, dW_l, dW_r, db_l of a spill batch (pallas_sage_layer.py:
+    1203-1227): the next layer's table enters dz by `star_apply` (a zeros
+    table adds nothing), then the tile kernel and the banded SpMM."""
+    if spec["apply_prev"] and dt_out is not None:
+        dz = star_apply(dz, dt_out, spec["gcode"].reshape(-1), spec["tg"])
+    dagg, dxp, dwl, dwr, dbl, tbwd = sage_layer_bwd_tile(
+        dz, y, inv, agg, x, w_l, w_r, **spec["bwd_tile"])
+    star = {}
+    if tbwd is not None:
+        star = dict(gcode=spec["gcode"], table=tbwd.to(x.dtype))
+    spill = spec["spill"]
+    dx = banded_matmul(spec["band"], dagg, tile=spec["fwd"]["tile"],
+                       width=spec["fwd"]["width"], out_dtype=x.dtype,
+                       acc=dxp, **_spill_kw(spill, dagg[spill["s"]]), **star)
+    return dx, dwl, dwr, dbl
 
 
 def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
@@ -571,25 +770,24 @@ def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
     ``seed``: two ints (dropout words, ops/dropout.py); needed when
     training with ``rate`` > 0. ``table_in``: the previous layer's emitted
     star table (float32), else the table is built here from x (outside the
-    gradient). Star threading (supernode batches): pass ``star_in`` (the
-    previous layer's star_out, or ``star_source(x0, ctx)[1]``) to get
-    ``(z, star_out, ftab)`` back, and set ``star_next`` on every layer whose
-    star_out the next layer consumes. Without ``star_in`` returns
-    ``(z, ftab)`` with self-contained gradients. ``ftab`` is the next
-    layer's table when ``emit_table`` (local windows only), else None.
-    Requires ``supports_fused_layer(...)``.
+    gradient). Star threading (supernode batches without spill edges): pass
+    ``star_in`` (the previous layer's star_out, or
+    ``star_source(x0, ctx)[1]``) to get ``(z, star_out, ftab)`` back, and
+    set ``star_next`` on every layer whose star_out the next layer
+    consumes. Without ``star_in`` returns ``(z, ftab)`` with self-contained
+    gradients. ``ftab`` is the next layer's table when ``emit_table``
+    (local windows only), else None. Batches with spill edges add the spill
+    window in the forward and take the split backward. Requires
+    ``supports_fused_layer(...)``.
     """
     batch = ctx.batch
     rate = float(rate) if not deterministic else 0.0
     _check_dropout(rate, seed)
-    if batch.has_spill_edges:
-        raise NotImplementedError(
-            "spill edges in the fused layer come with the spill slice "
-            "(ROADMAP queue 1, item 5)")
     has_super = batch.has_supernode_edges
     thread = star_in is not None
-    if thread and not has_super:
-        raise ValueError("star threading requires a supernode batch")
+    if thread and (not has_super or batch.has_spill_edges):
+        raise ValueError("star threading requires a supernode batch without "
+                         "spill edges")
     if emit_table and (not has_super or batch.gwin is None):
         raise ValueError("emit_table requires a supernode batch with local "
                          "star windows")
@@ -604,23 +802,31 @@ def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
             table = _super_tables(x.detach(), batch.node_graph,
                                   batch.node_mask, batch.supernode_index,
                                   batch.n_graph_cap, tg)
-    fwd = dict(tile=batch.band_tile, width=batch.band_width, table=table,
-               code=code, gwin=gwin, gw=gw, t0=t0,
-               acc_code=acc if emit_table else None, skip=skip,
-               emit=emit_table, rate=rate, seed=seed)
+    spill = None
+    if batch.has_spill_edges:
+        spill = dict(s=batch.spill_senders.long(), offsets=batch.spill_offsets,
+                     lo=batch.spill_lo, hi=batch.spill_hi)
+    spec = dict(
+        band=ctx.band, spill=spill, tg=tg,
+        fwd=dict(tile=batch.band_tile, width=batch.band_width, table=table,
+                 code=code, gwin=gwin, gw=gw, t0=t0,
+                 acc_code=acc if emit_table else None, skip=skip,
+                 emit=emit_table, rate=rate, seed=seed))
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w_l, b_l, w_r))
     if not needs_grad:
-        z, ftab = sage_layer_fwd(x, w_l, b_l, w_r, ctx.band, **fwd)
+        z, ftab = _layer_fwd(x, w_l, b_l, w_r, spec)
         if thread:
             return z, x.new_zeros((tg, x.shape[1]), dtype=torch.float32), ftab
         return z, ftab
-    spec = dict(
-        band=ctx.band, fwd=fwd, tg=tg, apply_prev=has_super and star_next,
-        gcode_flat=batch.gcode.reshape(-1) if has_super else None,
+    spec.update(
+        apply_prev=has_super and star_next,
+        gcode=batch.gcode if has_super else None,
         bwd=dict(tile=batch.band_tile, width=batch.band_width, code=code,
                  gwin=gwin, gw=gw, t0=t0, acc_code=acc, has_super=has_super,
-                 skip=skip, rate=rate, seed=seed))
+                 skip=skip, rate=rate, seed=seed),
+        bwd_tile=dict(tile=batch.band_tile, skip=skip, rate=rate, seed=seed,
+                      acc_code=batch.gacc if has_super else None, tg=tg))
     z, t_out, ftab = _FusedLayer.apply(x, w_l, b_l, w_r, star_in, spec)
     ftab = ftab if emit_table else None
     return (z, t_out, ftab) if thread else (z, ftab)

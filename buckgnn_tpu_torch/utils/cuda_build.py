@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "sage_layer_fwd": os.path.join(_PKG, "csrc", "sage_layer_fwd.cu"),
     "sage_layer_bwd": os.path.join(_PKG, "csrc", "sage_layer_bwd.cu"),
+    "banded_matmul": os.path.join(_PKG, "csrc", "banded_matmul.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

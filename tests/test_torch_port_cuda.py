@@ -1,4 +1,10 @@
-"""The CUDA fused-layer kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+The fused layer's forward (with and without the spill term), its merged
+backward, the split backward's tile kernel and the banded SpMM with the
+spill window, each held to its plain version within its gate; the split
+kernels' determinism; and gates that fail a forward or a banded product
+without its spill term.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -8,12 +14,15 @@ card and no JAX. The repo's conftest imports JAX, so run it there with
 Here, with no card, every case skips: the kernels have no CPU mode.
 """
 
+import dataclasses as dc
+
 import numpy as np
 import pytest
 import torch
 
 from buckgnn_tpu_torch.graph import batch as tb
 from buckgnn_tpu_torch.graph.synthetic import generate_dataset
+from buckgnn_tpu_torch.ops import banded_matmul as bm
 from buckgnn_tpu_torch.ops import sage_layer as sl
 from buckgnn_tpu_torch.ops.dropout import keep_mask
 from buckgnn_tpu_torch.ops.banded import make_agg_context
@@ -208,3 +217,239 @@ def test_kernel_rejects_what_it_does_not_take():
         sl.sage_layer_bwd(dz, y, inv.bfloat16(), *args[3:], **kw)
     with pytest.raises(ValueError, match="dropout needs"):
         sl.sage_layer_bwd(*args, **dict(kw, rate=0.1))
+
+
+def _spill_batch(dev, kind):
+    """A small batch with spill edges: "virtual" (virtual edges, no
+    supernodes) or "super" (supernode panels with their node order
+    scrambled inside each graph, tests/test_fused_layer.py:213-236)."""
+    if kind == "virtual":
+        ds = generate_dataset(12, seed=2, min_side=5, max_side=9,
+                              use_super_node=False, use_virtual_edges=True)
+    else:
+        rng = np.random.default_rng(1)
+        ds = []
+        for g in generate_dataset(3, seed=9, min_side=8, max_side=11,
+                                  use_super_node=True,
+                                  use_virtual_edges=False):
+            perm = rng.permutation(g.n_node)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(g.n_node)
+            ds.append(dc.replace(
+                g, x=g.x[perm], senders=inv[g.senders].astype(np.int32),
+                receivers=inv[g.receivers].astype(np.int32),
+                supernode=int(inv[g.supernode])))
+    n = sum(g.n_node for g in ds) + 1
+    ncap = ((max(n, TILE + WIDTH) + TILE - 1) // TILE) * TILE
+    ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
+    b = tb.pack_graphs(ds, ncap, ecap, len(ds) + 1, band_width=WIDTH,
+                       band_tile=TILE, device="cpu")
+    assert b.has_spill_edges and not b.has_spill2_edges
+    assert b.has_supernode_edges == (kind == "super")
+    return b.to(dev)
+
+
+def _spill_kw(b, rows):
+    return dict(spill_offsets=b.spill_offsets, spill_lo=b.spill_lo,
+                spill_hi=b.spill_hi,
+                spill_messages=rows[b.spill_senders.long()].contiguous())
+
+
+def _spill_layer(dev, h, kind, seed):
+    """(batch, layer args, kwargs) of one forward with the spill term."""
+    b = _spill_batch(dev, kind)
+    x, w_l, b_l, w_r = _inputs(b.n_node_cap, h, dev, seed=seed)
+    kw = dict(tile=TILE, width=WIDTH, **_spill_kw(b, x))
+    if kind == "super":
+        code, gwin, gw, _ = sl.star_codes(b)
+        t0, tg = tb.star_table_geometry(b.n_graph_cap)
+        kw.update(table=sl._super_tables(x, b.node_graph, b.node_mask,
+                                         b.supernode_index, b.n_graph_cap,
+                                         tg),
+                  code=code, gwin=gwin, gw=gw, t0=t0)
+    return b, (x, w_l, b_l, w_r, make_agg_context(b).band), kw
+
+
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("kind", ["virtual", "super"])
+@pytest.mark.parametrize("train", [False, True])
+def test_spill_forward_matches_plain_on_cuda(h, kind, train):
+    """The forward with its spill term, serving and training variants (skip
+    on; dropout 0.1 in training): every output within its gate."""
+    dev = _card()
+    b, args, kw = _spill_layer(dev, h, kind, seed=h + 2)
+    kw["skip"] = True
+    if train:
+        kw.update(save_res=True, rate=0.1, seed=SEED)
+    got = sl.sage_layer_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    ref = sl.sage_layer_plain(*args, **kw)
+    m = b.node_mask
+    pairs = [(got[0], ref[0], sl.KERNEL_Z_TOL)]
+    if train:
+        pairs += [(got[2], ref[2], sl.KERNEL_Z_TOL),
+                  (got[4], ref[4], sl.KERNEL_Z_TOL),
+                  (got[3], ref[3], sl.KERNEL_INV_TOL)]
+    for g, r, tol in pairs:
+        torch.testing.assert_close(g[m].float(), r[m].float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+def test_spill_gate_catches_a_forward_without_spill():
+    """The z gate fails the kernel's own z held against a plain forward
+    that leaves the spill term out."""
+    dev = _card()
+    b, args, kw = _spill_layer(dev, 512, "virtual", seed=5)
+    z, _ = sl.sage_layer_fwd(*args, **kw)
+    no_spill = {k: v for k, v in kw.items() if not k.startswith("spill")}
+    zp, _ = sl.sage_layer_plain(*args, **no_spill)
+    m = b.node_mask
+    err = (z[m].float() - zp[m].float()).abs()
+    assert bool((err > Z_ATOL + Z_RTOL * zp[m].float().abs()).any())
+
+
+def _tile_case(dev, h, kind, skip, rate, seed=11):
+    """Inputs of one split tile call: residuals of the kernel's own spill
+    forward, a random dz, and (supernode batch) the global codes."""
+    b, args, kw = _spill_layer(dev, h, kind, seed=seed)
+    _, _, y, inv, agg = sl.sage_layer_fwd(
+        *args, **dict(kw, skip=skip, save_res=True, rate=rate,
+                      seed=SEED if rate else None))
+    rng = np.random.default_rng(seed + 1)
+    dz = torch.from_numpy(rng.normal(size=(b.n_node_cap, h)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    x, w_l, _, w_r, _ = args
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    tkw = dict(tile=TILE, skip=skip, rate=rate, seed=SEED if rate else None,
+               acc_code=b.gacc if kind == "super" else None, tg=tg)
+    return b, (dz, y, inv, agg, x, w_l, w_r), tkw
+
+
+TILE_NAMES = ("dagg", "dxp", "dw_l", "dw_r", "db_l", "tbwd")
+
+
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("kind", ["virtual", "super"])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bwd_tile_kernel_matches_plain_on_cuda(h, kind, skip, rate):
+    dev = _card()
+    b, args, kw = _tile_case(dev, h, kind, skip, rate)
+    before = sl.LAUNCHES["sage_layer_bwd_tile"]
+    got = sl.sage_layer_bwd_tile(*args, **kw)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["sage_layer_bwd_tile"] == before + 1
+    ref = sl.sage_layer_bwd_tile_plain(*args, **kw)
+    m = b.node_mask
+    for name, g, r in zip(TILE_NAMES, got, ref):
+        if name == "tbwd" and kind == "virtual":
+            assert g is None and r is None
+            continue
+        if name in ("dagg", "dxp"):
+            g, r = g[m], r[m]
+        atol, rtol = sl.gate_tol(r, sl.KERNEL_BWD_TOL[name])
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=lambda s: f"{name}: {s}")
+
+
+def _banded_case(dev, h, seed=13):
+    """(batch, band, x, options) on the supernode + spill batch: x and the
+    table random bf16, the batch's own spill ranges and global codes."""
+    b = _spill_batch(dev, "super")
+    rng = np.random.default_rng(seed)
+    n = b.n_node_cap
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    x, acc = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+              .to(dev, torch.bfloat16) for _ in range(2))
+    table = torch.from_numpy(rng.normal(size=(tg, h)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    opts = dict(spill=_spill_kw(b, x), table=dict(gcode=b.gcode, table=table),
+                acc=dict(acc=acc))
+    return b, make_agg_context(b).band, x, opts
+
+
+def _options(opts, spill, table, acc):
+    kw = {}
+    for on, name in ((spill, "spill"), (table, "table"), (acc, "acc")):
+        if on:
+            kw.update(opts[name])
+    return kw
+
+
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("spill,table,acc", [
+    (True, False, False), (False, True, False), (False, False, True),
+    (True, True, True), (False, False, False)])
+def test_banded_kernel_matches_plain_on_cuda(h, spill, table, acc):
+    dev = _card()
+    b, band, x, opts = _banded_case(dev, h)
+    kw = dict(tile=TILE, width=WIDTH, out_dtype=torch.bfloat16,
+              **_options(opts, spill, table, acc))
+    before = sl.LAUNCHES["banded_matmul"]
+    got = bm.banded_matmul(band, x, **kw)
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["banded_matmul"] == before + 1
+    ref = bm.banded_matmul_plain(band, x, **kw)
+    atol, rtol = sl.gate_tol(ref, bm.KERNEL_BANDED_TOL)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_banded_kernel_float32_output():
+    """With a float32 output both sides keep the f32 sums: the same values
+    up to f32 summation order (1e-5 relative to the output's rms)."""
+    dev = _card()
+    b, band, x, opts = _banded_case(dev, 256)
+    kw = dict(tile=TILE, width=WIDTH, out_dtype=torch.float32,
+              **_options(opts, True, True, True))
+    got = bm.banded_matmul(band, x, **kw)
+    ref = bm.banded_matmul_plain(band, x, **kw)
+    rms = float(ref.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, ref, atol=1e-5 * rms, rtol=1e-5)
+
+
+def test_banded_gate_catches_dropped_spill():
+    """bm.KERNEL_BANDED_TOL fails the kernel's output held against a plain
+    product without the spill messages."""
+    dev = _card()
+    b, band, x, opts = _banded_case(dev, 512)
+    got = bm.banded_matmul(band, x, tile=TILE, width=WIDTH,
+                           out_dtype=torch.bfloat16,
+                           **_options(opts, True, True, True))
+    wrong = bm.banded_matmul_plain(band, x, tile=TILE, width=WIDTH,
+                                   out_dtype=torch.bfloat16,
+                                   **_options(opts, False, True, True))
+    atol, rtol = sl.gate_tol(wrong, bm.KERNEL_BANDED_TOL)
+    err = (got.float() - wrong.float()).abs()
+    assert bool((err > atol + rtol * wrong.float().abs()).any())
+
+
+def test_split_kernels_are_deterministic():
+    """No float atomics: two calls of the tile kernel and of the banded
+    kernel on the same inputs give the same bits."""
+    dev = _card()
+    _, args, kw = _tile_case(dev, 512, "super", True, 0.1)
+    first = sl.sage_layer_bwd_tile(*args, **kw)
+    second = sl.sage_layer_bwd_tile(*args, **kw)
+    _, band, x, opts = _banded_case(dev, 512)
+    bkw = dict(tile=TILE, width=WIDTH, out_dtype=torch.bfloat16,
+               **_options(opts, True, True, True))
+    out1 = bm.banded_matmul(band, x, **bkw)
+    out2 = bm.banded_matmul(band, x, **bkw)
+    torch.cuda.synchronize()
+    for a, c in zip(first + (out1,), second + (out2,)):
+        assert torch.equal(a, c)
+
+
+def test_split_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    _, band, x, opts = _banded_case(dev, 128)
+    with pytest.raises(ValueError, match="bfloat16"):
+        bm.banded_matmul(band, x.float(), tile=TILE, width=WIDTH)
+    with pytest.raises(ValueError, match="int8"):
+        bm.banded_matmul(band.float(), x, tile=TILE, width=WIDTH)
+    _, args, kw = _tile_case(dev, 128, "virtual", False, 0.0)
+    with pytest.raises(ValueError, match="dropout needs"):
+        sl.sage_layer_bwd_tile(*args, **dict(kw, rate=0.1))
+    with pytest.raises(ValueError, match="bfloat16"):
+        sl.sage_layer_bwd_tile(args[0].float(), *args[1:], **kw)
