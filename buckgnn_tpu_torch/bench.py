@@ -1,14 +1,23 @@
-"""Benchmark setups: the 6-layer SAGE model serving and training one batch.
+"""Benchmark setups: the 6-layer, hidden-512 models serving and training
+one batch.
 
-The port of the repo-root bench.py (build_bench_setup and run_bench). The
-cells: 128 synthetic panels (24-32 nodes a side), normalized, RCM-ordered
-and packed into one batch on the band that `select_band_geometry` picks,
-for the 6-layer, hidden-512, bf16 ``GraphSage_addAggr_Shared`` model with
-random weights from a seeded generator. ``use_super_node=True`` (the
-flagship) gives each panel a supernode; ``use_super_node=False`` gives it
-virtual edges instead, the data path of the ``TrainConfig`` defaults and of
-``bench.py::build_bench_setup``'s own default, whose out-of-band edges take
-the spill path. ``build_serve_setup()`` answers it with eval_step;
+The port of the repo-root bench.py (build_bench_setup and run_bench) for
+the three cells of benchmarks/bench_configs.py:20-27, named in ``CELLS``:
+
+- ``flagship``: ``GraphSage_addAggr_Shared`` on 128 synthetic panels
+  (24-32 nodes a side) with a supernode each, on the band that
+  `select_band_geometry` picks (tile 256);
+- ``virtual``: the same model and panels with virtual edges instead, the
+  data path of the ``TrainConfig`` defaults and of
+  ``bench.py::build_bench_setup``'s own default, whose out-of-band edges
+  take the spill path;
+- ``ea-virtual``: ``EA_GNN_Shared`` on 64 virtual-edge panels, tile 128,
+  width 64 (bench_configs.py:25-27), whose edges the fused EA block reads
+  through the receiver-tiled edge windows.
+
+Each is normalized, RCM-ordered and packed into one batch with exact
+capacities, for the model at bf16 with random weights from a seeded
+generator. ``build_serve_setup()`` answers it with eval_step;
 ``build_train_setup()`` trains on it with the TrainConfig defaults of the
 JAX bench (dropout 0.1, relative-error loss, Adam with weight decay 1e-8)
 at lr 1e-3, the JAX bench's own rate. The JAX bench chains 10 steps into
@@ -47,39 +56,58 @@ def pack_exact(normed, batch_size: int, band_width: int | None,
 TRAIN_LR = 1e-3  # the learning rate of the JAX bench's train steps
 
 
-def _flagship(device, use_super_node: bool = True):
+# the cells' build_bench_setup arguments (bench_configs.py:20-27): panels
+# in the batch, supernodes (else virtual edges), model, band tile and width
+# (None: select_band_geometry's pick)
+CELLS = {
+    "flagship": dict(batch_size=128, use_super_node=True,
+                     model_name="GraphSage_addAggr_Shared", band_tile=256,
+                     band_width=None),
+    "virtual": dict(batch_size=128, use_super_node=False,
+                    model_name="GraphSage_addAggr_Shared", band_tile=256,
+                    band_width=None),
+    "ea-virtual": dict(batch_size=64, use_super_node=False,
+                       model_name="EA_GNN_Shared", band_tile=128,
+                       band_width=64),
+}
+
+
+def _cell(device, config: str):
     """(cfg, normalized dataset, normalizer, packed batch, model) of the
-    flagship cell (``use_super_node``) or the virtual-edge cell on
-    ``device``."""
+    cell ``config`` on ``device``."""
+    if config not in CELLS:
+        raise ValueError(f"unknown cell {config!r}: one of {sorted(CELLS)}")
     from buckgnn_tpu_torch.graph.batch import select_band_geometry
     from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
     from buckgnn_tpu_torch.graph.synthetic import generate_dataset
     from buckgnn_tpu_torch.train.trainer import build_model
 
-    batch_size = 128
+    c = CELLS[config]
+    batch_size = c["batch_size"]
     dataset = generate_dataset(batch_size, seed=0, min_side=24, max_side=32,
-                               use_super_node=use_super_node,
-                               use_virtual_edges=not use_super_node)
+                               use_super_node=c["use_super_node"],
+                               use_virtual_edges=not c["use_super_node"])
     normed, nz = normalize_dataset(dataset)
     cfg = TrainConfig(hidden_channels=512, num_layers=6,
-                      compute_dtype="bfloat16", seed=0)
-    band_tile, band_width = select_band_geometry(normed, tile=256)
+                      compute_dtype="bfloat16", seed=0,
+                      model_name=c["model_name"])
+    band_tile, band_width = c["band_tile"], c["band_width"]
+    if band_width is None:
+        band_tile, band_width = select_band_geometry(normed, tile=band_tile)
     batch = pack_exact(normed, batch_size, band_width, band_tile, device)
     model = build_model(cfg, normed[0].x.shape[1],
                         normed[0].edge_attr.shape[1], device=device)
     return cfg, normed, nz, batch, model
 
 
-def build_serve_setup(device=None, use_super_node: bool = True):
-    """The flagship cell (or, with ``use_super_node=False``, the
-    virtual-edge cell) served. Returns dict(model, batch, eval_step,
-    normalizer, dataset, cfg, n_edges, n_graphs) on ``device`` (the CUDA
-    card unless "cpu")."""
+def build_serve_setup(device=None, config: str = "flagship"):
+    """The cell ``config`` (a key of ``CELLS``) served. Returns
+    dict(model, batch, eval_step, normalizer, dataset, cfg, n_edges,
+    n_graphs) on ``device`` (the CUDA card unless "cpu")."""
     from buckgnn_tpu_torch.train.losses import get_loss_function
     from buckgnn_tpu_torch.train.trainer import make_eval_step
 
-    cfg, normed, nz, batch, model = _flagship(resolve_device(device),
-                                              use_super_node)
+    cfg, normed, nz, batch, model = _cell(resolve_device(device), config)
     eval_step = make_eval_step(model, get_loss_function(cfg.loss_function),
                                cfg, nz)
     return dict(model=model, batch=batch, eval_step=eval_step,
@@ -88,19 +116,17 @@ def build_serve_setup(device=None, use_super_node: bool = True):
                 n_graphs=int(batch.graph_mask.sum()))
 
 
-def build_train_setup(device=None, use_super_node: bool = True):
-    """The flagship cell (or, with ``use_super_node=False``, the
-    virtual-edge cell) trained. Returns dict(state, batch, train_step,
-    eval_step, lr, generator, normalizer, dataset, cfg, n_edges, n_graphs)
-    on ``device`` (the CUDA card unless "cpu"); ``generator`` (seed 0)
+def build_train_setup(device=None, config: str = "flagship"):
+    """The cell ``config`` (a key of ``CELLS``) trained. Returns
+    dict(state, batch, train_step, eval_step, lr, generator, normalizer,
+    dataset, cfg, n_edges, n_graphs) on ``device`` (the CUDA card unless "cpu"); ``generator`` (seed 0)
     draws the layers' dropout seeds."""
     from buckgnn_tpu_torch.train.losses import get_loss_function
     from buckgnn_tpu_torch.train.trainer import (
         init_state, make_optimizer, make_train_step,
     )
 
-    cfg, normed, nz, batch, model = _flagship(resolve_device(device),
-                                              use_super_node)
+    cfg, normed, nz, batch, model = _cell(resolve_device(device), config)
     optimizer = make_optimizer(cfg, model)
     train_step, eval_step = make_train_step(
         model, optimizer, get_loss_function(cfg.loss_function), cfg, nz)

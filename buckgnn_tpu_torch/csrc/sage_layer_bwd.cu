@@ -35,8 +35,9 @@
 //      table;
 //   2. band pass, one block per 64 rows: dx = dxp + band @ dagg slab,
 //      banded.cuh::banded_kernel with its acc add (the banded SpMM's kernel);
-//   3. weight pass: [agg | x]^T @ dout split over a fixed number of row
-//      chunks (split-K), f32 partials per chunk;
+//   3. weight pass: agg^T @ dout and x^T @ dout, each split over a fixed
+//      number of row chunks (split-K), f32 partials per chunk
+//      (atb.cuh::atb, the EA backward's weight pass too);
 //   4. reductions of the dW, db and table partials, each in a fixed order.
 // No float atomics: two runs give the same bits.
 //
@@ -57,6 +58,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "atb.cuh"
 #include "banded.cuh"
 #include "sage_common.cuh"
 
@@ -67,7 +69,7 @@ namespace {
 constexpr int BM = 64;  // rows per block of the tile pass
 constexpr int NWARP = 8;
 constexpr int NTHREADS = NWARP * 32;
-constexpr int KSPLIT = 16;  // row chunks of the weight pass
+using splitk::KSPLIT;  // row chunks of the weight pass
 
 typedef __nv_bfloat16 bf16;
 
@@ -298,106 +300,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) bwd_tile_kernel(Params p) {
   }
 }
 
-// ---- pass 3: weight gradients, split over KSPLIT row chunks --------------
-// part[w, chunk, i, j] = sum_{k in chunk} A_w[k, i] * dout[k, j], with
-// A_0 = agg and A_1 = x. Blocks of 8 warps own a 128 x 128 output tile;
-// K-steps of 32 rows are staged in shared memory with 16-byte loads.
-constexpr int TI = 128, TJ = 128, TK = 32;
-
-template <int H>
-__global__ void __launch_bounds__(NTHREADS) dw_kernel(Params p) {
-  __shared__ __align__(128) bf16 sa[TK][TI + 8];
-  __shared__ __align__(128) bf16 sb[TK][TJ + 8];
-  const int i0 = blockIdx.x * TI;
-  const int j0 = blockIdx.y * TJ;
-  const int chunk = blockIdx.z % KSPLIT;
-  const int which = blockIdx.z / KSPLIT;
-  const bf16* A = which ? p.x : p.agg;
-  const int kc = ((p.n + KSPLIT * TK - 1) / (KSPLIT * TK)) * TK;
-  const int kb = chunk * kc;
-  const int ke = min(p.n, kb + kc);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wi = warp / 4;  // 2 x 4 warps, each 64 x 32
-  const int wj = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kb; k0 < ke; k0 += TK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int e = (tid + u * NTHREADS) * 8;  // 8 bf16 per 16-byte load
-      const int r = e / TI;
-      const int c = e % TI;
-      *reinterpret_cast<uint4*>(&sa[r][c]) = *reinterpret_cast<const uint4*>(
-          A + (size_t)(k0 + r) * H + i0 + c);
-      *reinterpret_cast<uint4*>(&sb[r][c]) = *reinterpret_cast<const uint4*>(
-          p.dout + (size_t)(k0 + r) * H + j0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &sb[kk][wj * 32 + j * 16], TJ + 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // A^T(i, k) = sa[k][i]: column-major with leading dimension TI + 8
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, &sa[kk][wi * 64 + i * 16], TI + 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = p.dw_part + ((size_t)(which * KSPLIT + chunk) * H) * H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          out + (size_t)(i0 + wi * 64 + i * 16) * H + j0 + wj * 32 + j * 16,
-          acc[i][j], H, wmma::mem_row_major);
-}
-
-// ---- pass 4: fixed-order reductions ---------------------------------------
-// dw[w, e] = sum over chunks in order of part[w, chunk, e]
-__global__ void dw_reduce_kernel(const float* part, float* dwl, float* dwr,
-                                 int hh) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int w = blockIdx.y;
-  if (e >= hh) return;
-  float s = 0.f;
-  for (int k = 0; k < KSPLIT; ++k) s += part[((size_t)w * KSPLIT + k) * hh + e];
-  (w ? dwr : dwl)[e] = s;
-}
-
-// db[c] = sum over blocks of part[b, c]: 8 warps each take every 8th block
-// in order for 32 columns, then the 8 sums are added in warp order
-__global__ void db_reduce_kernel(const float* part, float* db, int n_blocks,
-                                 int h) {
-  __shared__ float sums[NWARP][32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int c = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (c < h)
-    for (int b = warp; b < n_blocks; b += NWARP) s += part[(size_t)b * h + c];
-  sums[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && c < h) {
-    float t = 0.f;
-    for (int w = 0; w < NWARP; ++w) t += sums[w][lane];
-    db[c] = t;
-  }
-}
-
 template <int H>
 cudaError_t launch_tile(const Params& p, cudaStream_t st) {
   const int tile_smem = BM * (H + 4) * 4 + BM * (H + 8) * 2 + 2 * BM * 4;
@@ -409,17 +311,20 @@ cudaError_t launch_tile(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// passes 3 and 4: dW, db and (has_super) the own table from the partials
+// passes 3 and 4: dW_l = agg^T @ dout and dW_r = x^T @ dout (atb.cuh, one
+// launch, one half of dw_part each), db and (has_super) the own table from
+// the partials
 template <int H>
 cudaError_t launch_weights(const Params& p, float* dwl, float* dwr,
                            float* db, float* town, int tg, cudaStream_t st) {
   cudaError_t e;
-  dw_kernel<H><<<dim3(H / TI, H / TJ, 2 * KSPLIT), NTHREADS, 0, st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dw_reduce_kernel<<<dim3((H * H + 255) / 256, 2), 256, 0, st>>>(
-      p.dw_part, dwl, dwr, H * H);
-  db_reduce_kernel<<<(H + 31) / 32, NTHREADS, 0, st>>>(p.db_part, db,
-                                                       p.n / BM, H);
+  splitk::Jobs jobs;
+  jobs.add(p.agg, H, H, p.dout, H, H, p.n, dwl);
+  jobs.add(p.x, H, H, p.dout, H, H, p.n, dwr);
+  if ((e = splitk::atb(jobs, p.dw_part, st)) != cudaSuccess) return e;
+  if ((e = splitk::bias_reduce(p.db_part, p.n / BM, 1, 1, {{0}}, H, db,
+                               st)) != cudaSuccess)
+    return e;
   if (p.has_super) {
     dim3 grid((H + 255) / 256, tg);
     sage::table_reduce_kernel<<<grid, 256, 0, st>>>(

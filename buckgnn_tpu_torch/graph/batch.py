@@ -11,10 +11,11 @@ static fields as the JAX pytree. Padding follows the same contract:
   row.
 
 Carried: the core arrays, the banded decomposition (band / spill / spill2
-lists, fused-spill geometry, the materialized int8 band) and the supernode
+lists, fused-spill geometry, the materialized int8 band), the supernode
 star codes (``gcode``/``gacc``/``super_mask`` and the local windows
-``gwin``/``lcode``/``lacc``). The EA edge windows (``win_*``) come with the
-EA slice of the port.
+``gwin``/``lcode``/``lacc``) and the per-receiver-tile edge windows of the
+edge-augmented models (``win_*``, graph/batch.py:588-684 of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -64,7 +65,9 @@ _TENSOR_FIELDS = (
     "n_real_node", "band_senders", "band_receivers", "spill_senders",
     "spill_receivers", "spill2_senders", "spill2_receivers",
     "spill_offsets", "spill_lo", "spill_hi", "band", "gcode", "gacc",
-    "super_mask", "gwin", "lcode", "lacc",
+    "super_mask", "gwin", "lcode", "lacc", "win_edges", "win_sidx",
+    "win_ridx", "win_far_pos", "win_far_send", "win_far_tsend", "win_fs_src",
+    "win_fs_lidx",
 )
 
 
@@ -103,6 +106,24 @@ class GraphBatch:
     gwin: torch.Tensor | None = None        # [n_tiles] int32
     lcode: torch.Tensor | None = None       # [n_tiles, T, 1] int32
     lacc: torch.Tensor | None = None        # [n_tiles, 1, T] int32
+    # per-receiver-tile edge windows (edge-augmented models): edges are
+    # receiver-sorted, so node tile t owns one contiguous run of them,
+    # reshaped into W slots. win_sidx is the sender's code in the tile's
+    # EXTENDED slab: its x-slab offset, slab + rank for an out-of-band
+    # ("far") sender whose global id is win_far_tsend[t, rank], and
+    # FAR_SLOT_SENTINEL for pads; win_ridx the receiver's offset in the
+    # tile (T for pads). win_far_pos/send are the flat [t*W + w]
+    # positions and senders of the far edges; win_fs_src/lidx the same far
+    # rows grouped by sender tile (flat index t*Ct + rank, sender's local
+    # row; T for pads).
+    win_edges: torch.Tensor | None = None      # [n_tiles, W, Fe]
+    win_sidx: torch.Tensor | None = None       # [n_tiles, W] int32
+    win_ridx: torch.Tensor | None = None       # [n_tiles, W] int32
+    win_far_pos: torch.Tensor | None = None    # [F_cap] int32
+    win_far_send: torch.Tensor | None = None   # [F_cap] int32
+    win_far_tsend: torch.Tensor | None = None  # [n_tiles, Ct] int32
+    win_fs_src: torch.Tensor | None = None     # [n_tiles, Cs] int32
+    win_fs_lidx: torch.Tensor | None = None    # [n_tiles, Cs] int32
     # static metadata
     band_tile: int | None = None
     band_width: int | None = None
@@ -165,6 +186,10 @@ SPILL_ALIGN = 16
 
 # Rows per half of the per-tile local star-table window (gwin/lcode/lacc).
 LOCAL_STAR_ROWS = 16
+
+# win_sidx code of a pad slot: no slab + far extension reaches it, so
+# widening W or Ct across a run never turns a pad into a real slot.
+FAR_SLOT_SENTINEL = np.int32(1 << 30)
 
 
 def star_table_geometry(g_cap: int) -> tuple[int, int]:
@@ -346,6 +371,77 @@ def _star_codes(node_graph, node_mask, supernode_index, n_node_cap,
     return out
 
 
+def _edge_windows(senders, receivers, edges, edge_mask, n_node_cap,
+                  band_tile, band_width, np_dtype) -> dict:
+    """The ``win_*`` fields: receiver-tile windows of W slots (W the
+    largest tile's valid-edge count, rounded up to 8), extended-slab sender
+    codes, the flat far list, the far rows tiled by receiver under a cap
+    Ct and grouped by sender tile under a cap Cs."""
+    assert band_width <= band_tile, (
+        f"edge windows need band_width <= band_tile ({band_width} > "
+        f"{band_tile}): a slab then overlaps only its neighbour tiles")
+    n_tiles = n_node_cap // band_tile
+    slab = band_tile + band_width
+    dead = n_node_cap - 1
+    tile_of = receivers // band_tile
+    counts = np.bincount(tile_of[edge_mask], minlength=n_tiles)
+    w_cap = ((max(int(counts.max(initial=0)), 8) + 7) // 8) * 8
+    w_edges = np.zeros((n_tiles, w_cap, edges.shape[1]), dtype=np_dtype)
+    w_sidx = np.full((n_tiles, w_cap), FAR_SLOT_SENTINEL, dtype=np.int32)
+    w_ridx = np.full((n_tiles, w_cap), band_tile, dtype=np.int32)
+    starts = np.clip(np.arange(n_tiles) * band_tile - band_width // 2,
+                     0, max(n_node_cap - slab, 0))
+    idx_v = np.nonzero(edge_mask)[0]  # receiver-ascending by packing
+    t_val = tile_of[idx_v]
+    off = np.zeros(n_tiles + 1, dtype=np.int64)
+    off[1:] = np.cumsum(counts)
+    pos = np.arange(len(idx_v)) - off[t_val]
+    w_edges[t_val, pos] = edges[idx_v]
+    loc = senders[idx_v].astype(np.int64) - starts[t_val]
+    inb = (loc >= 0) & (loc < slab)
+    w_sidx[t_val, pos] = np.where(inb, loc, slab).astype(np.int32)
+    w_ridx[t_val, pos] = (receivers[idx_v] - t_val * band_tile).astype(
+        np.int32)
+    far = ~inb
+    f_cnt = int(far.sum())
+    f_cap = ((max(f_cnt, 8) + 511) // 512) * 512
+    # pad positions lie past the window buffer on purpose
+    far_pos = np.full((f_cap,), n_tiles * w_cap, dtype=np.int32)
+    far_send = np.full((f_cap,), dead, dtype=np.int32)
+    far_pos[:f_cnt] = (t_val[far] * w_cap + pos[far]).astype(np.int32)
+    far_send[:f_cnt] = senders[idx_v][far]
+    # far rows per receiver tile (rank within the tile), re-coded in
+    # win_sidx as slab + rank; t_val[far] ascends
+    t_far = t_val[far]
+    per_tile = np.bincount(t_far, minlength=n_tiles)
+    ct_cap = ((max(int(per_tile.max(initial=0)), 8) + 7) // 8) * 8
+    far_tsend = np.full((n_tiles, ct_cap), dead, np.int32)
+    cs_cap = 8
+    fs_src = np.zeros((n_tiles, cs_cap), np.int32)
+    fs_lidx = np.full((n_tiles, cs_cap), band_tile, np.int32)
+    if f_cnt:
+        ranks = np.arange(f_cnt) - np.searchsorted(t_far, t_far)
+        far_tsend[t_far, ranks] = senders[idx_v][far]
+        w_sidx[t_far, pos[far]] = (slab + ranks).astype(np.int32)
+        f_send = senders[idx_v][far]
+        k_flat = (t_far * ct_cap + ranks).astype(np.int64)
+        s_tile_of = f_send // band_tile
+        order = np.argsort(s_tile_of, kind="stable")
+        fs_k = k_flat[order]
+        fs_t = s_tile_of[order]
+        fs_l = f_send[order] - fs_t * band_tile
+        cnt_s = np.bincount(fs_t, minlength=n_tiles)
+        cs_cap = ((max(int(cnt_s.max(initial=0)), 8) + 7) // 8) * 8
+        fs_src = np.zeros((n_tiles, cs_cap), np.int32)
+        fs_lidx = np.full((n_tiles, cs_cap), band_tile, np.int32)
+        ranks_s = np.arange(len(fs_t)) - np.searchsorted(fs_t, fs_t)
+        fs_src[fs_t, ranks_s] = fs_k.astype(np.int32)
+        fs_lidx[fs_t, ranks_s] = fs_l.astype(np.int32)
+    return dict(win_fs_src=fs_src, win_fs_lidx=fs_lidx, win_edges=w_edges,
+                win_sidx=w_sidx, win_ridx=w_ridx, win_far_pos=far_pos,
+                win_far_send=far_send, win_far_tsend=far_tsend)
+
+
 def _tensors(arrays: dict, device) -> dict:
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
             for k, v in arrays.items()}
@@ -464,6 +560,10 @@ def pack_graphs(
             spill2_senders=ss2, spill2_receivers=sr2,
             spill_offsets=s_off, spill_lo=s_lo, spill_hi=s_hi,
         )
+        if fe_dim:
+            arrays.update(_edge_windows(senders, receivers, edges, edge_mask,
+                                        n_node_cap, band_tile, band_width,
+                                        np_dtype))
         if materialize_band:
             arrays["band"] = _host_band_matrix(
                 bs, br, n_node_cap, band_tile, band_width,
@@ -523,6 +623,10 @@ def batch_iterator(
     rcm: bool = False,
     materialize_band: bool = True,
     analytic_supernode: bool = True,
+    min_win_cap: int = 0,
+    min_far_cap: int = 0,
+    min_far_tile_cap: int = 0,
+    min_fs_cap: int = 0,
     min_spill_cap: int = 0,
     min_spill2_cap: int = 0,
     min_band_cap: int = 0,
@@ -534,7 +638,9 @@ def batch_iterator(
     ``rcm=True`` relabels each graph with a reverse Cuthill-McKee order
     before packing. With ``band_width`` set the whole dataset is packed
     first: spill flags and edge-list capacities are made run-uniform, and
-    the local star windows are kept only if every batch has them.
+    the local star windows are kept only if every batch has them, and the
+    edge windows' caps (W, F, Ct, Cs) are padded to the run's maxima (or
+    the ``min_*_cap`` floors).
     """
     device = resolve_device(device)
     if rcm:
@@ -597,9 +703,72 @@ def batch_iterator(
         batches = [
             b.replace(gwin=None, lcode=None, lacc=None) for b in batches
         ]
+    caps = None
+    if batches and batches[0].win_edges is not None:
+        caps = (
+            max(max(b.win_edges.shape[1] for b in batches), min_win_cap),
+            max(max(b.win_far_pos.shape[0] for b in batches), min_far_cap),
+            max(max(b.win_far_tsend.shape[1] for b in batches),
+                min_far_tile_cap),
+            max(max(b.win_fs_src.shape[1] for b in batches), min_fs_cap),
+        )
     for b in batches:
+        if caps is not None:
+            b = _pad_windows_to(b, *caps)
         yield b.replace(has_spill_edges=any_spill,
                         has_spill2_edges=any_spill2)
+
+
+def _pad_windows_to(b: GraphBatch, w_max: int, f_max: int, ct_max: int,
+                    cs_max: int) -> GraphBatch:
+    """Grow a batch's edge windows to run-uniform caps: W slots and F far
+    entries with inert pads, Ct far rows per tile (dead-node senders; the
+    flat win_fs_src indices re-strided to the new Ct) and Cs sender-tile
+    rows (local row T)."""
+    kw = {}
+    nt = b.win_edges.shape[0]
+    dead = b.n_node_cap - 1
+    i32 = dict(dtype=torch.int32, device=b.device)
+    ct_old = b.win_far_tsend.shape[1]
+    if ct_old < ct_max:
+        kw["win_far_tsend"] = torch.cat(
+            [b.win_far_tsend, torch.full((nt, ct_max - ct_old), dead, **i32)],
+            dim=1)
+        kw["win_fs_src"] = ((b.win_fs_src // ct_old) * ct_max
+                            + b.win_fs_src % ct_old).to(torch.int32)
+    cs_old = b.win_fs_src.shape[1]
+    if cs_old < cs_max:
+        src = kw.get("win_fs_src", b.win_fs_src)
+        kw["win_fs_src"] = torch.cat(
+            [src, torch.zeros((nt, cs_max - cs_old), **i32)], dim=1)
+        kw["win_fs_lidx"] = torch.cat(
+            [b.win_fs_lidx,
+             torch.full((nt, cs_max - cs_old), b.band_tile, **i32)], dim=1)
+    w_old = b.win_edges.shape[1]
+    if w_old < w_max:
+        dw = w_max - w_old
+        kw.update(
+            win_edges=torch.cat([b.win_edges, b.win_edges.new_zeros(
+                (nt, dw, b.win_edges.shape[2]))], dim=1),
+            win_sidx=torch.cat([b.win_sidx, torch.full(
+                (nt, dw), int(FAR_SLOT_SENTINEL), **i32)], dim=1),
+            win_ridx=torch.cat([b.win_ridx, torch.full(
+                (nt, dw), b.band_tile, **i32)], dim=1))
+        # flat far positions re-derived for the wider W; pads stay past
+        # the buffer
+        fp = b.win_far_pos
+        pad = b.win_far_send == dead
+        kw["win_far_pos"] = torch.where(
+            pad, torch.full_like(fp, nt * w_max),
+            (fp // w_old) * w_max + fp % w_old).to(torch.int32)
+    f_old = b.win_far_pos.shape[0]
+    if f_old < f_max:
+        fp = kw.get("win_far_pos", b.win_far_pos)
+        kw["win_far_pos"] = torch.cat(
+            [fp, torch.full((f_max - f_old,), nt * w_max, **i32)])
+        kw["win_far_send"] = torch.cat(
+            [b.win_far_send, torch.full((f_max - f_old,), dead, **i32)])
+    return b.replace(**kw) if kw else b
 
 
 def select_band_geometry(

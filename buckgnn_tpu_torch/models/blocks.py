@@ -114,3 +114,38 @@ class SAGEConv(nn.Module):
                                 deterministic=deterministic, star_in=star_in,
                                 star_next=star_next, table_in=table_in,
                                 emit_table=emit_table)
+
+
+class GraphNetBlock(nn.Module):
+    """Edge-augmented message-passing block (Models/BuckGNN.py:528-566),
+    run as the fused block (ops/ea_block.py):
+    e' = edge_mlp([x_recv, x_send, e]), m = phi([x_send, e']),
+    agg = scatter_mean(m over receivers), x' = gamma([x, agg]),
+    x' = x' + beta(x'). The parameters are those of the JAX package's
+    GraphNetBlock, whose first Dense of edge_mlp / phi / gamma is one
+    [sum(in), h] kernel over the concatenation (``_SplitDense``): here an
+    `MLP` of the same widths. The edge input is h wide on the fused path
+    (the encoded window, or the encoder output in encoder mode)."""
+
+    def __init__(self, hidden_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        h = hidden_channels
+        self.hidden_channels = h
+        self.dtype = dtype
+        kw = dict(dtype=dtype, generator=generator)
+        self.edge_mlp = MLP(3 * h, (h, h), **kw)
+        self.node_mlp_phi = MLP(2 * h, (h, h), **kw)
+        self.node_mlp_gamma = MLP(2 * h, (h, h), **kw)
+        self.node_mlp_beta = MLP(h, (h, h), **kw)
+
+    def forward(self, x, e_win, ea_ctx, *, skip: bool, rate: float = 0.0,
+                seed=None, deterministic: bool = True, encoder=None):
+        """``(x', e')`` of the fused block with the stack's skip and dropout
+        (ops/ea_block.py::fused_ea_block, arguments as there)."""
+        from buckgnn_tpu_torch.ops.ea_block import fused_ea_block
+
+        return fused_ea_block(x, e_win, self, ea_ctx, skip=skip, rate=rate,
+                              seed=seed, deterministic=deterministic,
+                              encoder=encoder)

@@ -1,8 +1,9 @@
 """The BuckGNN model (port of buckgnn_tpu/models/buckgnn.py).
 
-Covers the flagship variant ``GraphSage_addAggr_Shared`` with ``mean``
-pooling and the buckling head on banded batches that the fused layer
-takes: node encoder -> L weight-tied fused SAGE layers (skip on
+Covers ``mean`` pooling and the buckling head with two processors.
+
+The flagship variant ``GraphSage_addAggr_Shared``, on banded batches that
+the fused layer takes: node encoder -> L weight-tied fused SAGE layers (skip on
 0 < i < L-1, Models/BuckGNN.py:349-351, dropout after each) -> mean pool
 -> decoder. Batches with spill edges (the virtual-edge config) add the
 spill window in every layer and take the split backward. On supernode
@@ -13,6 +14,14 @@ next layer's star table; otherwise the table is rebuilt from x for each
 layer (models/buckgnn.py:169-242 of the JAX package, `star_threading`).
 In training (``deterministic=False``) each layer draws its two dropout
 seed words from the caller's ``torch.Generator``.
+
+The edge-augmented ``EA_GNN_Shared`` (one weight-tied ``shared_gn_block``)
+and ``EA_GNN`` (``gn_block_{i}`` per layer), on batches with edge windows
+that the fused block takes (models/buckgnn.py:295-428 of the JAX package,
+fused and not tensor-parallel): node encoder, and the edge encoder on the
+raw window, or inside layer 0's kernel when `supports_fused_encoder`
+holds; then L fused blocks with skip on x and e for 0 < i < L-1 and
+dropout inside the kernel; mean pool and decoder.
 
 Every other model name, pooling or prediction type raises
 NotImplementedError naming the ROADMAP item that brings it, and so does a
@@ -26,9 +35,12 @@ from torch import nn
 
 from buckgnn_tpu_torch.graph.batch import GraphBatch
 from buckgnn_tpu_torch.models.blocks import (
-    MLP, SAGEConv, decoder_widths, encoder_widths,
+    MLP, GraphNetBlock, SAGEConv, decoder_widths, encoder_widths,
 )
 from buckgnn_tpu_torch.ops import segment
+
+
+PORTED_MODELS = ("GraphSage_addAggr_Shared", "EA_GNN_Shared", "EA_GNN")
 
 
 class BuckGNN(nn.Module):
@@ -40,12 +52,17 @@ class BuckGNN(nn.Module):
                  model_name: str = "GraphSage_addAggr_Shared",
                  dtype: torch.dtype = torch.float32,
                  impl: str = "banded_pallas",
+                 remat: bool | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if model_name != "GraphSage_addAggr_Shared":
+        if model_name not in PORTED_MODELS:
             raise NotImplementedError(
-                f"model_name={model_name!r}: only GraphSage_addAggr_Shared "
-                "is ported (rest of the family: ROADMAP queue 1, items 6-7)")
+                f"model_name={model_name!r}: only {', '.join(PORTED_MODELS)} "
+                "are ported (rest of the family: ROADMAP queue 1, item 7)")
+        if remat:
+            raise NotImplementedError(
+                "remat=True selects the unfused paths (ROADMAP queue 1, "
+                "items 2 and 7)")
         if pooling_layer != "mean":
             raise NotImplementedError(
                 f"pooling_layer={pooling_layer!r}: only 'mean' is ported "
@@ -69,10 +86,18 @@ class BuckGNN(nn.Module):
         self.dtype = dtype
         self.impl = impl
         h = hidden_channels
-        self.node_encoder = MLP(num_node_features, encoder_widths(h),
-                                dtype=dtype, generator=generator)
-        self.shared_graphsage_block = SAGEConv(h, dtype=dtype,
-                                               generator=generator)
+        kw = dict(dtype=dtype, generator=generator)
+        self.node_encoder = MLP(num_node_features, encoder_widths(h), **kw)
+        if model_name == "GraphSage_addAggr_Shared":
+            self.shared_graphsage_block = SAGEConv(h, **kw)
+        else:
+            self.edge_encoder = MLP(num_edge_features, encoder_widths(h),
+                                    **kw)
+            if model_name == "EA_GNN_Shared":
+                self.shared_gn_block = GraphNetBlock(h, **kw)
+            else:
+                for i in range(num_layers):
+                    self.add_module(f"gn_block_{i}", GraphNetBlock(h, **kw))
         self.decoder = MLP(h, decoder_widths(h, 1), dtype=dtype,
                            generator=generator)
 
@@ -82,25 +107,67 @@ class BuckGNN(nn.Module):
         and ``aux['node_keep']`` as in the JAX model. Training with dropout
         (``deterministic=False``, ``dropout_rate`` > 0) needs ``generator``,
         the source of each layer's dropout seeds."""
-        from buckgnn_tpu_torch.ops.banded import make_agg_context
-        from buckgnn_tpu_torch.ops.sage_layer import (
-            star_source, supports_fused_layer,
-        )
-
-        training = not deterministic
-        rate = self.dropout_rate if training else 0.0
+        rate = self.dropout_rate if not deterministic else 0.0
         if rate > 0.0 and generator is None:
             raise ValueError("training with dropout needs a torch.Generator "
                              "for the layers' dropout seeds")
         if batch.band_senders is None:
             raise NotImplementedError(
                 "unbanded batches need the CSR path (ROADMAP queue 1, item 7)")
-        h = self.hidden_channels
-        L = self.num_layers
         # 'mean' pooling does not look for supernodes (BuckGNN.py:315-316)
         real_node_mask = batch.node_mask
 
         x = self.node_encoder(batch.nodes)
+        if self.model_name == "GraphSage_addAggr_Shared":
+            x = self._sage_stack(x, batch, rate, deterministic, generator)
+        else:
+            x = self._ea_stack(x, batch, rate, deterministic, generator)
+
+        pooled = self._pool(x, batch)
+        pred = self.decoder(pooled)
+        aux = {"real_node_mask": real_node_mask, "node_keep": batch.node_mask}
+        return pred.squeeze(-1), aux
+
+    def _ea_stack(self, x, batch, rate, deterministic, generator):
+        """L fused GraphNetBlocks (models/buckgnn.py:295-428 of the JAX
+        package, the fused branch)."""
+        from buckgnn_tpu_torch.ops.ea_block import (
+            make_ea_context, supports_fused_ea, supports_fused_encoder,
+        )
+        from buckgnn_tpu_torch.ops.ea_windowed import window_edge_features
+
+        h = self.hidden_channels
+        L = self.num_layers
+        if not supports_fused_ea(batch, h):
+            raise NotImplementedError(
+                f"the fused EA block does not take this batch/width (h={h}, "
+                f"edge windows: {batch.win_edges is not None}); the unfused "
+                "windowed path is ROADMAP queue 1, item 7")
+        ctx = make_ea_context(batch)
+        edge_attr = window_edge_features(batch)
+        fuse_enc = supports_fused_encoder(batch, h, edge_attr.shape[-1])
+        if not fuse_enc:
+            edge_attr = self.edge_encoder(edge_attr)
+        for i in range(L):
+            blk = (self.shared_gn_block if self.model_name == "EA_GNN_Shared"
+                   else getattr(self, f"gn_block_{i}"))
+            seed = draw_seed(generator) if rate > 0.0 else None
+            x, edge_attr = blk(
+                x, edge_attr, ctx, skip=0 < i < L - 1, rate=rate, seed=seed,
+                deterministic=deterministic,
+                encoder=self.edge_encoder if fuse_enc and i == 0 else None)
+        return x
+
+    def _sage_stack(self, x, batch, rate, deterministic, generator):
+        """L fused, weight-tied SAGE layers with star threading."""
+        from buckgnn_tpu_torch.ops.banded import make_agg_context
+        from buckgnn_tpu_torch.ops.sage_layer import (
+            star_source, supports_fused_layer,
+        )
+
+        training = not deterministic
+        h = self.hidden_channels
+        L = self.num_layers
         agg_ctx = make_agg_context(batch)
         if not supports_fused_layer(agg_ctx, x, "add", True):
             raise NotImplementedError(
@@ -127,11 +194,7 @@ class BuckGNN(nn.Module):
                 x, table = out
             else:
                 x, star, table = out
-
-        pooled = self._pool(x, batch)
-        pred = self.decoder(pooled)
-        aux = {"real_node_mask": real_node_mask, "node_keep": batch.node_mask}
-        return pred.squeeze(-1), aux
+        return x
 
     def _pool(self, x, batch: GraphBatch):
         """Masked mean readout (BuckGNN.py:246-307); divides in float32."""

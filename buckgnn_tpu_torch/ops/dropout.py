@@ -66,16 +66,19 @@ def dropout_bits(seed, rows: torch.Tensor, cols: torch.Tensor):
     return _fmix32(h ^ ((_mul32(cols.long(), COL_MUL) + s1) & _M32))
 
 
-def keep_mask(seed, n: int, h: int, rate: float, device) -> torch.Tensor:
-    """[n, h] bool keep mask of rows 0..n-1 at ``rate``."""
-    rows = torch.arange(n, device=device)[:, None]
+def keep_mask(seed, n: int, h: int, rate: float, device,
+              row0: int = 0) -> torch.Tensor:
+    """[n, h] bool keep mask of rows row0..row0+n-1 at ``rate``."""
+    rows = torch.arange(row0, row0 + n, device=device)[:, None]
     cols = torch.arange(h, device=device)[None, :]
     return dropout_bits(seed, rows, cols) < dropout_threshold(rate)
 
 
-def apply_dropout(r: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def apply_dropout(r: torch.Tensor, seed, rate: float,
+                  row0: int = 0) -> torch.Tensor:
     """where(keep, r * scale, 0) on an [N, H] float32 tensor, as the fused
-    kernels apply it (scale in float32)."""
-    keep = keep_mask(seed, r.shape[0], r.shape[1], rate, r.device)
+    kernels apply it (scale in float32); its rows are rows row0.. of the
+    hash."""
+    keep = keep_mask(seed, r.shape[0], r.shape[1], rate, r.device, row0)
     scale = torch.tensor(dropout_scale(rate), dtype=torch.float32)
     return torch.where(keep, r * scale.to(r.device), torch.zeros((), device=r.device))

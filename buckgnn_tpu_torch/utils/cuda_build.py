@@ -23,6 +23,8 @@ SOURCES = {
     "sage_layer_fwd": os.path.join(_PKG, "csrc", "sage_layer_fwd.cu"),
     "sage_layer_bwd": os.path.join(_PKG, "csrc", "sage_layer_bwd.cu"),
     "banded_matmul": os.path.join(_PKG, "csrc", "banded_matmul.cu"),
+    "ea_block_fwd": os.path.join(_PKG, "csrc", "ea_block_fwd.cu"),
+    "ea_block_bwd": os.path.join(_PKG, "csrc", "ea_block_bwd.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

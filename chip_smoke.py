@@ -24,7 +24,7 @@ Phases, each fatal on failure:
      the step, with the launch counts of that run (6 of each kernel per
      step); and hold one step's loss and gradients against the plain path
      on the card, from the same dropout seeds;
-  5. the virtual-edge cell (``use_super_node=False``: 128 panels with
+  5. the virtual-edge cell (``config="virtual"``: 128 panels with
      virtual edges, whose out-of-band edges take the spill path): hold
      the forward's spill term (serving and training variants), the split
      backward's tile kernel (skip on and off, dropout 0 and 0.1, and a
@@ -36,7 +36,23 @@ Phases, each fatal on failure:
      forward, the forward against the plain path) and train it (6
      forward, 6 tile and 6 banded launches per step and no merged
      backward; one step's gradients against the plain path);
-  6. time each kernel beside its bound, its plain version and a PyTorch
+  6. the ea-virtual cell (``config="ea-virtual"``: EA_GNN_Shared on 64
+     virtual-edge panels, tile 128, width 64): hold the fused EA block's
+     forward (zx, ze, e1s, m1s and both dropout masks) and backward
+     (folded dx, de_win, every dW and dbias) against their plain versions
+     at the cell's shape and on two small ragged batches (one whose slot
+     count is not a multiple of the kernels' 64-slot blocks), in plain and
+     encoder
+     mode, skip on and off, dropout 0 and 0.1; show that the gates fail a
+     forward without its far senders, its cnt * b_p1 term or its skip,
+     a backward without its halo or far fold, and faults confined to a few
+     rows of dx (one node's sender run, one far rank, one clamped tile's
+     halo) and to dW_sp; the same bits twice; serve
+     the cell (6 ea_block_fwd launches per forward, the forward against
+     the plain path) and train it (6 ea_block_fwd and 6 ea_block_bwd per
+     step and no SAGE kernel; one step's gradients against the plain path
+     at three generator seeds);
+  7. time each kernel beside its bound, its plain version and a PyTorch
      composition of the same function, at the shape its main path gives.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -61,6 +77,7 @@ from buckgnn_tpu_torch.graph.batch import select_band_geometry, star_table_geome
 from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
 from buckgnn_tpu_torch.graph.synthetic import generate_dataset
 from buckgnn_tpu_torch.ops import banded_matmul as bm
+from buckgnn_tpu_torch.ops import ea_block as eb
 from buckgnn_tpu_torch.ops import sage_layer as sl
 from buckgnn_tpu_torch.ops.banded import make_agg_context
 from buckgnn_tpu_torch.ops.dropout import dropout_scale, keep_mask
@@ -86,6 +103,13 @@ PRED_TOL = (2e-3, 2e-3)
 # at seed 11, 1.63% (0 at seeds 12-14), every SAGE weight under 0.31%, and
 # the flagship's worst at seed 11 0.73%.
 GRAD_TOL = 2e-2
+# the EA cell's whole forward, kernel path vs plain path: its prediction is
+# a bf16 value of about 1 (up to 2.4) on the ea-virtual cell with random
+# weights (the blocks carry no norm), whose ulp is 2^-8 to 2^-7 of it, and
+# an H100 run moved it by one ulp (0.0156 at |pred| > 2); two ulps, 1.6e-2
+# relative, with the SAGE cells' atol. A lost far sender, bias term or
+# skip in any layer moves it by far more (they move zx by O(1)).
+EA_PRED_TOL = (2e-3, 1.6e-2)
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM (data sheet)
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM (data sheet)
 PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores, H100 SXM (data sheet)
@@ -93,6 +117,8 @@ TPU_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:231"
 TPU_BWD_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:706"
 TPU_TILE_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:600"
 TPU_BANDED_KERNEL = "buckgnn_tpu/ops/pallas_banded.py:80"
+TPU_EA_FWD_KERNEL = "buckgnn_tpu/ops/pallas_ea_block.py:234"
+TPU_EA_BWD_KERNEL = "buckgnn_tpu/ops/pallas_ea_block.py:383"
 SEED = (0x1234567, 0x89ABCDEF)  # dropout seed words of the layer checks
 RATE = 0.1  # the flagship's dropout rate (TrainConfig default)
 
@@ -482,27 +508,33 @@ def step_grads(setup, gen_seed):
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper takes its plain version (the reference path)."""
-    real = sl._launch, sl._launch_bwd, sl._launch_bwd_tile, bm._launch
-    (sl._launch, sl._launch_bwd, sl._launch_bwd_tile,
-     bm._launch) = (sl.sage_layer_plain, sl.sage_layer_bwd_plain,
-                    sl.sage_layer_bwd_tile_plain, bm.banded_matmul_plain)
+    real = (sl._launch, sl._launch_bwd, sl._launch_bwd_tile, bm._launch,
+            eb._launch_fwd, eb._launch_bwd)
+    (sl._launch, sl._launch_bwd, sl._launch_bwd_tile, bm._launch,
+     eb._launch_fwd, eb._launch_bwd) = (
+        sl.sage_layer_plain, sl.sage_layer_bwd_plain,
+        sl.sage_layer_bwd_tile_plain, bm.banded_matmul_plain,
+        eb.ea_block_fwd_plain, eb.ea_block_bwd_plain)
     try:
         yield
     finally:
-        sl._launch, sl._launch_bwd, sl._launch_bwd_tile, bm._launch = real
+        (sl._launch, sl._launch_bwd, sl._launch_bwd_tile, bm._launch,
+         eb._launch_fwd, eb._launch_bwd) = real
 
 
-def train_vs_plain(setup, label="flagship", gen_seeds=(11,)):
-    """One train step's loss and gradients, kernel path against the plain
-    path on the card, from the same dropout seeds, for each generator seed
-    in ``gen_seeds``. Returns the largest relative gradient error."""
+def train_vs_plain(setup, label="flagship", gen_seeds=(11,),
+                   pred_tol=PRED_TOL):
+    """One train step's loss (within ``pred_tol``) and gradients, kernel
+    path against the plain path on the card, from the same dropout seeds,
+    for each generator seed in ``gen_seeds``. Returns the largest relative
+    gradient error."""
     worst = 0.0
     for gen_seed in gen_seeds:
         loss, grads = step_grads(setup, gen_seed=gen_seed)
         with plain_kernels():
             loss_p, grads_p = step_grads(setup, gen_seed=gen_seed)
         name = f"{label}/train/seed{gen_seed}"
-        check_close(f"{name}/loss", loss, loss_p, PRED_TOL)
+        check_close(f"{name}/loss", loss, loss_p, pred_tol)
         rel = {k: float((grads[k].float() - grads_p[k].float()).norm()
                         / grads_p[k].float().norm().clamp_min(1e-30))
                for k in grads}
@@ -803,19 +835,31 @@ def seeded_x(batch, h, seed):
     return x.to(torch.bfloat16)
 
 
+def reset_launch_counts():
+    sl.reset_launch_counts()
+    eb.reset_launch_counts()
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    return {**sl.LAUNCHES, **eb.LAUNCHES}
+
+
 def expect_launches(label, got, want):
     """Every kernel's count from a path's run, against what it should
     launch; each kernel not named must not launch at all."""
-    want = {k: want.get(k, 0) for k in sl.LAUNCHES}
+    want = {k: want.get(k, 0) for k in launch_counts()}
     print(json.dumps({"path": label, "launches": got, "expected": want}))
     if got != want:
         fail(f"{label} launched {got}, expected {want}")
 
 
-def serve_path(label, setup, timer=None):
+def serve_path(label, setup, timer=None, kernel="sage_layer_fwd",
+               pred_tol=PRED_TOL):
     """A main path: eval_step on the setup's batch with the launch counts
     set to 0 just before and read just after (a few requests, the serve
-    bench and, given, ``timer(counted_eval_step)``), finite answers, and
+    bench and, given, ``timer(counted_eval_step)``): one launch of
+    ``kernel`` per layer and forward and no other; finite answers, and
     the whole forward against the plain path on the card."""
     batch, eval_step = setup["batch"], setup["eval_step"]
     layers = setup["model"].num_layers
@@ -825,15 +869,15 @@ def serve_path(label, setup, timer=None):
         forwards[0] += 1
         return eval_step(b)
 
-    sl.reset_launch_counts()
+    reset_launch_counts()
     answers = [counted(batch) for _ in range(3)]
     serve = run_serve_bench(dict(setup, eval_step=counted), n_warmup=2,
                             n_steps=10)
     extra = timer(counted) if timer else None
     torch.cuda.synchronize()
-    launches = dict(sl.LAUNCHES)
+    launches = launch_counts()
     expect_launches(f"{label}/serve ({forwards[0]} forwards)", launches,
-                    {"sage_layer_fwd": layers * forwards[0]})
+                    {kernel: layers * forwards[0]})
     g = batch.graph_mask
     for m, (pred, _) in answers:
         if pred.shape != (batch.n_graph_cap,) or not bool(
@@ -844,18 +888,20 @@ def serve_path(label, setup, timer=None):
     with plain_kernels():
         mp, (pred_p, _) = eval_step(batch)
     m, (pred, _) = answers[-1]
-    check_close(f"{label}/forward/pred", pred[g], pred_p[g], PRED_TOL)
-    check_close(f"{label}/forward/loss", m["loss"], mp["loss"], PRED_TOL)
-    check_close(f"{label}/forward/mape", m["mape"], mp["mape"], PRED_TOL)
+    print(json.dumps({"path": f"{label}/serve", "pred_abs_mean": float(
+        pred[g].float().abs().mean()), "pred_abs_max": float(
+        pred[g].float().abs().max())}))
+    check_close(f"{label}/forward/pred", pred[g], pred_p[g], pred_tol)
+    check_close(f"{label}/forward/loss", m["loss"], mp["loss"], pred_tol)
+    check_close(f"{label}/forward/mape", m["mape"], mp["mape"], pred_tol)
     return serve, launches, extra
 
 
-def train_path(label, train, merged):
+def train_path(label, train, kernels):
     """A main path: a few checked train steps and the train bench with the
-    launch counts set to 0 just before and read just after. Per step, 6
-    forward launches and 6 of the merged backward (``merged``: no spill
-    edges) or 6 of the split tile kernel and 6 banded SpMMs (spill edges).
-    Losses and parameters finite, every parameter changed."""
+    launch counts set to 0 just before and read just after: per step one
+    launch of each of ``kernels`` per layer, and no other kernel. Losses
+    and parameters finite, every parameter changed."""
     model, batch = train["state"].model, train["batch"]
     step, steps = train["train_step"], [0]
 
@@ -864,18 +910,16 @@ def train_path(label, train, merged):
         return step(b, lr, gen)
 
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    sl.reset_launch_counts()
+    reset_launch_counts()
     checked = [counted_step(batch, train["lr"], train["generator"])
                for _ in range(3)]
     bench = run_train_bench(dict(train, train_step=counted_step),
                             n_warmup=2, n_steps=10)
     torch.cuda.synchronize()
-    launches = dict(sl.LAUNCHES)
+    launches = launch_counts()
     each = model.num_layers * steps[0]
-    want = ({"sage_layer_fwd": each, "sage_layer_bwd": each} if merged else
-            {"sage_layer_fwd": each, "sage_layer_bwd_tile": each,
-             "banded_matmul": each})
-    expect_launches(f"{label}/train ({steps[0]} steps)", launches, want)
+    expect_launches(f"{label}/train ({steps[0]} steps)", launches,
+                    {k: each for k in kernels})
     losses = [float(mt["loss"]) for mt in checked]
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: non-finite training loss {losses}")
@@ -885,6 +929,340 @@ def train_path(label, train, merged):
         if torch.equal(p.detach(), before[k]):
             fail(f"{label}: parameter {k} did not change in training")
     return bench, losses, launches
+
+
+# ---- the EA family (ea-virtual cell) ---------------------------------------
+
+EA_SHAPES = dict(wer=(1, 1), wee=(1, 1), wsp=(1, 2), we1=(1, 1), wpe=(1, 1),
+                 wp1=(1, 1), wg0=(2, 1), wg1=(1, 1), wb0=(1, 1), wb1=(1, 1))
+
+
+def ea_case(batch, h, enc, seed):
+    """(x, e_win, w, bias) of one fused-block call on ``batch``, from a
+    seeded generator: lecun-normal bf16 weights ([in, out]), an f32 bias
+    stack of 0.3 rms (so a dropped cnt * b_p1 term fails the gate), x of
+    unit rms with the dead row 0, and the window: the raw features padded
+    to 8 in encoder mode, else unit-rms values."""
+    dev = batch.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {k: (a * h, b * h) for k, (a, b) in EA_SHAPES.items()}
+    if enc:
+        shapes.update(wen0=(eb.ENC_IN, eb.ENC_HID),
+                      wen1=(eb.ENC_HID, eb.ENC_HID), wen2=(eb.ENC_HID, h))
+    w = {k: (torch.randn(s, generator=g, device=dev) / math.sqrt(s[0]))
+         .to(torch.bfloat16).contiguous() for k, s in shapes.items()}
+    bias = torch.randn((11 if enc else 8, h), generator=g, device=dev) * 0.3
+    x = torch.randn((batch.n_node_cap, h), generator=g, device=dev)
+    x[-1] = 0.0
+    t, wc = batch.win_sidx.shape
+    if enc:
+        fe = batch.win_edges.shape[2]
+        e = torch.nn.functional.pad(batch.win_edges, (0, eb.ENC_IN - fe))
+    else:
+        e = torch.randn((t, wc, h), generator=g, device=dev)
+    return (x.to(torch.bfloat16), e.to(torch.bfloat16).contiguous(), w,
+            bias)
+
+
+def ea_valid(ctx):
+    return ctx.recv >= 0
+
+
+def ea_fwd_vs_plain(name, batch, ctx, h, enc, skip, rate, seed):
+    """#5 against its plain version on one case: zx, and ze, e1s and m1s
+    on valid slots, within KERNEL_FWD_TOL; at ``rate`` the dropped
+    positions of both masks exactly the hashed ones. Returns (max error,
+    the case, the kernel's outputs)."""
+    x, e, w, bias = ea_case(batch, h, enc, seed)
+    kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc,
+              save_res=True)
+    got = eb.ea_block_fwd(x, e, w, bias, ctx, **kw)
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, **kw)
+    torch.cuda.synchronize()
+    v = ea_valid(ctx)
+    err = 0.0
+    for what, a, r in zip(("zx", "ze", "e1s", "m1s"), got, ref):
+        if what != "zx":
+            a, r = a.reshape(-1, h)[v], r.reshape(-1, h)[v]
+        err = max(err, check_close(f"{name}/{what}", a, r,
+                                   sl.gate_tol(r, eb.KERNEL_FWD_TOL)))
+    if rate:
+        n_e = ctx.n_slots
+        drop_e = ~keep_mask(SEED, n_e, h, rate, x.device)[v]
+        drop_x = ~keep_mask(SEED, x.shape[0], h, rate, x.device, row0=n_e)
+        zx, zxp = got[0], ref[0]
+        ze, zep = got[1].reshape(-1, h)[v], ref[1].reshape(-1, h)[v]
+        atol = sl.gate_tol(zxp, eb.KERNEL_FWD_TOL)[0]
+        same = True
+        for a, r, d in ((zx, zxp, drop_x), (ze, zep, drop_e)):
+            big = ~d & (r.float().abs() > atol)
+            same &= (bool((a[d] == 0).all()) and bool((r[d] == 0).all())
+                     and bool((a[big] != 0).all()))
+        print(json.dumps({"check": f"{name}/dropped", "ok": same,
+                          "share_x": float(drop_x.float().mean()),
+                          "share_e": float(drop_e.float().mean())}))
+        if not same:
+            fail(f"{name}: the kernel drops other positions than the plain "
+                 "version")
+    return err, (x, e, w, bias, kw), got
+
+
+def ea_bwd_vs_plain(name, ctx, case, res, seed):
+    """#6 against its plain version on one case, from the kernel's own
+    residuals and a seeded cotangent: dx, de_win (valid slots), every dW
+    and dbias within KERNEL_BWD_TOL (relative norms)."""
+    x, e, w, bias, kw = case
+    kw = {k: v for k, v in kw.items() if k != "save_res"}
+    h = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    dzx = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+    dze = torch.randn(res[1].shape, generator=g,
+                      device=x.device).to(x.dtype)
+    args = (dzx, dze, res[2], res[3], x, e, w, bias, ctx)
+    got = eb.ea_block_bwd(*args, **kw)
+    ref = eb.ea_block_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return ea_bwd_errors(name, got, ref, ctx, h)
+
+
+def ea_bwd_errors(name, got, ref, ctx, h):
+    """A backward against a reference: prints each output's reading
+    (ops/ea_block.py::bwd_errors) with the largest absolute errors, fails
+    the run if a gate fails, and returns the largest absolute error."""
+    errs = eb.bwd_errors(got, ref, ctx)
+    tol = {k: eb.bwd_tol(k) for k in errs}
+    ok = all(errs[k] <= tol[k] for k in errs)
+    v = ea_valid(ctx)
+    pairs = {"dx": (got[0], ref[0]), "dbias": (got[3], ref[3])}
+    if ref[1] is not None:
+        pairs["de_win"] = (got[1].reshape(-1, h)[v], ref[1].reshape(-1, h)[v])
+    pairs.update({f"d{k}": (got[2][k], ref[2][k]) for k in ref[2]})
+    max_abs = {k: float((a.float() - r.float()).abs().max())
+               for k, (a, r) in pairs.items()}
+    print(json.dumps({"check": f"{name}/bwd", "ok": ok, "rel_err": errs,
+                      "tol": tol, "max_abs_err": max_abs}))
+    if not ok:
+        fail(f"{name}/bwd: kernel disagrees with its plain version {errs}")
+    return max(max_abs.values())
+
+
+EA_CASES = [  # (encoder mode, skip, dropout rate)
+    (False, True, 0.0), (False, False, RATE), (False, True, RATE),
+    (True, False, 0.0), (True, False, RATE)]
+
+
+def ea_kernel_checks(label, batch, ctx, seed, cases=EA_CASES):
+    """#5 and #6 against their plain versions on every case; returns their
+    largest errors."""
+    fwd, bwd = [], []
+    for i, (enc, skip, rate) in enumerate(cases):
+        name = (f"{label}/{'encoder' if enc else 'plain'}/skip{int(skip)}"
+                f"/rate{rate}")
+        err, case, got = ea_fwd_vs_plain(name, batch, ctx, 512, enc, skip,
+                                         rate, seed + i)
+        fwd.append(err)
+        bwd.append(ea_bwd_vs_plain(name, ctx, case, got, seed + 100 + i))
+    return max(fwd), max(bwd)
+
+
+def ea_gates_catch_faults(label, batch, ctx):
+    """The gates fail these faults, each made by the plain version and held
+    against the kernel: a forward that drops the far senders, a mean
+    without cnt * b_p1, a forward without the skip (zx or ze fails); a
+    backward without the slab-overlap (halo) part of dx, without its far
+    part, without one node's sender run, without one far rank of one tile
+    or without the first (clamped) tile's halo (dx's norm or row gate
+    fails; ops/ea_block.py::sender_faults), and a dW_sp without the far
+    slots (the dW gate fails)."""
+    h = 512
+    x, e, w, bias = ea_case(batch, h, False, 71)
+    kw = dict(skip=True, rate=RATE, seed=SEED)
+    zx, ze, e1s, m1s = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True,
+                                       **kw)
+    v = ea_valid(ctx)
+    no_far = eb.sender_faults(batch, ctx)["no-far-fold"]
+    no_cnt_b = bias.clone()
+    no_cnt_b[3] = 0.0
+    for fault, args, fkw in (
+            ("no-far-senders", (x, e, w, bias, no_far), kw),
+            ("no-cnt-b_p1", (x, e, w, no_cnt_b, ctx), kw),
+            ("no-skip", (x, e, w, bias, ctx), dict(kw, skip=False))):
+        fzx, fze = eb.ea_block_fwd_plain(*args, **fkw)
+        ok_x = within(fzx, zx, sl.gate_tol(zx, eb.KERNEL_FWD_TOL))
+        ok_e = within(fze.reshape(-1, h)[v], ze.reshape(-1, h)[v],
+                      sl.gate_tol(ze, eb.KERNEL_FWD_TOL))
+        caught = not (ok_x[0] and ok_e[0])
+        print(json.dumps({"gate": f"{label}/fwd/{fault}", "caught": caught,
+                          "max_abs_err": {"zx": ok_x[1], "ze": ok_e[1]}}))
+        if not caught:
+            fail(f"{fault}: the EA forward gate lets a wrong forward pass")
+    g = torch.Generator(device=x.device).manual_seed(72)
+    dzx = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+    dze = torch.randn(ze.shape, generator=g, device=x.device).to(x.dtype)
+    args = (dzx, dze, e1s, m1s, x, e, w, bias)
+    got = eb.ea_block_bwd(*args, ctx, **kw)
+    for fault, bad in eb.sender_faults(batch, ctx).items():
+        errs = eb.bwd_errors(got, eb.ea_block_bwd_plain(*args, bad, **kw),
+                             ctx)
+        caught = (errs["dx"] > eb.bwd_tol("dx")
+                  or errs["dx_row"] > eb.bwd_tol("dx_row"))
+        print(json.dumps({"gate": f"{label}/bwd/{fault}", "caught": caught,
+                          "rel_err_dx": errs["dx"],
+                          "row_err_dx": errs["dx_row"],
+                          "rel_err_dwsp": errs["dwsp"]}))
+        if not caught:
+            fail(f"{fault}: the EA backward gate lets a wrong backward pass")
+        # dW_sp without the far slots fails the weight gradients' gate
+        if fault == "no-far-fold" and errs["dwsp"] <= eb.bwd_tol("dwsp"):
+            fail("no-far-fold: the dW gate lets a wrong dW_sp pass")
+
+
+def ea_deterministic(label, batch, ctx):
+    """No float atomics: two calls of each EA kernel give the same bits."""
+    outs = []
+    for _ in range(2):
+        x, e, w, bias = ea_case(batch, 512, True, 81)
+        kw = dict(skip=False, rate=RATE, seed=SEED, enc=True)
+        fwd = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+        g = torch.Generator(device=x.device).manual_seed(82)
+        dzx = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        dze = torch.randn(fwd[1].shape, generator=g,
+                          device=x.device).to(x.dtype)
+        dx, _, dw, dbias = eb.ea_block_bwd(dzx, dze, fwd[2], fwd[3], x, e, w,
+                                           bias, ctx, **kw)
+        outs.append(list(fwd) + [dx, dbias] + [dw[k] for k in sorted(dw)])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(json.dumps({"check": f"{label}/ea-kernels/deterministic",
+                      "ok": same}))
+    if not same:
+        fail("two calls of an EA kernel gave different bits")
+
+
+def ea_ragged_batch(dev, n_graphs=16, min_win_cap=0):
+    """A small ragged EA batch: ``n_graphs`` virtual-edge panels of 8-11
+    nodes a side (tests/test_fused_ea_block.py:17-51), tile 128, width 64,
+    packed by batch_iterator with W at least ``min_win_cap``: >= 4 tiles,
+    far senders, the first and last tiles' slabs clamped, W not a multiple
+    of 64. 16 panels give 12 tiles of W = 528 (E = 99 blocks of 64 slots);
+    12 panels with W = 552 give 10 tiles and E % 64 = 16, so the kernels'
+    last 64-slot block is partial."""
+    from buckgnn_tpu_torch.graph.batch import batch_iterator
+
+    ds = generate_dataset(n_graphs, seed=2, min_side=8, max_side=11,
+                          use_super_node=False, use_virtual_edges=True)
+    tile, width = 128, 64
+    n = sum(g.n_node for g in ds) + 1
+    ncap = ((max(n, tile + width) + 2 * tile - 1) // (2 * tile)) * 2 * tile
+    ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
+    (b,) = batch_iterator(ds, n_graphs, ncap, ecap, band_width=width,
+                          band_tile=tile, min_win_cap=min_win_cap,
+                          device=dev)
+    far = int((b.win_far_tsend != ncap - 1).sum())
+    if ncap // tile < 4 or not far or b.win_sidx.shape[1] % 64 == 0:
+        fail("the ragged EA batch must have >= 4 tiles, far senders and W "
+             "not a multiple of 64")
+    return b
+
+
+def library_ea_fwd(x, e, w, bias, ctx, *, skip):
+    """The fused block forward as one PyTorch composition in bf16 (row
+    gathers, matmuls, index_add_ of m1 by receiver), a yardstick only: the
+    port never calls it."""
+    n, h = x.shape
+    b = bias.to(x.dtype)
+    v = ctx.recv >= 0
+    s = ctx.send.long().clamp_min(0)
+    r = ctx.recv.long().clamp_min(0)
+    p = x @ torch.cat([w["wsp"], w["wer"]], 1)
+    ps, pr = p[s, :2 * h], p[r, 2 * h:]
+    ein = e.reshape(-1, h)
+    e1 = torch.relu(ein @ w["wee"] + pr + ps[:, :h] + b[0])
+    e2 = e1 @ w["we1"] + b[1]
+    m1 = torch.relu(e2 @ w["wpe"] + ps[:, h:] + b[2])
+    sm = torch.zeros_like(x).index_add_(0, r[v], m1[v])
+    cnt = ctx.cnt[:, None]
+    agg = ((sm @ w["wp1"]).float() + cnt * bias[3]) / cnt.clamp_min(1.0)
+    g1 = torch.relu(torch.cat([x, agg.to(x.dtype)], 1) @ w["wg0"] + b[4])
+    x1 = g1 @ w["wg1"] + b[5]
+    x2 = x1 + torch.relu(x1 @ w["wb0"] + b[6]) @ w["wb1"] + b[7]
+    return (x2 + x, e2 + ein) if skip else (x2, e2)
+
+
+def library_ea_bwd(dzx, dze, e1s, m1s, x, e, w, bias, ctx, *, skip):
+    """The fused block backward as a PyTorch composition in bf16 (the
+    recomputed node side, row gathers, matmuls, index_add_ of the receiver
+    and sender folds), a yardstick only: the port never calls it."""
+    n, h = x.shape
+    b = bias.to(x.dtype)
+    v = ctx.recv >= 0
+    vs = ctx.send >= 0
+    r, s = ctx.recv.long(), ctx.send.long()
+    e1, m1 = e1s.reshape(-1, h), m1s.reshape(-1, h)
+    ein = e.reshape(-1, h)
+    cnt = ctx.cnt[:, None]
+    deg = cnt.clamp_min(1.0).to(x.dtype)
+    sm = torch.zeros_like(x).index_add_(0, r[v], m1[v])
+    agg = (sm @ w["wp1"] + cnt.to(x.dtype) * b[3]) / deg
+    g1 = torch.relu(torch.cat([x, agg], 1) @ w["wg0"] + b[4])
+    x1 = g1 @ w["wg1"] + b[5]
+    b1 = torch.relu(x1 @ w["wb0"] + b[6])
+    dzb = torch.where(b1 > 0, dzx @ w["wb1"].t(), 0.0)
+    dx1 = dzx + dzb @ w["wb0"].t()
+    dzg = torch.where(g1 > 0, dx1 @ w["wg1"].t(), 0.0)
+    dxa = dzg @ w["wg0"].t()
+    dagg = dxa[:, h:] / deg
+    dsm = dagg @ w["wp1"].t()
+    e2 = e1 @ w["we1"] + b[1]
+    dzm = torch.where((m1 > 0) & v[:, None], dsm[r.clamp_min(0)], 0.0)
+    de2 = dze.reshape(-1, h) + dzm @ w["wpe"].t()
+    de1 = torch.where(e1 > 0, de2 @ w["we1"].t(), 0.0)
+    deo = de1 @ w["wee"].t()
+    if skip:
+        deo = deo + dze.reshape(-1, h)
+    r_de1 = torch.zeros_like(x).index_add_(0, r[v], de1[v])
+    both = torch.cat([de1, dzm], 1)
+    s_node = torch.zeros((n, 2 * h), dtype=x.dtype,
+                         device=x.device).index_add_(0, s[vs], both[vs])
+    dx = dxa[:, :h] + r_de1 @ w["wer"].t() + s_node @ w["wsp"].t()
+    if skip:
+        dx = dx + dzx
+    dw = dict(wb1=b1.t() @ dzx, wb0=x1.t() @ dzb, wg1=g1.t() @ dx1,
+              wg0=torch.cat([x, agg], 1).t() @ dzg, wp1=sm.t() @ dagg,
+              wpe=e2.t() @ dzm, we1=e1.t() @ de2, wee=ein.t() @ de1,
+              wer=x.t() @ r_de1, wsp=x.t() @ s_node)
+    db = torch.stack([de1.sum(0), de2.sum(0), dzm.sum(0),
+                      (cnt.to(x.dtype) * dagg).sum(0), dzg.sum(0),
+                      dx1.sum(0), dzb.sum(0), dzx.sum(0)])
+    return dx, deo, dw, db
+
+
+def ea_bounds(x, e, w, ctx, *, enc, train):
+    """(fwd bound ms, what bounds it, bwd bound ms, what bounds it) of one
+    block call at these inputs: the useful products at the bf16 peak (per
+    valid slot 3 H^2 forward and 7 H^2 backward, per node 9 H^2 forward
+    and 23 H^2 backward, and the encoder's in encoder mode; not the TPU's
+    one-hot selection products) against each input read once and each
+    output written once (valid slots only) at the HBM rate. ``train``
+    adds the residuals e1 and m1 to the forward's writes."""
+    n, h = x.shape
+    ev = int((ctx.recv >= 0).sum())
+    c = eb.ENC_HID
+    enc_fwd = (eb.ENC_IN * c + c * c + c * h) if enc else 0
+    f_fwd = 2 * (ev * (3 * h * h + enc_fwd) + n * 9 * h * h)
+    f_bwd = 2 * (ev * (7 * h * h + 2 * enc_fwd) + n * 23 * h * h)
+    e_w = e.element_size() * e.shape[-1]
+    wbytes = sum(t.numel() * t.element_size() for t in w.values())
+    ctx_bytes = nbytes_of(ctx.send, ctx.recv, ctx.rlo, ctx.rhi, ctx.cnt)
+    nh2, eh2 = n * h * 2, ev * h * 2
+    fwd_bytes = (nh2 + ev * e_w + wbytes + ctx_bytes + nh2 + eh2
+                 + (2 * eh2 if train else 0))
+    bwd_bytes = (nh2 + eh2 + 2 * eh2 + nh2 + ev * e_w + wbytes + ctx_bytes
+                 + nbytes_of(ctx.sorder, ctx.soff) + nh2
+                 + (0 if enc else eh2) + 2 * wbytes + 11 * h * 4)
+    fb = bound(f_fwd, 0, fwd_bytes)
+    bb = bound(f_bwd, 0, bwd_bytes)
+    return fb[0], fb[1], bb[0], bb[1], f_fwd, f_bwd
 
 
 def main():
@@ -984,7 +1362,7 @@ def main():
                       "lr": train["lr"],
                       "weight_decay": train["cfg"].weight_decay}))
     bench, losses, train_launches = train_path(
-        "flagship", train, merged=True)
+        "flagship", train, ("sage_layer_fwd", "sage_layer_bwd"))
     train_vs_plain(train)
     print(json.dumps(step_profile(
         "flagship train step",
@@ -995,7 +1373,7 @@ def main():
 
     # ---- 5. the virtual-edge cell: the spill path -------------------------
     t0 = time.perf_counter()
-    vsetup = build_serve_setup(device=dev, use_super_node=False)
+    vsetup = build_serve_setup(device=dev, config="virtual")
     vbatch, vmodel = vsetup["batch"], vsetup["model"]
     print(json.dumps({
         "virtual_setup_s": time.perf_counter() - t0,
@@ -1075,11 +1453,12 @@ def main():
         "virtual serve step", lambda: vsetup["eval_step"](vbatch),
         vserve["infer_step_ms"], card)))
     t0 = time.perf_counter()
-    vtrain = build_train_setup(device=dev, use_super_node=False)
+    vtrain = build_train_setup(device=dev, config="virtual")
     print(json.dumps({"virtual_train_setup_s": time.perf_counter() - t0}))
     torch.cuda.reset_peak_memory_stats()
-    vbench, vlosses, vtrain_launches = train_path("virtual", vtrain,
-                                                  merged=False)
+    vbench, vlosses, vtrain_launches = train_path(
+        "virtual", vtrain,
+        ("sage_layer_fwd", "sage_layer_bwd_tile", "banded_matmul"))
     vgrad_err = train_vs_plain(vtrain, "virtual", gen_seeds=(11, 12, 13, 14))
     print(json.dumps(step_profile(
         "virtual train step",
@@ -1088,7 +1467,64 @@ def main():
         vbench["train_step_ms"], card)))
     virtual_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # ---- 6. kernel timing at the main paths' shapes ----------------------
+    # ---- 6. the EA family: the ea-virtual cell ---------------------------
+    t0 = time.perf_counter()
+    esetup = build_serve_setup(device=dev, config="ea-virtual")
+    ebatch, emodel = esetup["batch"], esetup["model"]
+    ectx = eb.make_ea_context(ebatch)
+    fe = ebatch.win_edges.shape[2]
+    print(json.dumps({
+        "ea_setup_s": time.perf_counter() - t0,
+        "n_node_cap": ebatch.n_node_cap,
+        "n_real_nodes": int(ebatch.node_mask.sum()),
+        "n_edges": esetup["n_edges"], "n_graphs": esetup["n_graphs"],
+        "band_tile": ebatch.band_tile, "band_width": ebatch.band_width,
+        "windows": list(ebatch.win_sidx.shape),
+        "far_cap": ebatch.win_far_tsend.shape[1],
+        "far_slots": int((ebatch.win_sidx.reshape(-1) >= ebatch.band_tile
+                          + ebatch.band_width).sum()
+                         - (ectx.recv < 0).sum()),
+        "encoder_fused": eb.supports_fused_encoder(ebatch, 512, fe)}))
+    if not (eb.supports_fused_ea(ebatch, 512)
+            and eb.supports_fused_encoder(ebatch, 512, fe)):
+        fail("the ea-virtual batch must take the fused block and encoder")
+    ea_fwd_err, ea_bwd_err = ea_kernel_checks("ea-virtual", ebatch, ectx,
+                                              seed=51)
+    ea_gates_catch_faults("ea-virtual", ebatch, ectx)
+    ea_deterministic("ea-virtual", ebatch, ectx)
+    for rb, seed in ((ea_ragged_batch(dev), 61),
+                     (ea_ragged_batch(dev, 12, 552), 66)):
+        rctx = eb.make_ea_context(rb)
+        t, wc = rb.win_sidx.shape
+        print(json.dumps({"ragged_ea_batch": [t, wc],
+                          "slots_in_last_block": (t * wc) % 64 or 64}))
+        rf, rbw = ea_kernel_checks(f"ragged-ea/t{t}/w{wc}", rb, rctx, seed)
+        ea_fwd_err, ea_bwd_err = max(ea_fwd_err, rf), max(ea_bwd_err, rbw)
+    if (t * wc) % 64 not in (16, 32, 48):
+        fail("the second ragged EA batch must end in a partial block")
+    ea_gates_catch_faults(f"ragged-ea/t{t}/w{wc}", rb, rctx)
+    eserve, eserve_launches, _ = serve_path("ea-virtual", esetup,
+                                            kernel="ea_block_fwd",
+                                            pred_tol=EA_PRED_TOL)
+    print(json.dumps(step_profile(
+        "ea-virtual serve step", lambda: esetup["eval_step"](ebatch),
+        eserve["infer_step_ms"], card)))
+    t0 = time.perf_counter()
+    etrain = build_train_setup(device=dev, config="ea-virtual")
+    print(json.dumps({"ea_train_setup_s": time.perf_counter() - t0}))
+    torch.cuda.reset_peak_memory_stats()
+    ebench, elosses, etrain_launches = train_path(
+        "ea-virtual", etrain, ("ea_block_fwd", "ea_block_bwd"))
+    egrad_err = train_vs_plain(etrain, "ea-virtual", gen_seeds=(11, 12, 13),
+                               pred_tol=EA_PRED_TOL)
+    print(json.dumps(step_profile(
+        "ea-virtual train step",
+        lambda: etrain["train_step"](etrain["batch"], etrain["lr"],
+                                     etrain["generator"]),
+        ebench["train_step_ms"], card)))
+    ea_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- 7. kernel timing at the main paths' shapes ----------------------
     args, kw, _ = layer_inputs(batch, x0, weights, True, True, True)
     ms = event_ms(lambda: sl.sage_layer_fwd(*args, **kw))
     plain_ms = event_ms(lambda: sl.sage_layer_plain(*args, **kw), reps=5)
@@ -1146,6 +1582,44 @@ def main():
     b_lib_ms = event_ms(lambda: library_banded(*b_args, recv=recv, **b_kw))
     b_bound_ms, b_bound_by = banded_bound(b_args, b_kw)
 
+    # the EA kernels at the ea-virtual shape, with the model's own weights
+    # (layer 1: skip on; layer 0: the encoder mode)
+    with torch.no_grad():
+        xe0 = emodel.node_encoder(ebatch.nodes)
+        ew, ebias = eb.block_weights(emodel.shared_gn_block, xe0.dtype)
+        ewe, ebiase = eb.block_weights(emodel.shared_gn_block, xe0.dtype,
+                                       emodel.edge_encoder)
+    eraw = torch.nn.functional.pad(ebatch.win_edges, (0, eb.ENC_IN - fe)).to(
+        torch.bfloat16).contiguous()
+    ge = torch.Generator(device=dev).manual_seed(91)
+    ee = torch.randn((*ebatch.win_sidx.shape, 512), generator=ge,
+                     device=dev).to(torch.bfloat16)
+    eargs = (xe0, ee, ew, ebias, ectx)
+    ekw = dict(skip=True)
+    ea_ms = event_ms(lambda: eb.ea_block_fwd(*eargs, **ekw))
+    ea_plain_ms = event_ms(lambda: eb.ea_block_fwd_plain(*eargs, **ekw),
+                           reps=3)
+    ea_lib_ms = event_ms(lambda: library_ea_fwd(*eargs, **ekw))
+    etkw = dict(skip=True, save_res=True, rate=RATE, seed=SEED)
+    ea_train_ms = event_ms(lambda: eb.ea_block_fwd(*eargs, **etkw))
+    eenc = (xe0, eraw, ewe, ebiase, ectx)
+    ea_enc_ms = event_ms(lambda: eb.ea_block_fwd(
+        *eenc, skip=False, save_res=True, rate=RATE, seed=SEED, enc=True))
+    (ea_bound_ms, ea_bound_by, eab_bound_ms, eab_bound_by, ea_flops,
+     eab_flops) = ea_bounds(xe0, ee, ew, ectx, enc=False, train=False)
+    ea_train_bound_ms = ea_bounds(xe0, ee, ew, ectx, enc=False,
+                                  train=True)[0]
+    _, _, e1s, m1s = eb.ea_block_fwd(*eargs, **etkw)
+    dzx = torch.randn(xe0.shape, generator=ge, device=dev).to(xe0.dtype)
+    dze = torch.randn(ee.shape, generator=ge, device=dev).to(xe0.dtype)
+    bargs = (dzx, dze, e1s, m1s) + eargs
+    bkw = dict(skip=True, rate=RATE, seed=SEED)
+    eab_ms = event_ms(lambda: eb.ea_block_bwd(*bargs, **bkw))
+    eab_plain_ms = event_ms(lambda: eb.ea_block_bwd_plain(*bargs, **bkw),
+                            reps=3)
+    eab_lib_ms = event_ms(lambda: library_ea_bwd(*bargs, skip=True))
+    del e1s, m1s, bargs
+
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
         "card": card, "infer_step_ms": serve["infer_step_ms"],
@@ -1199,10 +1673,36 @@ def main():
         "kernel": "sage_layer_bwd", "card": card, "ms": bwd_ms,
         "plain_ms": bwd_plain_ms, "library_ms": bwd_lib_ms,
         "bound_ms": bwd_bound_ms, "flops": bwd_flops, "bytes": bwd_bytes}))
+    print(json.dumps({
+        "serve": "ea-virtual: EA_GNN_Shared 6L h512 bf16, 64 virtual-edge "
+                 "panels, tile 128 width 64",
+        "card": card, "infer_step_ms": eserve["infer_step_ms"],
+        "infer_samples_per_s": eserve["infer_samples_per_s"],
+        "infer_edges_per_s": eserve["infer_edges_per_s"],
+        "n_edges": eserve["n_edges"], "n_graphs": eserve["n_graphs"],
+        "loss": eserve["metrics"]["loss"], "mape": eserve["metrics"]["mape"],
+        "launches": eserve_launches}))
+    print(json.dumps({
+        "train": "ea-virtual: EA_GNN_Shared 6L h512 bf16, 64 virtual-edge "
+                 "panels, dropout 0.1, Adam lr 1e-3",
+        "card": card, "train_step_ms": ebench["train_step_ms"],
+        "train_edges_per_s": ebench["train_edges_per_s"],
+        "n_edges": ebench["n_edges"], "n_graphs": ebench["n_graphs"],
+        "checked_losses": elosses, "loss": ebench["metrics"]["loss"],
+        "mape": ebench["metrics"]["mape"], "grad_rel_err": egrad_err,
+        "launches": etrain_launches, "peak_mem_gb": ea_peak_gb}))
+    print(json.dumps({
+        "kernel": "ea_block_fwd variants", "card": card,
+        "serving_skip_ms": ea_ms, "training_ms": ea_train_ms,
+        "training_bound_ms": ea_train_bound_ms,
+        "encoder_training_ms": ea_enc_ms, "flops": ea_flops,
+        "bwd_flops": eab_flops}))
     by_path = {"flagship_serve": serve_launches,
                "flagship_train": train_launches,
                "virtual_serve": vserve_launches,
-               "virtual_train": vtrain_launches}
+               "virtual_train": vtrain_launches,
+               "ea_serve": eserve_launches,
+               "ea_train": etrain_launches}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",
@@ -1235,6 +1735,22 @@ def main():
         "max_abs_err": max(banded_errs), "ms": b_ms, "plain_ms": b_plain_ms,
         "bound_ms": b_bound_ms, "bound_by": b_bound_by,
         "library_ms": b_lib_ms,
+    }, {
+        "name": "ea_block_fwd", "route": "cuda",
+        "source": "buckgnn_tpu_torch/csrc/ea_block_fwd.cu",
+        "replaces": TPU_EA_FWD_KERNEL,
+        "launches": etrain_launches["ea_block_fwd"],
+        "max_abs_err": ea_fwd_err, "ms": ea_ms, "plain_ms": ea_plain_ms,
+        "bound_ms": ea_bound_ms, "bound_by": ea_bound_by,
+        "library_ms": ea_lib_ms,
+    }, {
+        "name": "ea_block_bwd", "route": "cuda",
+        "source": "buckgnn_tpu_torch/csrc/ea_block_bwd.cu",
+        "replaces": TPU_EA_BWD_KERNEL,
+        "launches": etrain_launches["ea_block_bwd"],
+        "max_abs_err": ea_bwd_err, "ms": eab_ms, "plain_ms": eab_plain_ms,
+        "bound_ms": eab_bound_ms, "bound_by": eab_bound_by,
+        "library_ms": eab_lib_ms,
     }], "launches_by_path": by_path, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

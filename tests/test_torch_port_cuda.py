@@ -4,7 +4,13 @@ The fused layer's forward (with and without the spill term), its merged
 backward, the split backward's tile kernel and the banded SpMM with the
 spill window, each held to its plain version within its gate; the split
 kernels' determinism; and gates that fail a forward or a banded product
-without its spill term.
+without its spill term. The fused EA block's forward and backward
+(ea_block_fwd.cu, ea_block_bwd.cu) on two small ragged windowed batches
+(one ends in a partial 64-slot block), in plain and encoder mode, skip on
+and off, dropout 0 and 0.1; their determinism; and gates that fail a
+forward without its far senders, its cnt * b_p1 term or its skip, a
+backward without its halo or far part or wrong in a few rows of dx only,
+and a dW_sp without the far slots.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -23,6 +29,7 @@ import torch
 from buckgnn_tpu_torch.graph import batch as tb
 from buckgnn_tpu_torch.graph.synthetic import generate_dataset
 from buckgnn_tpu_torch.ops import banded_matmul as bm
+from buckgnn_tpu_torch.ops import ea_block as eb
 from buckgnn_tpu_torch.ops import sage_layer as sl
 from buckgnn_tpu_torch.ops.dropout import keep_mask
 from buckgnn_tpu_torch.ops.banded import make_agg_context
@@ -453,3 +460,201 @@ def test_split_kernels_reject_what_they_do_not_take():
         sl.sage_layer_bwd_tile(*args, **dict(kw, rate=0.1))
     with pytest.raises(ValueError, match="bfloat16"):
         sl.sage_layer_bwd_tile(args[0].float(), *args[1:], **kw)
+
+
+# ---- the fused EA block (kernels #5 and #6) --------------------------------
+
+EA_MODES = [(128, False), (256, False), (256, True), (512, False),
+            (512, True)]  # (H, encoder mode); the encoder needs H > 128
+
+
+EA_BATCHES = {"full": (16, 0), "partial": (12, 552)}  # (panels, W floor)
+
+
+def _ea_batch(dev, which="full"):
+    """Virtual-edge panels of 8-11 nodes a side, tile 128, width 64,
+    packed by batch_iterator with a floor on W: "full" is 16 panels, 12
+    node tiles of W = 528 (not a multiple of 64), E a whole number of the
+    kernels' 64-slot blocks; "partial" is 12 panels with W = 552, 10 tiles
+    and E % 64 = 16, so the last block is partial. Both have far
+    senders."""
+    n_graphs, w_floor = EA_BATCHES[which]
+    ds = generate_dataset(n_graphs, seed=2, min_side=8, max_side=11,
+                          use_super_node=False, use_virtual_edges=True)
+    n = sum(g.n_node for g in ds) + 1
+    ncap = ((n + 2 * TILE - 1) // (2 * TILE)) * (2 * TILE)
+    ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
+    (b,) = tb.batch_iterator(ds, n_graphs, ncap, ecap, band_width=WIDTH,
+                             band_tile=TILE, min_win_cap=w_floor,
+                             device="cpu")
+    b = b.to(dev)
+    t, wc = b.win_sidx.shape
+    assert t >= 4 and wc % 64 != 0
+    assert (t * wc) % 64 == (0 if which == "full" else 16)
+    return b, eb.make_ea_context(b)
+
+
+def _ea_case(dev, h, enc, seed, which="full"):
+    """(batch, ctx, x, e_win, w, bias): lecun-normal bf16 weights, a bias
+    stack of 0.3 rms (a dropped cnt * b_p1 then fails the gate), x and the
+    window of unit rms (the raw features in encoder mode)."""
+    b, ctx = _ea_batch(dev, which)
+    rng = np.random.default_rng(seed)
+    dims = dict(wer=(h, h), wee=(h, h), wsp=(h, 2 * h), we1=(h, h),
+                wpe=(h, h), wp1=(h, h), wg0=(2 * h, h), wg1=(h, h),
+                wb0=(h, h), wb1=(h, h))
+    if enc:
+        dims.update(wen0=(8, 128), wen1=(128, 128), wen2=(128, h))
+    bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        dev, torch.bfloat16).contiguous()
+    w = {k: bf(rng.normal(size=d) / np.sqrt(d[0])) for k, d in dims.items()}
+    bias = torch.from_numpy((rng.normal(size=(11 if enc else 8, h)) * 0.3)
+                            .astype(np.float32)).to(dev)
+    x = rng.normal(size=(b.n_node_cap, h))
+    x[-1] = 0.0
+    t, wc = b.win_sidx.shape
+    if enc:
+        e = torch.nn.functional.pad(b.win_edges, (0, 3)).to(torch.bfloat16)
+    else:
+        e = bf(rng.normal(size=(t, wc, h)))
+    return b, ctx, bf(x), e.contiguous(), w, bias
+
+
+def _ea_fwd_close(got, ref, ctx, h):
+    v = ctx.recv >= 0
+    for name, a, r in zip(("zx", "ze", "e1s", "m1s"), got, ref):
+        if name != "zx":
+            a, r = a.reshape(-1, h)[v], r.reshape(-1, h)[v]
+        atol, rtol = sl.gate_tol(r, eb.KERNEL_FWD_TOL)
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("h,enc", EA_MODES)
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("which", sorted(EA_BATCHES))
+def test_ea_forward_matches_plain_on_cuda(h, enc, skip, rate, which):
+    dev = _card()
+    if enc and skip:
+        pytest.skip("encoder mode is layer 0, which has no skip")
+    b, ctx, x, e, w, bias = _ea_case(dev, h, enc, seed=h + 2 * skip,
+                                     which=which)
+    kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc,
+              save_res=True)
+    got = eb.ea_block_fwd(x, e, w, bias, ctx, **kw)
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, **kw)
+    torch.cuda.synchronize()
+    _ea_fwd_close(got, ref, ctx, h)
+    if rate:
+        drop_x = ~keep_mask(SEED, x.shape[0], h, rate, dev,
+                            row0=ctx.n_slots)
+        assert bool((got[0][drop_x] == 0).all())
+        assert 0.09 < float(drop_x.float().mean()) < 0.11
+
+
+def _ea_bwd(dev, h, enc, skip, rate, seed, which="full"):
+    b, ctx, x, e, w, bias = _ea_case(dev, h, enc, seed, which)
+    kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc)
+    _, ze, e1s, m1s = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True,
+                                      **kw)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dzx = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    dze = torch.randn(ze.shape, generator=g, device=dev).to(x.dtype)
+    return b, ctx, (dzx, dze, e1s, m1s, x, e, w, bias, ctx), kw
+
+
+@pytest.mark.parametrize("h,enc", EA_MODES)
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("which", sorted(EA_BATCHES))
+def test_ea_backward_matches_plain_on_cuda(h, enc, skip, rate, which):
+    """dx, de_win, every dW and dbias within KERNEL_BWD_TOL (relative
+    norms, and per row for dx and de_win; reasons in ops/ea_block.py)."""
+    dev = _card()
+    if enc and skip:
+        pytest.skip("encoder mode is layer 0, which has no skip")
+    b, ctx, args, kw = _ea_bwd(dev, h, enc, skip, rate, seed=h + 5,
+                               which=which)
+    got = eb.ea_block_bwd(*args, **kw)
+    ref = eb.ea_block_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if enc:
+        assert got[1] is None and ref[1] is None
+    assert sorted(got[2]) == sorted(ref[2])
+    errs = eb.bwd_errors(got, ref, ctx)
+    assert {"dx", "dx_row", "dbias"} <= set(errs)
+    assert enc or {"de_win", "de_win_row"} <= set(errs)
+    for k, err in errs.items():
+        assert err <= eb.bwd_tol(k), (k, err)
+
+
+def test_ea_kernels_are_deterministic():
+    dev = _card()
+    outs = []
+    for _ in range(2):
+        _, ctx, args, kw = _ea_bwd(dev, 512, True, False, 0.1, seed=21)
+        dx, _, dw, dbias = eb.ea_block_bwd(*args, **kw)
+        outs.append([*args[2:4], dx, dbias] + [dw[k] for k in sorted(dw)])
+    torch.cuda.synchronize()
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("which", sorted(EA_BATCHES))
+def test_ea_gates_catch_faults_on_cuda(which):
+    """The kernels' outputs against faulty plain versions: a forward
+    without its far senders, without cnt * b_p1 or without the skip fails
+    the forward gate; a backward without the slab-overlap halo, the far
+    rows, one node's sender run, one far rank or the first tile's halo
+    (ops/ea_block.py::sender_faults) fails dx's norm or row gate, and one
+    without the far rows fails dW_sp's gate."""
+    dev = _card()
+    h = 512
+    b, ctx, args, kw = _ea_bwd(dev, h, False, True, 0.1, seed=31,
+                               which=which)
+    x, e, w, bias = args[4:8]
+    zx, ze = eb.ea_block_fwd(x, e, w, bias, ctx, **kw)
+    v = ctx.recv >= 0
+    no_far = eb.sender_faults(b, ctx)["no-far-fold"]
+    no_cnt_b = bias.clone()
+    no_cnt_b[3] = 0.0
+
+    def passes(got, ref):
+        atol, rtol = sl.gate_tol(ref, eb.KERNEL_FWD_TOL)
+        err = (got.float() - ref.float()).abs()
+        return not bool((err > atol + rtol * ref.float().abs()).any())
+
+    for fault, fargs, fkw in (
+            ("no-far", (x, e, w, bias, no_far), kw),
+            ("no-cnt-b", (x, e, w, no_cnt_b, ctx), kw),
+            ("no-skip", (x, e, w, bias, ctx), dict(kw, skip=False))):
+        fzx, fze = eb.ea_block_fwd_plain(*fargs, **fkw)
+        assert not (passes(fzx, zx) and passes(
+            fze.reshape(-1, h)[v], ze.reshape(-1, h)[v])), fault
+    got = eb.ea_block_bwd(*args, **kw)
+    for fault, bad in eb.sender_faults(b, ctx).items():
+        errs = eb.bwd_errors(got, eb.ea_block_bwd_plain(*args[:-1], bad, **kw),
+                             ctx)
+        assert (errs["dx"] > eb.bwd_tol("dx")
+                or errs["dx_row"] > eb.bwd_tol("dx_row")), (fault, errs)
+        if fault == "no-far-fold":
+            assert errs["dwsp"] > eb.bwd_tol("dwsp"), errs
+
+
+def test_ea_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    _, ctx, args, kw = _ea_bwd(dev, 128, False, False, 0.0, seed=41)
+    dzx, dze, e1s, m1s, x, e, w, bias, _ = args
+    with pytest.raises(ValueError, match="bfloat16"):
+        eb.ea_block_fwd(x.float(), e, w, bias, ctx, skip=False)
+    with pytest.raises(ValueError, match="encoder mode needs H > 128"):
+        raw = torch.zeros((*e.shape[:2], 8), dtype=x.dtype, device=dev)
+        enc_w = dict(w, wen0=w["wee"][:8].contiguous(),
+                     wen1=w["wee"].contiguous(), wen2=w["wee"].contiguous())
+        eb.ea_block_fwd(x, raw, enc_w, torch.zeros((11, 128), device=dev),
+                        ctx, skip=False, enc=True)
+    with pytest.raises(ValueError, match="dropout needs"):
+        eb.ea_block_bwd(*args, **dict(kw, rate=0.1))
+    with pytest.raises(ValueError, match="float32 bias"):
+        eb.ea_block_bwd(*args[:7], bias.bfloat16(), ctx, **kw)
