@@ -2,7 +2,8 @@
 one batch.
 
 The port of the repo-root bench.py (build_bench_setup and run_bench) for
-the three cells of benchmarks/bench_configs.py:20-27, named in ``CELLS``:
+the three cells of benchmarks/bench_configs.py:20-27 and two of
+``build_bench_setup``'s unbanded impls, named in ``CELLS``:
 
 - ``flagship``: ``GraphSage_addAggr_Shared`` on 128 synthetic panels
   (24-32 nodes a side) with a supernode each, on the band that
@@ -13,11 +14,21 @@ the three cells of benchmarks/bench_configs.py:20-27, named in ``CELLS``:
   take the spill path;
 - ``ea-virtual``: ``EA_GNN_Shared`` on 64 virtual-edge panels, tile 128,
   width 64 (bench_configs.py:25-27), whose edges the fused EA block reads
-  through the receiver-tiled edge windows.
+  through the receiver-tiled edge windows;
+- ``csr-virtual``: ``build_bench_setup(impl="pallas")``, the virtual
+  cell's panels packed without a band, whose unfused layers aggregate with
+  the CSR kernel (ops/csr_segment.py) and end in the epilogue kernels
+  (ops/epilogue.py);
+- ``csr-virtual-xla``: the same batch and model with the JAX package's
+  default ``segment_impl="xla"``, whose layers aggregate by the segment
+  reductions.
 
-Each is normalized, RCM-ordered and packed into one batch with exact
-capacities, for the model at bf16 with random weights from a seeded
-generator. ``build_serve_setup()`` answers it with eval_step;
+Each is normalized and packed into one batch with exact capacities (RCM
+order and 4-tile node alignment for the banded cells; for the unbanded
+ones the node count itself, as bench.py:94-100: the port's CSR kernel
+needs no alignment, where the TPU's falls back to XLA unless N % 256 ==
+0), for the model at bf16 with random weights from a seeded generator.
+``build_serve_setup()`` answers it with eval_step;
 ``build_train_setup()`` trains on it with the TrainConfig defaults of the
 JAX bench (dropout 0.1, relative-error loss, Adam with weight decay 1e-8)
 at lr 1e-3, the JAX bench's own rate. The JAX bench chains 10 steps into
@@ -37,19 +48,24 @@ from buckgnn_tpu_torch.utils.device import resolve_device
 
 def pack_exact(normed, batch_size: int, band_width: int | None,
                band_tile: int, device):
-    """One batch holding the whole dataset, with exact capacities (nodes
-    aligned to 4 tiles, as the JAX bench packs)."""
+    """One batch holding the whole dataset, with exact capacities, as the
+    JAX bench packs (bench.py:87-100): with a band, nodes aligned to 4 tiles
+    in RCM order; without (``band_width`` None), the node count itself in
+    the dataset's order."""
     from buckgnn_tpu_torch.graph.batch import batch_iterator
 
     n_real = sum(g.n_node for g in normed) + 1  # + dead node
     e_real = sum(g.n_edge for g in normed)
     ecap = ((e_real + 255) // 128) * 128
-    align = 4 * band_tile
-    ncap = ((max(n_real, band_tile + band_width) + align - 1)
-            // align) * align
+    ncap = n_real
+    if band_width is not None:
+        align = 4 * band_tile
+        ncap = ((max(n_real, band_tile + band_width) + align - 1)
+                // align) * align
     return next(iter(batch_iterator(normed, batch_size, ncap, ecap,
                                     band_width=band_width,
-                                    band_tile=band_tile, rcm=True,
+                                    band_tile=band_tile,
+                                    rcm=band_width is not None,
                                     device=device)))
 
 
@@ -57,18 +73,30 @@ TRAIN_LR = 1e-3  # the learning rate of the JAX bench's train steps
 
 
 # the cells' build_bench_setup arguments (bench_configs.py:20-27): panels
-# in the batch, supernodes (else virtual edges), model, band tile and width
-# (None: select_band_geometry's pick)
+# in the batch, supernodes (else virtual edges), model, segment impl, band
+# tile and width (None: select_band_geometry's pick; unused by the
+# unbanded impls, whose batches carry no band)
 CELLS = {
     "flagship": dict(batch_size=128, use_super_node=True,
-                     model_name="GraphSage_addAggr_Shared", band_tile=256,
+                     model_name="GraphSage_addAggr_Shared",
+                     segment_impl="banded_pallas", band_tile=256,
                      band_width=None),
     "virtual": dict(batch_size=128, use_super_node=False,
-                    model_name="GraphSage_addAggr_Shared", band_tile=256,
+                    model_name="GraphSage_addAggr_Shared",
+                    segment_impl="banded_pallas", band_tile=256,
                     band_width=None),
     "ea-virtual": dict(batch_size=64, use_super_node=False,
-                       model_name="EA_GNN_Shared", band_tile=128,
+                       model_name="EA_GNN_Shared",
+                       segment_impl="banded_pallas", band_tile=128,
                        band_width=64),
+    "csr-virtual": dict(batch_size=128, use_super_node=False,
+                        model_name="GraphSage_addAggr_Shared",
+                        segment_impl="pallas", band_tile=256,
+                        band_width=None),
+    "csr-virtual-xla": dict(batch_size=128, use_super_node=False,
+                            model_name="GraphSage_addAggr_Shared",
+                            segment_impl="xla", band_tile=256,
+                            band_width=None),
 }
 
 
@@ -90,10 +118,14 @@ def _cell(device, config: str):
     normed, nz = normalize_dataset(dataset)
     cfg = TrainConfig(hidden_channels=512, num_layers=6,
                       compute_dtype="bfloat16", seed=0,
-                      model_name=c["model_name"])
-    band_tile, band_width = c["band_tile"], c["band_width"]
-    if band_width is None:
-        band_tile, band_width = select_band_geometry(normed, tile=band_tile)
+                      model_name=c["model_name"],
+                      segment_impl=c["segment_impl"])
+    band_tile, band_width = c["band_tile"], None
+    if cfg.segment_impl.startswith("banded"):
+        band_width = c["band_width"]
+        if band_width is None:
+            band_tile, band_width = select_band_geometry(normed,
+                                                         tile=band_tile)
     batch = pack_exact(normed, batch_size, band_width, band_tile, device)
     model = build_model(cfg, normed[0].x.shape[1],
                         normed[0].edge_attr.shape[1], device=device)

@@ -1,8 +1,9 @@
 """Typed configuration: the `TrainConfig` fields the port reads.
 
 A subset of buckgnn_tpu/config.py::TrainConfig with the same names and
-defaults: the model fields, and the optimizer and learning-rate schedule
-fields of the train step. The data-pipeline fields come with later slices.
+defaults: the model fields (``segment_impl`` "xla", the unfused SAGE path,
+and ``remat``), and the optimizer and learning-rate schedule fields of the
+train step. The data-pipeline fields come with later slices.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ class TrainConfig:
 
     seed: int = 0
     compute_dtype: str = "float32"          # 'float32' | 'bfloat16'
-    segment_impl: str = "banded_pallas"     # the fused banded path
+    segment_impl: str = "xla"               # models/buckgnn.py::IMPLS
+    remat: bool | None = None               # True: remat paths, not ported
 
     @property
     def eta_min(self) -> float:

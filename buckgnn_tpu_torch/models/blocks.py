@@ -16,19 +16,26 @@ from torch import nn
 from torch.nn import functional as F
 
 
+# std of a standard normal truncated to [-2, 2]: flax's lecun_normal
+# (variance_scaling, "truncated_normal") divides its std by it, so the
+# truncated draw keeps the variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype``, initialised from an explicit
-    generator (lecun-normal weight, zero bias, as flax's Dense)."""
+    generator as flax's Dense: a lecun-normal weight (a normal of std
+    s = 1/sqrt(fan_in)/0.8796 truncated to +-2s) and a zero bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        s = 1.0 / math.sqrt(in_features) / _TRUNC_STD
         with torch.no_grad():
-            self.weight.copy_(torch.randn(out_features, in_features,
-                                          generator=generator)
-                              / math.sqrt(in_features))
+            nn.init.trunc_normal_(self.weight, std=s, a=-2 * s, b=2 * s,
+                                  generator=generator)
             if bias:
                 self.bias.zero_()
 
@@ -36,6 +43,38 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class _L2Normalize(torch.autograd.Function):
+    """The residual form of `l2_normalize` and its VJP (models/blocks.py:
+    37-52 of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        sq = (v * v).sum(-1, keepdim=True)
+        inv = torch.rsqrt(sq.clamp_min(1e-24))
+        y = v * inv
+        ctx.save_for_backward(y, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, inv = ctx.saved_tensors
+        # s = rowsum(g * y): f32 sums of the products in g's dtype, rounded
+        # to g's dtype (the JAX package's ones-matvec, :46-49)
+        s = (g * y).float().sum(-1, keepdim=True).to(g.dtype)
+        return (g - y * s) * inv
+
+
+def l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    """Row-wise F.normalize (norm clamped at 1e-12), in v's dtype: the
+    plain ``v / sqrt(max(sum(v*v), 1e-24))`` without autograd, and under
+    autograd the residual form ``v * rsqrt(...)`` with the JAX package's
+    VJP (finite on exactly-zero padding rows)."""
+    if torch.is_grad_enabled() and v.requires_grad:
+        return _L2Normalize.apply(v)
+    sq = (v * v).sum(-1, keepdim=True)
+    return v / torch.sqrt(sq.clamp_min(1e-24))
 
 
 class MLP(nn.Module):
@@ -76,9 +115,11 @@ def decoder_widths(hidden_channels: int, output_dim: int) -> tuple[int, ...]:
 
 class SAGEConv(nn.Module):
     """Shared GraphSAGE convolution (PyG semantics, aggr='add',
-    normalize=True), run as the fused layer:
-    out_i = W_l · sum_{j in N(i)} x_j + b_l + W_r · x_i, then L2 norm,
-    relu and the optional skip (ops/sage_layer.py)."""
+    normalize=True): out_i = W_l · sum_{j in N(i)} x_j + b_l + W_r · x_i,
+    then L2 norm. `forward` runs it as the fused layer with relu, the
+    optional skip and dropout (ops/sage_layer.py); `unfused` as the
+    aggregation, the two Dense layers and `l2_normalize` (models/blocks.py:
+    152-166 of the JAX package), whose caller adds the epilogue."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
@@ -95,6 +136,16 @@ class SAGEConv(nn.Module):
         return (self.lin_l.weight.t().to(dtype).contiguous(),
                 self.lin_l.bias.to(dtype).contiguous(),
                 self.lin_r.weight.t().to(dtype).contiguous())
+
+    def unfused(self, x, senders, receivers, impl: str, csr=None):
+        """l2_normalize(lin_l(agg) + lin_r(x)) in the block's dtype, agg by
+        ops/sage.py::sage_aggregate with ``impl`` ('xla', 'sorted' or
+        'pallas'; ``csr`` the forward's CSR context for 'pallas')."""
+        from buckgnn_tpu_torch.ops.sage import sage_aggregate
+
+        agg = sage_aggregate(x, senders, receivers, x.shape[0], aggr="add",
+                             impl=impl, csr=csr)
+        return l2_normalize(self.lin_l(agg) + self.lin_r(x))
 
     def forward(self, x, agg_ctx, *, skip: bool, weights=None,
                 rate: float = 0.0, seed=None, deterministic: bool = True,

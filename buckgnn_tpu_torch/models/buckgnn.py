@@ -2,30 +2,44 @@
 
 Covers ``mean`` pooling and the buckling head with two processors.
 
-The flagship variant ``GraphSage_addAggr_Shared``, on banded batches that
-the fused layer takes: node encoder -> L weight-tied fused SAGE layers (skip on
-0 < i < L-1, Models/BuckGNN.py:349-351, dropout after each) -> mean pool
--> decoder. Batches with spill edges (the virtual-edge config) add the
-spill window in every layer and take the split backward. On supernode
-batches without spill edges the layers thread their deferred backward star
-tables from one to the next (`star_source` opens the chain at the encoder
-output), and with local star windows each layer's kernel also emits the
-next layer's star table; otherwise the table is rebuilt from x for each
-layer (models/buckgnn.py:169-242 of the JAX package, `star_threading`).
-In training (``deterministic=False``) each layer draws its two dropout
-seed words from the caller's ``torch.Generator``.
+``GraphSage_addAggr_Shared`` (node encoder -> L weight-tied SAGE layers,
+skip on 0 < i < L-1 (Models/BuckGNN.py:349-351), dropout after each ->
+mean pool -> decoder) takes one of two routes, as the JAX model decides
+them (models/buckgnn.py:141-242):
+
+- the fused layer (ops/sage_layer.py), for ``impl="banded_pallas"`` on
+  banded batches that it takes. Batches with spill edges (the
+  virtual-edge config) add the spill window in every layer and take the
+  split backward. On supernode batches without spill edges the layers
+  thread their deferred backward star tables from one to the next
+  (`star_source` opens the chain at the encoder output), and with local
+  star windows each layer's kernel also emits the next layer's star table;
+  otherwise the table is rebuilt from x for each layer (`star_threading`);
+- the unfused layers, for ``impl`` ``'xla'``, ``'sorted'`` and
+  ``'pallas'`` on any batch (a band is ignored) and for a banded impl on a
+  batch without a band: per layer `SAGEConv.unfused` (the aggregation of
+  ops/sage.py: the CSR kernel for ``'pallas'``, the segment reductions for
+  the others, banded impls included), then
+  ops/epilogue.py::relu_skip_dropout of the conv output and the skip.
+
+The other banded impls (``'banded'``, ``'banded_partitioned'``) on a banded
+batch, and the batches the fused layer refuses (spill2 overflow), need the
+unfused banded path: they raise, naming ROADMAP queue 1 item 2. In training
+(``deterministic=False``) each layer draws its two dropout seed words from
+the caller's ``torch.Generator``.
 
 The edge-augmented ``EA_GNN_Shared`` (one weight-tied ``shared_gn_block``)
-and ``EA_GNN`` (``gn_block_{i}`` per layer), on batches with edge windows
-that the fused block takes (models/buckgnn.py:295-428 of the JAX package,
-fused and not tensor-parallel): node encoder, and the edge encoder on the
-raw window, or inside layer 0's kernel when `supports_fused_encoder`
-holds; then L fused blocks with skip on x and e for 0 < i < L-1 and
-dropout inside the kernel; mean pool and decoder.
+and ``EA_GNN`` (``gn_block_{i}`` per layer), with a banded impl on batches
+with edge windows that the fused block takes (models/buckgnn.py:295-428 of
+the JAX package, fused and not tensor-parallel): node encoder, and the
+edge encoder on the raw window, or inside layer 0's kernel when
+`supports_fused_encoder` holds; then L fused blocks with skip on x and e
+for 0 < i < L-1 and dropout inside the kernel; mean pool and decoder.
 
 Every other model name, pooling or prediction type raises
-NotImplementedError naming the ROADMAP item that brings it, and so does a
-batch the fused layer does not take: nothing silently takes another path.
+NotImplementedError naming the ROADMAP item that brings it, and so do
+``remat=True`` and the EA family's unfused windowed path (item 7c):
+nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -41,6 +55,9 @@ from buckgnn_tpu_torch.ops import segment
 
 
 PORTED_MODELS = ("GraphSage_addAggr_Shared", "EA_GNN_Shared", "EA_GNN")
+# segment_impl values of the JAX package (config.py:62)
+IMPLS = ("xla", "sorted", "pallas", "banded", "banded_pallas",
+         "banded_partitioned")
 
 
 class BuckGNN(nn.Module):
@@ -61,8 +78,8 @@ class BuckGNN(nn.Module):
                 "are ported (rest of the family: ROADMAP queue 1, item 7)")
         if remat:
             raise NotImplementedError(
-                "remat=True selects the unfused paths (ROADMAP queue 1, "
-                "items 2 and 7)")
+                "remat=True selects the rematerialized paths (ROADMAP "
+                "queue 1, items 2 and 7c)")
         if pooling_layer != "mean":
             raise NotImplementedError(
                 f"pooling_layer={pooling_layer!r}: only 'mean' is ported "
@@ -71,10 +88,8 @@ class BuckGNN(nn.Module):
             raise NotImplementedError(
                 f"prediction_type={prediction_type!r}: only the buckling "
                 "head is ported (node-level heads: ROADMAP queue 1, item 7)")
-        if impl != "banded_pallas":
-            raise NotImplementedError(
-                f"impl={impl!r}: only the fused banded path is ported "
-                "(unfused and CSR paths: ROADMAP queue 1, items 2 and 7)")
+        if impl not in IMPLS:
+            raise ValueError(f"impl={impl!r}: one of {', '.join(IMPLS)}")
         self.num_node_features = num_node_features
         self.num_edge_features = num_edge_features
         self.hidden_channels = hidden_channels
@@ -111,17 +126,16 @@ class BuckGNN(nn.Module):
         if rate > 0.0 and generator is None:
             raise ValueError("training with dropout needs a torch.Generator "
                              "for the layers' dropout seeds")
-        if batch.band_senders is None:
-            raise NotImplementedError(
-                "unbanded batches need the CSR path (ROADMAP queue 1, item 7)")
         # 'mean' pooling does not look for supernodes (BuckGNN.py:315-316)
         real_node_mask = batch.node_mask
 
         x = self.node_encoder(batch.nodes)
-        if self.model_name == "GraphSage_addAggr_Shared":
+        if self.model_name != "GraphSage_addAggr_Shared":
+            x = self._ea_stack(x, batch, rate, deterministic, generator)
+        elif self.impl.startswith("banded") and batch.band_senders is not None:
             x = self._sage_stack(x, batch, rate, deterministic, generator)
         else:
-            x = self._ea_stack(x, batch, rate, deterministic, generator)
+            x = self._sage_unfused(x, batch, rate, generator)
 
         pooled = self._pool(x, batch)
         pred = self.decoder(pooled)
@@ -138,6 +152,10 @@ class BuckGNN(nn.Module):
 
         h = self.hidden_channels
         L = self.num_layers
+        if not self.impl.startswith("banded"):
+            raise NotImplementedError(
+                f"impl={self.impl!r}: the EA family's unfused path is "
+                "ROADMAP queue 1, item 7c")
         if not supports_fused_ea(batch, h):
             raise NotImplementedError(
                 f"the fused EA block does not take this batch/width (h={h}, "
@@ -168,6 +186,10 @@ class BuckGNN(nn.Module):
         training = not deterministic
         h = self.hidden_channels
         L = self.num_layers
+        if self.impl != "banded_pallas":
+            raise NotImplementedError(
+                f"impl={self.impl!r} on a banded batch runs the unfused "
+                "banded path, ROADMAP queue 1, item 2")
         agg_ctx = make_agg_context(batch)
         if not supports_fused_layer(agg_ctx, x, "add", True):
             raise NotImplementedError(
@@ -194,6 +216,24 @@ class BuckGNN(nn.Module):
                 x, table = out
             else:
                 x, star, table = out
+        return x
+
+    def _sage_unfused(self, x, batch, rate, generator):
+        """L unfused, weight-tied SAGE layers (models/buckgnn.py:238-242 of
+        the JAX package): conv, then relu, the skip and dropout. A banded
+        impl aggregates by the 'xla' route here (blocks.py:159-162)."""
+        from buckgnn_tpu_torch.ops.csr_segment import make_csr_context
+        from buckgnn_tpu_torch.ops.epilogue import relu_skip_dropout
+
+        L = self.num_layers
+        impl = "xla" if self.impl.startswith("banded") else self.impl
+        csr = (make_csr_context(batch.senders, batch.receivers,
+                                batch.n_node_cap) if impl == "pallas" else None)
+        conv = self.shared_graphsage_block
+        for i in range(L):
+            c = conv.unfused(x, batch.senders, batch.receivers, impl, csr)
+            seed = draw_seed(generator) if rate > 0.0 else None
+            x = relu_skip_dropout(c, x if 0 < i < L - 1 else None, seed, rate)
         return x
 
     def _pool(self, x, batch: GraphBatch):

@@ -42,6 +42,7 @@ def build_model(cfg: TrainConfig, num_node_features: int,
         model_name=cfg.model_name,
         dtype=_DTYPES[cfg.compute_dtype],
         impl=cfg.segment_impl,
+        remat=cfg.remat,
         generator=gen,
     )
     return model.to(device).eval()

@@ -25,6 +25,8 @@ SOURCES = {
     "banded_matmul": os.path.join(_PKG, "csrc", "banded_matmul.cu"),
     "ea_block_fwd": os.path.join(_PKG, "csrc", "ea_block_fwd.cu"),
     "ea_block_bwd": os.path.join(_PKG, "csrc", "ea_block_bwd.cu"),
+    "csr_segment": os.path.join(_PKG, "csrc", "csr_segment.cu"),
+    "epilogue": os.path.join(_PKG, "csrc", "epilogue.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

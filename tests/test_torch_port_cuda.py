@@ -10,7 +10,13 @@ without its spill term. The fused EA block's forward and backward
 and off, dropout 0 and 0.1; their determinism; and gates that fail a
 forward without its far senders, its cnt * b_p1 term or its skip, a
 backward without its halo or far part or wrong in a few rows of dx only,
-and a dW_sp without the far slots.
+and a dW_sp without the far slots. The CSR segment sum (csr_segment.cu),
+forward and over the transposed CSR, add and mean, bf16 and float32, on a
+graph with an 800-degree hub and on a trainer-packed batch whose dead row
+owns thousands of pad edges, within its gate, twice the same bits, and
+refusing what it does not take; the epilogue kernels (epilogue.cu) bit for
+bit against their plain versions with and without the skip; the gates
+failing their faults; and the unfused model's launches per train step.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -29,7 +35,9 @@ import torch
 from buckgnn_tpu_torch.graph import batch as tb
 from buckgnn_tpu_torch.graph.synthetic import generate_dataset
 from buckgnn_tpu_torch.ops import banded_matmul as bm
+from buckgnn_tpu_torch.ops import csr_segment as cs
 from buckgnn_tpu_torch.ops import ea_block as eb
+from buckgnn_tpu_torch.ops import epilogue as ep
 from buckgnn_tpu_torch.ops import sage_layer as sl
 from buckgnn_tpu_torch.ops.dropout import keep_mask
 from buckgnn_tpu_torch.ops.banded import make_agg_context
@@ -658,3 +666,153 @@ def test_ea_kernels_reject_what_they_do_not_take():
         eb.ea_block_bwd(*args, **dict(kw, rate=0.1))
     with pytest.raises(ValueError, match="float32 bias"):
         eb.ea_block_bwd(*args[:7], bias.bfloat16(), ctx, **kw)
+
+
+# ---- the CSR segment sum (#7) and the epilogue (#8, #9) -------------------
+
+def _csr(dev, which):
+    """(CSR context, n) of "hub": random edges on 512 nodes and an
+    800-degree hub, or "padded": a batch packed at suggest_capacities' caps,
+    whose dead row owns every pad edge (over a thousand)."""
+    if which == "hub":
+        rng = np.random.default_rng(5)
+        n = 512
+        r = np.concatenate([rng.integers(0, n - 1, size=2000),
+                            np.full(800, 3)])
+        s = rng.integers(0, n - 1, size=len(r))
+        o = np.argsort(r, kind="stable")
+        s, r = (torch.from_numpy(a[o].astype(np.int32)).to(dev)
+                for a in (s, r))
+        return cs.make_csr_context(s, r, n), n
+    from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
+
+    ds = normalize_dataset(generate_dataset(
+        32, seed=7, min_side=10, max_side=20, use_super_node=False,
+        use_virtual_edges=True))[0]
+    ncap, ecap = tb.suggest_capacities(ds, 32)
+    b = next(tb.batch_iterator(ds, 32, ncap, ecap, device=dev))
+    assert int((b.receivers == ncap - 1).sum()) > 1000
+    return cs.make_csr_context(b.senders, b.receivers, ncap), ncap
+
+
+@pytest.mark.parametrize("which", ["hub", "padded"])
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mean", [False, True])
+def test_csr_kernel_matches_plain_on_cuda(which, h, dtype, mean):
+    """Forward (receiver CSR) and backward (transposed CSR) within
+    cs.gate; one launch each; the same bits twice."""
+    dev = _card()
+    ctx, n = _csr(dev, which)
+    g = torch.Generator(device=dev).manual_seed(h)
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    for idx, off in ((ctx.senders, ctx.row_off), (ctx.t_idx, ctx.t_off)):
+        before = cs.LAUNCHES["csr_segment"]
+        got = cs.csr_segment_sum(x, idx, off, mean)
+        again = cs.csr_segment_sum(x, idx, off, mean)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["csr_segment"] == before + 2
+        assert got.dtype == (torch.float32 if mean else dtype)
+        assert torch.equal(got, again)
+        ref = cs.csr_segment_sum_plain(x, idx, off, mean)
+        ok, err, share = cs.gate(got, ref, dtype)
+        assert ok, (err, share)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_csr_gate_catches_faults_on_cuda(mean):
+    dev = _card()
+    ctx, n = _csr(dev, "hub")
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((n, 512), generator=g, device=dev).to(torch.bfloat16)
+    got = cs.csr_segment_sum(x, ctx.senders, ctx.row_off, mean)
+    for fault, bad in cs.faults(x, ctx.senders, ctx.row_off, mean).items():
+        assert not cs.gate(bad, got, x.dtype)[0], fault
+
+
+def test_csr_kernel_rejects_what_it_does_not_take():
+    dev = _card()
+    ctx, n = _csr(dev, "hub")
+    x = torch.zeros((n, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="H % 8"):
+        cs.csr_segment_sum(x, ctx.senders, ctx.row_off)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cs.csr_segment_sum(torch.zeros((n, 64), dtype=torch.float16,
+                                       device=dev), ctx.senders, ctx.row_off)
+    with pytest.raises(ValueError, match="int32"):
+        cs.csr_segment_sum(torch.zeros((n, 64), device=dev),
+                           ctx.senders.long(), ctx.row_off)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.csr_segment_sum(torch.zeros((64, n), device=dev).t(),
+                           ctx.senders, ctx.row_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("shape", [(1000, 136), (4099, 512)])
+def test_epilogue_kernels_match_plain_bit_for_bit(dtype, skip, shape):
+    """#8 and #9 against their plain versions at dropout 0.1: equal values;
+    one launch each; the faults of ep.faults differ."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    c, p, dy = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                for _ in range(3))
+    pp = p if skip else None
+    before = dict(ep.LAUNCHES)
+    y = ep.epilogue_fwd(c, pp, SEED, 0.1)
+    dc, dp = ep.epilogue_bwd(dy, c, SEED, 0.1, skip)
+    torch.cuda.synchronize()
+    assert ep.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert torch.equal(y, ep.epilogue_fwd_plain(c, pp, SEED, 0.1))
+    dcp, dpp = ep.epilogue_bwd_plain(dy, c, SEED, 0.1, skip)
+    assert torch.equal(dc, dcp)
+    assert (dp is None) == (not skip) and (dp is None or torch.equal(dp, dpp))
+    for fault, (fy, (fdc, _)) in ep.faults(dy, c, pp, SEED, 0.1).items():
+        assert not torch.equal(fdc, dc), fault
+        assert fy is None or not torch.equal(fy, y), fault
+
+
+def test_epilogue_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    c = torch.zeros((16, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="H % 8"):
+        ep.epilogue_fwd(c, None, SEED, 0.1)
+    c = torch.zeros((16, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="one dtype and shape"):
+        ep.epilogue_fwd(c, c.float(), SEED, 0.1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ep.epilogue_bwd(c.half(), c.half(), SEED, 0.1, False)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_unfused_model_launches_per_train_step_on_cuda(impl):
+    """One train step of a 3-layer unfused model on a trainer-packed batch:
+    'pallas' launches #7 twice per layer (forward and backward), 'xla'
+    never; both launch #8 and #9 once per layer; no fused kernel."""
+    from buckgnn_tpu_torch.config import TrainConfig
+    from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
+    from buckgnn_tpu_torch.train.losses import get_loss_function
+    from buckgnn_tpu_torch.train.trainer import (
+        build_model, init_state, make_optimizer, make_train_step,
+    )
+
+    dev = _card()
+    ds, nz = normalize_dataset(generate_dataset(
+        8, seed=3, min_side=8, max_side=12, use_super_node=False,
+        use_virtual_edges=True))
+    ncap, ecap = tb.suggest_capacities(ds, 8)
+    b = next(tb.batch_iterator(ds, 8, ncap, ecap, device=dev))
+    cfg = TrainConfig(hidden_channels=128, num_layers=3,
+                      compute_dtype="bfloat16", segment_impl=impl)
+    model = build_model(cfg, ds[0].x.shape[1], 5, device=dev)
+    state = init_state(model, make_optimizer(cfg, model))
+    step, _ = make_train_step(state.model, state.optimizer,
+                              get_loss_function(cfg.loss_function), cfg, nz)
+    for mod in (sl, eb, cs, ep):
+        mod.reset_launch_counts()
+    loss = float(step(b, 1e-3, torch.Generator().manual_seed(0))["loss"])
+    assert np.isfinite(loss)
+    assert cs.LAUNCHES["csr_segment"] == (6 if impl == "pallas" else 0)
+    assert ep.LAUNCHES == {"epilogue_fwd": 3, "epilogue_bwd": 3}
+    assert set(sl.LAUNCHES.values()) == {0}
+    assert set(eb.LAUNCHES.values()) == {0}

@@ -162,7 +162,7 @@ def _train_both(dtype, name="EA_GNN_Shared"):
     jstate = jstate.replace(params=params, opt_state=opt.init(params))
     start = params_from_flax(jax.tree.map(np.asarray, params))
     j_step, _ = j_train_step(jmodel, opt, j_loss("relative_error"), jcfg, nz)
-    cfg = TrainConfig(**common)
+    cfg = TrainConfig(segment_impl="banded_pallas", **common)
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     model.load_state_dict(start)
@@ -217,7 +217,7 @@ def test_eval_step_matches_jax_bf16():
     jstate = jstate.replace(params=params)
     _, j_eval = j_train_step(jmodel, opt, j_loss("relative_error"), jcfg, nz)
     jm, (jpred, _) = j_eval(jstate, ref)
-    cfg = TrainConfig(**common)
+    cfg = TrainConfig(segment_impl="banded_pallas", **common)
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
@@ -239,7 +239,7 @@ def test_training_at_rate_0_1_reproduces_from_the_generator():
 
     def run(gen_seed, name):
         cfg = TrainConfig(hidden_channels=128, num_layers=3, lr=LR,
-                          model_name=name)
+                          model_name=name, segment_impl="banded_pallas")
         model = build_model(cfg, graphs[0].x.shape[1], 5, device="cpu")
         state = init_state(model, make_optimizer(cfg, model))
         step, _ = make_train_step(state.model, state.optimizer,

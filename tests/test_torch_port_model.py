@@ -59,7 +59,7 @@ def _setup(dtype: str, windows: bool = True):
                                 nz)
     jm, (jpred, _) = j_eval(state, ref)
 
-    cfg = TrainConfig(**common)
+    cfg = TrainConfig(segment_impl="banded_pallas", **common)
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))

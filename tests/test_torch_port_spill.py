@@ -277,7 +277,7 @@ def test_virtual_eval_step_matches_jax_fp32():
     jmodel, opt, jstate = _jax_start(graphs, ref, jcfg)
     _, j_eval = j_train_step(jmodel, opt, j_loss("relative_error"), jcfg, nz)
     jm, (jpred, _) = j_eval(jstate, ref)
-    cfg = TrainConfig(**common)
+    cfg = TrainConfig(segment_impl="banded_pallas", **common)
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     model.load_state_dict(params_from_flax(
@@ -303,7 +303,8 @@ def _train_both(dtype):
     j_step, _ = j_train_step(jmodel, opt, j_loss("relative_error"), jcfg, nz)
 
     cfg = TrainConfig(hidden_channels=128, num_layers=3, compute_dtype=dtype,
-                      dropout_rate=0.0, lr=LR, weight_decay=WEIGHT_DECAY)
+                      dropout_rate=0.0, lr=LR, weight_decay=WEIGHT_DECAY,
+                      segment_impl="banded_pallas")
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     model.load_state_dict(start)

@@ -59,7 +59,8 @@ def _data(seed=6):
 
 def _port(graphs, nz, dtype, rate, state_dict=None):
     cfg = TrainConfig(hidden_channels=128, num_layers=3, compute_dtype=dtype,
-                      dropout_rate=rate, lr=LR, weight_decay=WEIGHT_DECAY)
+                      dropout_rate=rate, lr=LR, weight_decay=WEIGHT_DECAY,
+                      segment_impl="banded_pallas")
     model = build_model(cfg, graphs[0].x.shape[1],
                         graphs[0].edge_attr.shape[1], device="cpu")
     if state_dict is not None:
