@@ -4,21 +4,37 @@
 // sage_layer_bwd.cu (dW_l, dW_r, db_l) and ea_block_bwd.cu (every weight
 // and bias gradient of the EA block). No float atomics: the partials are
 // summed in a fixed order, so two runs give the same bits.
+//
+// The product pass on Hopper: a block owns a 128 x 128 tile of dW and one
+// row chunk. Its producer warp streams 32-row slices of both operands by
+// TMA (128-byte swizzle) through a ring of STAGES slices with mbarriers;
+// A [M, I] and B [M, J] are row-major, so both are read MN-major: A^T by
+// the wgmma descriptor's major-ness, not by a transposed copy. Two
+// consumer warpgroups each issue wgmma m64n128k16 on 64 rows of the tile
+// (64 f32 sums a thread) and store their sums as the chunk's partial.
+// TMA fills zeros past the end of A and B, so ragged I, J (the encoder's
+// 8 input lanes) and M need no masks; chunks are whole slices. Shared
+// memory: 4 slices of 16 KB. Bound on an H100: operations (2 M I J per
+// product) once the slices stream; a launch takes at most 8 products, so
+// that its tensor maps stay within the 4 KB of kernel parameters.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace splitk {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NWARP = 8;
-constexpr int NTHREADS = NWARP * 32;
+constexpr int NWARP = 8;  // warps of the reduction kernels
 constexpr int KSPLIT = 16;  // row chunks of a product
 constexpr int TI = 128, TJ = 128, TK = 32;
+constexpr int STAGES = 4;
+constexpr int ATB_THREADS = 288;  // two consumer warpgroups, one producer warp
+constexpr int SLICE = (TI + TJ) * TK * 2;  // bytes of a ring slice
 
 // One product dw = A^T @ B: A [M, I] (lda), B [M, J] (ldb), I and J
 // multiples of 8, dw [I, J] float32, and its partials part
@@ -34,6 +50,7 @@ struct Job {
 };
 
 constexpr int MAX_JOBS = 16;
+constexpr int LAUNCH_JOBS = 8;
 
 // the products of one launch
 struct Jobs {
@@ -56,84 +73,100 @@ struct Jobs {
   }
 };
 
+// the kernel's view of up to LAUNCH_JOBS products
+struct Launch {
+  CUtensorMap a[LAUNCH_JOBS], b[LAUNCH_JOBS];
+  float* part[LAUNCH_JOBS];
+  int m[LAUNCH_JOBS], ip[LAUNCH_JOBS], jp[LAUNCH_JOBS];
+};
+
 // part[chunk, i, j] = sum over rows k of the chunk of A[k, i] * B[k, j],
-// for job blockIdx.z / KSPLIT and chunk blockIdx.z % KSPLIT. Blocks of 8
-// warps own a 128 x 128 tile; K-steps of 32 rows are staged in shared
-// memory with 16-byte loads. EDGES: some job has a partial tile (I or J
-// not a multiple of 128) or a partial K-step (M not a multiple of 32),
-// whose loads are masked to zeros.
-template <bool EDGES>
-__global__ void __launch_bounds__(NTHREADS) atb_kernel(
-    const __grid_constant__ Jobs jobs) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 sa[TK][TI + 8];
-  __shared__ __align__(128) bf16 sb[TK][TJ + 8];
-  const Job& jb = jobs.job[blockIdx.z / KSPLIT];
+// for job blockIdx.z / KSPLIT and chunk blockIdx.z % KSPLIT
+__global__ void __launch_bounds__(ATB_THREADS, 2)
+    atb_kernel(const __grid_constant__ Launch L) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  unsigned char* ring = smem + 1024;
+  const int job = blockIdx.z / KSPLIT;
   const int chunk = blockIdx.z % KSPLIT;
   const int i0 = blockIdx.x * TI;
   const int j0 = blockIdx.y * TJ;
-  if (i0 >= jb.ip || j0 >= jb.jp) return;
-  const bf16* A = jb.a;
-  const bf16* B = jb.b;
-  const int I = jb.i, J = jb.j, M = jb.m, lda = jb.lda, ldb = jb.ldb;
-  const int jp = jb.jp;
+  const int jp = L.jp[job];
+  if (i0 >= L.ip[job] || j0 >= jp) return;
+  const int M = L.m[job];
   const int kc = ((M + KSPLIT * TK - 1) / (KSPLIT * TK)) * TK;
   const int kb = chunk * kc;
-  const int ke = min(M, kb + kc);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wi = warp / 4;  // 2 x 4 warps, each 64 x 32
-  const int wj = warp % 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = kb; k0 < ke; k0 += TK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int el = (tid + u * NTHREADS) * 8;  // 8 bf16 per 16-byte load
-      const int r = el / TI;
-      const int c = el % TI;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (!EDGES || k0 + r < ke) {
-        if (!EDGES || i0 + c < I)
-          va = *reinterpret_cast<const uint4*>(A + (size_t)(k0 + r) * lda +
-                                               i0 + c);
-        if (!EDGES || j0 + c < J)
-          vb = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * ldb +
-                                               j0 + c);
-      }
-      *reinterpret_cast<uint4*>(&sa[r][c]) = va;
-      *reinterpret_cast<uint4*>(&sb[r][c]) = vb;
+  const int nk = max(0, (min(M, kb + kc) - kb + TK - 1) / TK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &sb[kk][wj * 32 + j * 16], TJ + 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // A^T(i, k) = sa[k][i]: column-major with leading dimension TI + 8
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, &sa[kk][wi * 64 + i * 16], TI + 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+    hop::fence_barrier_init();
   }
-  float* out = jb.part + (size_t)chunk * jb.ip * jp;
+  __syncthreads();
+  hop::Ring r;
+  r.full = full;
+  r.empty = empty;
+  r.base = ring;
+  r.stride = SLICE;
+  r.stages = STAGES;
+  if (threadIdx.x >= 256) {
+    if (threadIdx.x == 256) {
+      for (int s = 0; s < nk; ++s) {
+        hop::mbar_wait(&r.empty[r.stage], r.phase ^ 1);
+        uint64_t* f = &r.full[r.stage];
+        hop::mbar_expect_tx(f, SLICE);
+        unsigned char* slot = r.slot();
+        const int k = kb + s * TK;
+        for (int x = 0; x < TI / 64; ++x)
+          hop::tma_load(slot + x * 4096, &L.a[job], f, i0 + 64 * x, k);
+        for (int x = 0; x < TJ / 64; ++x)
+          hop::tma_load(slot + TI * TK * 2 + x * 4096, &L.b[job], f,
+                        j0 + 64 * x, k);
+        r.advance();
+      }
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128;
+  float acc[TJ / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int q = 0; q < TJ / 2; ++q) acc[q] = 0.f;
+  int prev = -1;
+  hop::fence_regs(acc);
+  for (int s = 0; s < nk; ++s) {
+    hop::mbar_wait(&r.full[r.stage], r.phase);
+    const uint32_t slot = hop::smem_u32(r.slot());
+    const uint32_t a = slot + hop::mn_col(64 * wg);  // A^T rows 64 wg..
+    const uint32_t b = slot + TI * TK * 2;
+    hop::wg_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          out + (size_t)(i0 + wi * 64 + i * 16) * jp + j0 + wj * 32 + j * 16,
-          acc[i][j], jp, wmma::mem_row_major);
+    for (int kk = 0; kk < 2; ++kk)
+      hop::wgmma<1, 1>(acc, hop::desc_mn(a, kk), hop::desc_mn(b, kk), 1);
+    hop::wg_commit();
+    if (prev >= 0) {
+      hop::wg_wait<1>();
+      if (threadIdx.x % 32 == 0) hop::mbar_arrive(&r.empty[prev]);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  hop::wg_wait<0>();
+  hop::fence_regs(acc);
+  const int lane = threadIdx.x % 32;
+  const int row = i0 + 64 * wg + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  float* out = L.part[job] + (size_t)chunk * L.ip[job] * jp;
+#pragma unroll
+  for (int q = 0; q < TJ / 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8 * h) * jp + j0 +
+                                 8 * q + 2 * (lane % 4)) =
+          make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
 }
 
 // dw[i * J + j] = sum over chunks in order of part[chunk, i, j], for job
@@ -150,25 +183,39 @@ __global__ void atb_reduce_kernel(const __grid_constant__ Jobs jobs) {
 }
 
 // every queued dw = A^T @ B in float32, through partials in ``part``
-// (jobs.part_floats floats): two launches for all of them. Each element's
-// sum runs over the same chunks in the same order however the products
-// are grouped into launches.
+// (jobs.part_floats floats): one product launch per LAUNCH_JOBS products
+// and one reduction launch. Each element's sum runs over the same chunks
+// in the same order however the products are grouped into launches.
 inline cudaError_t atb(Jobs jobs, float* part, cudaStream_t st) {
-  int ij_max = 0;
-  bool edges = false;
-  for (int k = 0; k < jobs.n; ++k) {
-    Job& jb = jobs.job[k];
-    jb.part = part + jb.off;
-    ij_max = jb.i * jb.j > ij_max ? jb.i * jb.j : ij_max;
-    edges |= jb.i % TI != 0 || jb.j % TJ != 0 || jb.m % TK != 0;
-  }
-  const dim3 grid(jobs.ip_max / TI, jobs.jp_max / TJ, KSPLIT * jobs.n);
-  if (edges)
-    atb_kernel<true><<<grid, NTHREADS, 0, st>>>(jobs);
-  else
-    atb_kernel<false><<<grid, NTHREADS, 0, st>>>(jobs);
-  cudaError_t err = cudaGetLastError();
+  const int smem = 2048 + STAGES * SLICE;
+  cudaError_t err = cudaFuncSetAttribute(
+      atb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  int ij_max = 0;
+  for (int k0 = 0; k0 < jobs.n; k0 += LAUNCH_JOBS) {
+    Launch L;
+    int ip_max = 0, jp_max = 0;
+    const int nj = jobs.n - k0 < LAUNCH_JOBS ? jobs.n - k0 : LAUNCH_JOBS;
+    for (int k = 0; k < nj; ++k) {
+      Job& jb = jobs.job[k0 + k];
+      jb.part = part + jb.off;
+      if (!hop::make_map(&L.a[k], jb.a, jb.i, jb.m, jb.lda, 64, 32) ||
+          !hop::make_map(&L.b[k], jb.b, jb.j, jb.m, jb.ldb, 64, 32))
+        return cudaErrorInvalidValue;
+      L.part[k] = jb.part;
+      L.m[k] = jb.m;
+      L.ip[k] = jb.ip;
+      L.jp[k] = jb.jp;
+      ip_max = jb.ip > ip_max ? jb.ip : ip_max;
+      jp_max = jb.jp > jp_max ? jb.jp : jp_max;
+      ij_max = jb.i * jb.j > ij_max ? jb.i * jb.j : ij_max;
+    }
+    const dim3 grid(ip_max / TI, jp_max / TJ, KSPLIT * nj);
+    atb_kernel<<<grid, ATB_THREADS, smem, st>>>(L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  for (int k = 0; k < jobs.n; ++k)
+    jobs.job[k].part = part + jobs.job[k].off;
   atb_reduce_kernel<<<dim3((ij_max + 255) / 256, jobs.n), 256, 0, st>>>(jobs);
   return cudaGetLastError();
 }
@@ -206,7 +253,7 @@ __global__ void bias_reduce_kernel(const float* sums, int n_blocks, int nslot,
 inline cudaError_t bias_reduce(const float* sums, int n_blocks, int nslot,
                                int n_out, BiasRows rows, int h,
                                float* dbias, cudaStream_t st) {
-  bias_reduce_kernel<<<dim3((h + 31) / 32, n_out), NTHREADS, 0, st>>>(
+  bias_reduce_kernel<<<dim3((h + 31) / 32, n_out), NWARP * 32, 0, st>>>(
       sums, n_blocks, nslot, rows, h, dbias);
   return cudaGetLastError();
 }

@@ -13,35 +13,41 @@
 // tile-centre block, a [2 * width, H] slab-overlap halo and a receiver-
 // tiled far table that XLA folds into dx afterwards. CUDA blocks run in
 // parallel and in no order, so the work is split into passes on one
-// stream, with no float atomics (two runs give the same bits):
-//   1. node pass 1, one block per 32 nodes: recompute sm (each node's run
-//      of m1 rows), agg, g1, x1, b1; then beta, gamma, the mean and phi's
-//      second layer backward: dsm (bf16) and dxt (f32) to device memory,
-//      the weight-gradient operands to scratch, and per-block bias column
-//      sums;
-//   2. edge pass, one block per 32 slots: e2 recomputed from e1, dm1 as a
-//      row gather of dsm by receiver, dzm, de2, de1, deo (de_win, or in
-//      encoder mode the encoder's backward from the raw rows); operands
+// stream, with no float atomics (two runs give the same bits). Passes 1-3
+// are chains on the product engine of ea_common.cuh (64-row blocks in
+// clusters of two, every weight streamed by TMA through a ring and read
+// MN-major for the recomputed forward products, K-major for the W^T of the
+// backward ones, wgmma, epilogues on the registers):
+//   1. node pass 1, 64 nodes a block: recompute sm (each node's run of m1
+//      rows), agg, g1 ([x | agg] @ W_g0, x streamed), x1, b1 (10 products
+//      with the backward's), keeping the relu masks of g1 and b1 as bits in
+//      the registers of the threads that use them and the pass's bias rows
+//      in shared memory; then beta, gamma, the mean and phi's second layer
+//      backward: dsm to device memory, the weight-gradient operands to
+//      scratch, per-block bias column sums;
+//   2. edge pass, 64 slots a block: e1 comes by TMA, dsm[recv] by cp.async
+//      while e2 = e1 @ W_e1 runs; dzm, de2, de1, deo (de_win, or in encoder
+//      mode the encoder's recompute first and its backward last); operands
 //      and bias sums as in pass 1;
-//   3. node pass 2, one block per 32 nodes: r_de1 sums the node's run of
-//      de1 rows (receiver side) and s sums [de1 | dzm] over the node's
-//      sender-sorted slots, which folds the slab-overlap halo and the far
-//      rows in one pass; dx = bf16(r_de1 @ W_er^T + s @ W_sp^T + dxt
-//      (+ dz_x));
+//   3. node pass 2, 64 nodes a block: r_de1 (the node's run of de1 rows)
+//      and s = [de1 | dzm] summed over the node's sender-sorted slots (which
+//      folds the slab-overlap halo and the far rows in one pass) go through
+//      the row tile one part at a time: dx = bf16(dzg @ W_g0[:H]^T + r_de1
+//      @ W_er^T + s @ W_sp^T (+ dz_x)) in one chain of sums, dzg streamed
+//      (so the f32 dxt = dzg @ W_g0[:H]^T never reaches device memory);
 //   4. weight gradients A^T @ B over node rows or slot rows, split over a
-//      fixed number of row chunks (split-K) with f32 partials, all in one
-//      launch (atb.cuh), then every partial and the bias column sums
-//      reduced in a fixed order.
-// Products are wmma 16x16x16 bf16 with f32 sums, weights read from global
-// memory (L2); no TMA, wgmma or pipelining yet.
+//      fixed number of row chunks (split-K) with f32 partials (atb.cuh: TMA
+//      and wgmma, A^T by the descriptor), then every partial and the bias
+//      column sums reduced in a fixed order.
 //
 // What bounds it on an H100: at the ea-virtual shape (224,650 valid slots
 // of E = 239,168, N = 51,712, H = 512) the useful products are the data
 // and weight gradients plus the recomputed e2 and node side, 2 H^2 (7 E +
 // 23 N) over valid slots = 1.45 TFLOP (1.46 ms at 989 TFLOP/s), against
 // ~1.5 GB of compulsory traffic (0.45 ms at 3.35 TB/s): bound by
-// operations. This design also writes and reads ~1.7 GB of operands for
-// the weight passes; the TPU kernel keeps them in VMEM.
+// operations. The chains serialise product and epilogue within a block
+// (one block per SM), and the design writes and reads ~1.7 GB of operands
+// for the weight pass; the TPU kernel keeps them in VMEM.
 
 #include "atb.cuh"
 #include "ea_common.cuh"
@@ -49,23 +55,27 @@
 namespace {
 
 using ea::bf16;
-using ea::lda_of;
-using ea::ldf_of;
+using ea::BK;
+using ea::BM;
+using ea::NCONS;
 using ea::NTHREADS;
-using ea::NWARP;
+using ea::Thr;
 
-constexpr int BM = 32;      // rows per block of the node and edge passes
 using splitk::atb;
 using splitk::KSPLIT;  // row chunks of the weight passes
 constexpr int NODE_SUMS = 5;  // bias rows 3-7 from node blocks
 constexpr int EDGE_SUMS = 6;  // bias rows 0-2 and 8-10 from edge blocks
+constexpr int STAGES_E = 3;   // ring slices of the edge pass
+constexpr int STAGES = 4;     // of the node passes
+
+#define EA_CLUSTER __cluster_dims__(2, 1, 1)
+static_assert(ea::CLUSTER == 2, "EA_CLUSTER names the cluster size");
 
 struct Scratch {
   // [N, H] bf16 node operands
   bf16 *sm, *agg, *g1, *x1, *b1, *dx2c, *dzb, *dx1c, *dzg, *daggc, *dsm,
       *rde1;
   bf16* snode;  // [N, 2H]
-  float* dxt;   // [N, H]
   // [E, H] bf16 slot operands
   bf16 *e2, *dzm, *de2c, *de1, *ein, *deoc;
   bf16 *hen1, *hen2, *dz2, *dz1;  // [E, 128] (enc)
@@ -74,15 +84,21 @@ struct Scratch {
   float* part;  // weight partials (part_floats)
 };
 
+// tensor maps: A operands, the weights read MN-major (W [k, n]: the
+// recomputed forward) and K-major (suffix t: W^T from W [n, k])
+struct Maps {
+  CUtensorMap x, e1s, dzg, wp1, wg0, wg1, wb0, we1, wen1, wen2, wb1t, wb0t,
+      wg1t, wg0t, wp1t, wpet, we1t, weet, wert, wspt, wen2t, wen1t;
+};
+
 struct Params {
-  const bf16 *dzx, *dze, *e1s, *m1s, *x, *e_in;
-  const bf16 *wer, *wee, *wsp, *we1, *wpe, *wp1, *wg0, *wg1, *wb0, *wb1;
-  const bf16 *wen0, *wen1, *wen2;
+  Maps m;
+  const bf16 *dzx, *dze, *e1s, *m1s, *x, *e_in, *wen0;
   const float* bias;
   const int *recv, *rlo, *rhi, *sorder, *soff;
   const float* cnt;
   bf16 *dx, *de_win;
-  int n, e, enc, skip;
+  int n, e, skip;
   ea::Drop drop;
   Scratch s;
 };
@@ -109,7 +125,6 @@ size_t carve(unsigned char* base, int n, int e, int h, int enc, Scratch* s) {
                    &s->dzb, &s->dx1c, &s->dzg, &s->daggc, &s->dsm, &s->rde1};
   for (bf16** q : node) *q = reinterpret_cast<bf16*>(take(nh));
   s->snode = reinterpret_cast<bf16*>(take(2 * nh));
-  s->dxt = reinterpret_cast<float*>(take((size_t)n * h * 4));
   bf16** edge[] = {&s->e2, &s->dzm, &s->de2c, &s->de1};
   for (bf16** q : edge) *q = reinterpret_cast<bf16*>(take(eh));
   s->ein = s->deoc = s->hen1 = s->hen2 = s->dz2 = s->dz1 = nullptr;
@@ -128,440 +143,324 @@ size_t carve(unsigned char* base, int n, int e, int h, int enc, Scratch* s) {
   return off;
 }
 
-// dz of one element after the keep mask, in f32
-__device__ __forceinline__ float masked(const Params& p, const bf16* dz,
-                                        size_t gh, int c, uint32_t rk) {
-  const float v = __bfloat162float(dz[gh + c]);
-  return p.drop.on ? p.drop.apply(v, rk, c) : v;
-}
-
-// sf rows -> bf16 into smem (lda) and into a global [., H] operand
-template <int H>
-__device__ __forceinline__ void emit_bf16(const float* sf, bf16* sa,
-                                          bf16* g, int row0, int nvalid) {
-  constexpr int LDA = lda_of(H), LDF = ldf_of(H);
-  for (int i = threadIdx.x; i < BM * H / 2; i += NTHREADS) {
-    const int r = i / (H / 2);
-    const int c = (i % (H / 2)) * 2;
-    const float a = sf[r * LDF + c], b = sf[r * LDF + c + 1];
-    if (sa) ea::st2(sa + r * LDA + c, a, b);
-    if (g && r < nvalid) ea::st2(g + (size_t)(row0 + r) * H + c, a, b);
+// the role split: the producer warpgroup's first thread runs ``produce``,
+// the consumers ``consume``; both walk the same products in the same
+// order. Each role ends in its own cluster barrier: the roles never
+// reconverge, so that setmaxnreg holds
+template <typename P, typename C>
+__device__ __forceinline__ void roles(unsigned char* smem, int stages,
+                                      int slice, P produce, C consume) {
+  ea::Smem* sm = reinterpret_cast<ea::Smem*>(smem);
+  ea::init_barriers(sm, stages);
+  hop::Ring ring = ea::make_ring(sm, smem, stages, slice);
+  if (threadIdx.x >= NCONS) {
+    hop::reg_dealloc<ea::PROD_REGS>();
+    if (threadIdx.x == NCONS) {
+      ea::Producer pr{ring, hop::cluster_rank()};
+      produce(pr, &sm->abar);
+    }
+    __syncwarp();
+    hop::cluster_sync();
+  } else {
+    hop::reg_alloc<ea::CONS_REGS>();
+    consume(ring, &sm->abar);
+    hop::cluster_sync();
   }
 }
 
 // ---- pass 1: node side ----------------------------------------------------
 template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) bwd_node1_kernel(Params p) {
-  constexpr int LDA = lda_of(H);
-  constexpr int LDF = ldf_of(H);
-  constexpr int NQ = H / 64;
-  constexpr int RPW = BM / NWARP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* ba = reinterpret_cast<bf16*>(sf + BM * LDF);
-  bf16* bb = ba + BM * LDA;
-  bf16* bc = bb + BM * LDA;
-  float* scnt = reinterpret_cast<float*>(bc + BM * LDA);
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    bwd_node1_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int SLICE = ea::slice_bytes(H, true);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES * SLICE;
+  float* red = reinterpret_cast<float*>(tile + ea::tile_bytes(H));
+  float* scnt = red + ea::RED_WARPS * NW;
+  float* sb = scnt + BM;  // bias rows 3-6
   const Scratch& s = p.s;
   const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* sums = s.nsum + (size_t)blockIdx.x * NODE_SUMS * H;
-  if (threadIdx.x < BM) scnt[threadIdx.x] = p.cnt[row0 + threadIdx.x];
+  const int nvalid = max(0, min(BM, p.n - row0));
+  float* sums = nvalid ? s.nsum + (size_t)blockIdx.x * NODE_SUMS * H : nullptr;
+  roles(smem, STAGES, SLICE,
+        [&](ea::Producer& pr, uint64_t*) {
+          pr.b<true>(&p.m.wp1, H, 0, 0, NK);
+          pr.b<true>(&p.m.wg0, H, 0, 0, NK, &p.m.x, 0, row0);
+          pr.b<true>(&p.m.wg0, H, H, 0, NK);
+          pr.b<true>(&p.m.wg1, H, 0, 0, NK);
+          pr.b<true>(&p.m.wb0, H, 0, 0, NK);
+          pr.b<false>(&p.m.wb1t, H, 0, 0, NK);
+          pr.b<false>(&p.m.wb0t, H, 0, 0, NK);
+          pr.b<false>(&p.m.wg1t, H, 0, 0, NK);
+          pr.b<false>(&p.m.wg0t, H, 0, H, NK);
+          pr.b<false>(&p.m.wp1t, H, 0, 0, NK);
+        },
+        [&](hop::Ring& ring, uint64_t*) {
+          Thr t;
+          const uint32_t a = hop::smem_u32(tile);
+          if (threadIdx.x < BM)
+            scnt[threadIdx.x] =
+                (int)threadIdx.x < nvalid ? p.cnt[row0 + threadIdx.x] : 0.f;
+          float acc[NW / 2];
+          uint32_t g1m[(NW / 2 + 31) / 32], b1m[(NW / 2 + 31) / 32];
+          ea::stage_bias(sb, p.bias, 3, 4, H);
+          // recompute sm, agg, g1, x1, b1 (as the forward's node pass)
+          ea::run_sums<H>(tile, s.sm, H, 0, p.m1s, H, 0, p.rlo, p.rhi,
+                          nullptr, row0, nvalid);
+          hop::fence_async_smem();
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          const float* b3 = sb;
+          ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
+            const float cn = scnt[r];
+            const float2 b = *reinterpret_cast<const float2*>(b3 + c);
+            acc[i] = (acc[i] + cn * b.x) / fmaxf(cn, 1.f);
+            acc[i + 1] = (acc[i + 1] + cn * b.y) / fmaxf(cn, 1.f);
+          });
+          ea::emit<NW>(acc, tile, s.agg, H, row0, nvalid, t);
+          ea::gemm<NW, true>(acc, ring, 0, NK, false, t);
+          ea::gemm<NW, true>(acc, ring, a, NK, true, t);
+          ea::add_bias<NW>(acc, sb + 1 * H, t);
+          ea::relu<NW>(acc);
+          ea::mask_bits<NW>(acc, g1m);
+          ea::emit<NW>(acc, tile, s.g1, H, row0, nvalid, t);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          ea::add_bias<NW>(acc, sb + 2 * H, t);
+          ea::emit<NW>(acc, tile, s.x1, H, row0, nvalid, t);
+          ea::prefetch_rows(p.dzx, H * 2, row0, nvalid);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          ea::add_bias<NW>(acc, sb + 3 * H, t);
+          ea::relu<NW>(acc);
+          ea::mask_bits<NW>(acc, b1m);
+          ea::emit<NW>(acc, tile, s.b1, H, row0, nvalid, t);
 
-  // recompute sm, agg, g1, x1, b1 (as the forward's node pass)
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const int lo = p.rlo[row0 + r], hi = p.rhi[row0 + r];
-    float acc[NQ][2];
+          // dx2 = dz_x after the mask; dx2c = bf16(dx2)
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q][0] = acc[q][1] = 0.f;
-    for (int f = lo; f < hi; ++f) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float2 m = ea::ld2(p.m1s + (size_t)f * H + q * 64 + lane * 2);
-        acc[q][0] += m.x;
-        acc[q][1] += m.y;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      ea::st2(ba + r * LDA + c, acc[q][0], acc[q][1]);
-      ea::st2(s.sm + (size_t)(row0 + r) * H + c, acc[q][0], acc[q][1]);
-    }
-  }
-  __syncthreads();
-  ea::product<BM, H, false>(sf, ba, LDA, p.wp1, H, H);
-  const float* b3 = p.bias + 3 * H;
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] = (sf[r * LDF + c] + scnt[r] * b3[c]) / fmaxf(scnt[r], 1.f);
-  }
-  __syncthreads();
-  emit_bf16<H>(sf, bb, s.agg, row0, BM);  // agg -> bb
-  __syncthreads();
-  ea::product2<BM, H, false>(sf, p.x + (size_t)row0 * H, H, p.wg0, H, H, bb,
-                             LDA, p.wg0 + (size_t)H * H, H, H);
-  const float* b4 = p.bias + 4 * H;
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] = fmaxf(sf[r * LDF + c] + b4[c], 0.f);
-  }
-  __syncthreads();
-  emit_bf16<H>(sf, bc, s.g1, row0, BM);  // g1 -> bc
-  __syncthreads();
-  ea::product<BM, H, false>(sf, bc, LDA, p.wg1, H, H);
-  const float* b5 = p.bias + 5 * H;
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] += b5[c];
-  }
-  __syncthreads();
-  emit_bf16<H>(sf, ba, s.x1, row0, BM);  // x1 -> ba
-  __syncthreads();
-  ea::product<BM, H, false>(sf, ba, LDA, p.wb0, H, H);
-  const float* b6 = p.bias + 6 * H;
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] = fmaxf(sf[r * LDF + c] + b6[c], 0.f);
-  }
-  __syncthreads();
-  emit_bf16<H>(sf, bb, s.b1, row0, BM);  // b1 -> bb
-  __syncthreads();
-
-  // dx2 = dz_x after the mask; dx2c = bf16(dx2)
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(p.e + row0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      sf[r * LDF + c] = masked(p, p.dzx, gh, c, rk);
-      sf[r * LDF + c + 1] = masked(p, p.dzx, gh, c + 1, rk);
-    }
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 4 * H);  // b_b1
-  emit_bf16<H>(sf, ba, s.dx2c, row0, BM);
-  __syncthreads();
-  // dzb = bf16(where(b1 > 0, dx2c @ W_b1^T, 0))
-  ea::product<BM, H, true>(sf, ba, LDA, p.wb1, H, H);
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    if (!(__bfloat162float(bb[r * LDA + c]) > 0.f)) sf[r * LDF + c] = 0.f;
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 3 * H);  // b_b0
-  emit_bf16<H>(sf, ba, s.dzb, row0, BM);
-  __syncthreads();
-  // dx1 = dx2 + dzb @ W_b0^T; dx1c = bf16(dx1)
-  ea::product<BM, H, true>(sf, ba, LDA, p.wb0, H, H);
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(p.e + row0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      sf[r * LDF + c] = masked(p, p.dzx, gh, c, rk) + sf[r * LDF + c];
-      sf[r * LDF + c + 1] =
-          masked(p, p.dzx, gh, c + 1, rk) + sf[r * LDF + c + 1];
-    }
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 2 * H);  // b_g1
-  emit_bf16<H>(sf, ba, s.dx1c, row0, BM);
-  __syncthreads();
-  // dzg = bf16(where(g1 > 0, dx1c @ W_g1^T, 0))
-  ea::product<BM, H, true>(sf, ba, LDA, p.wg1, H, H);
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    if (!(__bfloat162float(bc[r * LDA + c]) > 0.f)) sf[r * LDF + c] = 0.f;
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 1 * H);  // b_g0
-  emit_bf16<H>(sf, ba, s.dzg, row0, BM);
-  __syncthreads();
-  // dxt = dzg @ W_g0[:H]^T (f32)
-  ea::product<BM, H, true>(sf, ba, LDA, p.wg0, H, H);
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    s.dxt[(size_t)(row0 + r) * H + c] = sf[r * LDF + c];
-  }
-  __syncthreads();
-  // dagg_d = dzg @ W_g0[H:]^T / max(cnt, 1); daggc = bf16(dagg_d)
-  ea::product<BM, H, true>(sf, ba, LDA, p.wg0 + (size_t)H * H, H, H);
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] /= fmaxf(scnt[r], 1.f);
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, scnt, sums);  // b_p1: sum of cnt * dagg_d
-  emit_bf16<H>(sf, bb, s.daggc, row0, BM);
-  __syncthreads();
-  // dsm = bf16(daggc @ W_p1^T)
-  ea::product<BM, H, true>(sf, bb, LDA, p.wp1, H, H);
-  emit_bf16<H>(sf, nullptr, s.dsm, row0, BM);
+          for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+          ea::add_dropped<NW>(acc, p.dzx, H, row0, nvalid, p.drop, p.e + row0,
+                              t);
+          ea::colsum<NW>(acc, t, red, sums ? sums + 4 * H : nullptr);  // b_b1
+          ea::emit<NW>(acc, tile, s.dx2c, H, row0, nvalid, t);
+          // dzb = bf16(where(b1 > 0, dx2c @ W_b1^T, 0))
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::apply_mask<NW>(acc, b1m);
+          ea::colsum<NW>(acc, t, red, sums ? sums + 3 * H : nullptr);  // b_b0
+          ea::emit<NW>(acc, tile, s.dzb, H, row0, nvalid, t);
+          // dx1 = dx2 + dzb @ W_b0^T; dx1c = bf16(dx1)
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::add_dropped<NW>(acc, p.dzx, H, row0, nvalid, p.drop, p.e + row0,
+                              t);
+          ea::colsum<NW>(acc, t, red, sums ? sums + 2 * H : nullptr);  // b_g1
+          ea::emit<NW>(acc, tile, s.dx1c, H, row0, nvalid, t);
+          // dzg = bf16(where(g1 > 0, dx1c @ W_g1^T, 0))
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::apply_mask<NW>(acc, g1m);
+          ea::colsum<NW>(acc, t, red, sums ? sums + 1 * H : nullptr);  // b_g0
+          ea::emit<NW>(acc, tile, s.dzg, H, row0, nvalid, t);
+          // dagg_d = dzg @ W_g0[H:]^T / max(cnt, 1); daggc = bf16(dagg_d)
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::pairs<NW>(t, [&](int i, int r, int c) {
+            const float d = fmaxf(scnt[r], 1.f);
+            acc[i] /= d;
+            acc[i + 1] /= d;
+          });
+          // b_p1: the sum of cnt * dagg_d
+          ea::colsum<NW>(acc, t, red, sums, scnt);
+          ea::emit<NW>(acc, tile, s.daggc, H, row0, nvalid, t);
+          // dsm = bf16(daggc @ W_p1^T)
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::emit<NW>(acc, tile, s.dsm, H, row0, nvalid, t);
+        });
 }
 
 // ---- pass 2: slot side ----------------------------------------------------
 template <int H, bool ENC>
-__global__ void __launch_bounds__(NTHREADS, 1) bwd_edge_kernel(Params p) {
-  constexpr int LDA = lda_of(H);
-  constexpr int LDF = ldf_of(H);
-  constexpr int NQ = H / 64;
-  constexpr int RPW = BM / NWARP;
-  constexpr int LDH = lda_of(ea::ENC_HID);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* ba = reinterpret_cast<bf16*>(sf + BM * LDF);
-  bf16* bb = ba + BM * LDA;
-  bf16* sh1 = bb + BM * LDA;
-  bf16* sh2 = sh1 + BM * LDH;
-  int* srecv = reinterpret_cast<int*>(sh2 + BM * LDH);
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    bwd_edge_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int HW = ea::ENC_HID / ea::NWG;  // the encoder's warpgroup width
+  constexpr int NKE = ea::ENC_HID / BK;
+  constexpr int C = ea::ENC_HID;
+  constexpr int SLICE = ea::slice_bytes(H, false);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES_E * SLICE;
+  unsigned char* stage = tile + ea::tile_bytes(H);  // dsm[recv]; then sums
+  float* red = reinterpret_cast<float*>(stage);
+  int* srecv = reinterpret_cast<int*>(stage + ea::tile_bytes(H));
   const Scratch& s = p.s;
   const int f0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nvalid = min(BM, p.e - f0);
-  float* sums = s.esum + (size_t)blockIdx.x * EDGE_SUMS * H;
-  if (threadIdx.x < BM)
-    srecv[threadIdx.x] = threadIdx.x < nvalid ? p.recv[f0 + threadIdx.x] : -1;
-  ea::load_rows<BM, H>(ba, p.e1s + (size_t)f0 * H, nvalid);  // e1 -> ba
-  if constexpr (ENC) {
-    // h1, h2 and e_in from the raw rows, for the weight passes and masks
-    ea::encoder_hidden<BM>(p.e_in, f0, p.e, p.wen0, p.wen1, p.bias + 8 * H,
-                           p.bias + 9 * H, sh1, sh2, sf);
-    for (int i = threadIdx.x; i < BM * ea::ENC_HID; i += NTHREADS) {
-      const int r = i / ea::ENC_HID, c = i % ea::ENC_HID;
-      if (r < nvalid) {
-        s.hen1[(size_t)(f0 + r) * ea::ENC_HID + c] = sh1[r * LDH + c];
-        s.hen2[(size_t)(f0 + r) * ea::ENC_HID + c] = sh2[r * LDH + c];
-      }
-    }
-    ea::product<BM, H, false>(sf, sh2, LDH, p.wen2, H, ea::ENC_HID);
-    const float* b10 = p.bias + 10 * H;
-    for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-      const int r = i / H, c = i % H;
-      sf[r * LDF + c] += b10[c];
-    }
-    __syncthreads();
-    emit_bf16<H>(sf, nullptr, s.ein, f0, nvalid);
-  }
-  __syncthreads();
+  const int nvalid = max(0, min(BM, p.e - f0));
+  float* sums = nvalid ? s.esum + (size_t)blockIdx.x * EDGE_SUMS * H : nullptr;
+  roles(smem, STAGES_E, SLICE,
+        [&](ea::Producer& pr, uint64_t* abar) {
+          pr.tile(tile, abar, &p.m.e1s, H, f0);
+          if constexpr (ENC) {
+            pr.b<true>(&p.m.wen1, C, 0, 0, NKE);
+            pr.b<true>(&p.m.wen2, H, 0, 0, NKE);
+          }
+          pr.b<true>(&p.m.we1, H, 0, 0, NK);
+          pr.b<false>(&p.m.wpet, H, 0, 0, NK);
+          pr.b<false>(&p.m.we1t, H, 0, 0, NK);
+          pr.b<false>(&p.m.weet, H, 0, 0, NK);
+          if constexpr (ENC) {
+            pr.b<false>(&p.m.wen2t, C, 0, 0, NK);
+            pr.b<false>(&p.m.wen1t, C, 0, 0, NKE);
+          }
+        },
+        [&](hop::Ring& ring, uint64_t* abar) {
+          Thr t;
+          const uint32_t a = hop::smem_u32(tile);
+          if (threadIdx.x < BM)
+            srecv[threadIdx.x] =
+                (int)threadIdx.x < nvalid ? p.recv[f0 + threadIdx.x] : -1;
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          float acc[NW / 2];
+          uint32_t e1m[(NW / 2 + 31) / 32];
+          uint32_t h1m[1], h2m[1];
+          float h[HW / 2];
+          if constexpr (ENC) {
+            // h1, h2 and e_in from the raw rows (the staging tile is their
+            // row tile), for the weight pass and the masks
+            ea::encoder_first<HW>(h, p.e_in, f0, nvalid, p.wen0,
+                                  p.bias + 8 * H, t);
+            ea::mask_bits<HW>(h, h1m);
+            ea::emit<HW>(h, stage, s.hen1, C, f0, nvalid, t);
+            const uint32_t st = hop::smem_u32(stage);
+            ea::prefetch_bias(p.bias + 9 * H, C);
+            ea::gemm<HW, true>(h, ring, st, NKE, false, t);
+            ea::add_bias<HW>(h, p.bias + 9 * H, t);
+            ea::relu<HW>(h);
+            ea::mask_bits<HW>(h, h2m);
+            ea::emit<HW>(h, stage, s.hen2, C, f0, nvalid, t);
+            ea::prefetch_bias(p.bias + 10 * H, H);
+            ea::gemm<NW, true>(acc, ring, st, NKE, false, t);
+            ea::add_bias<NW>(acc, p.bias + 10 * H, t);
+            ea::emit<NW>(acc, stage, s.ein, H, f0, nvalid, t);
+            hop::named_sync(ea::BAR_ALL, NCONS);  // the stage tile is read
+          }
+          ea::gather_rows<H>(stage, s.dsm, H, 0, srecv);  // dsm[recv]
+          hop::mbar_wait(abar, 0);
+          // e1's relu mask, from the tile
+          ea::pairs<NW>(t, [&](int i, int r, int c) {
+            const float2 v = ea::ld_pair(tile, r, c);
+            acc[i] = v.x;
+            acc[i + 1] = v.y;
+          });
+          ea::mask_bits<NW>(acc, e1m);
 
-  // e2 = bf16(e1 @ W_e1 + b_e1), for dW_pe
-  ea::product<BM, H, false>(sf, ba, LDA, p.we1, H, H);
-  const float* b1 = p.bias + H;
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sf[r * LDF + c] += b1[c];
-  }
-  __syncthreads();
-  emit_bf16<H>(sf, nullptr, s.e2, f0, nvalid);
-  __syncthreads();
+          // e2 = bf16(e1 @ W_e1 + b_e1), for dW_pe
+          ea::prefetch_bias(p.bias + H, H);
+          ea::prefetch_rows(p.m1s, H * 2, f0, nvalid);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          ea::add_bias<NW>(acc, p.bias + H, t);
+          ea::emit<NW>(acc, tile, s.e2, H, f0, nvalid, t);
 
-  // dzm = bf16(where(m1 > 0, dsm[recv], 0))
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const int v = srecv[r];
-    const size_t gh = (size_t)(f0 + r) * H;
+          // dzm = bf16(where(m1 > 0, dsm[recv], 0))
+          hop::cp_wait_all();
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
+            float2 m = make_float2(0.f, 0.f);
+            if (r < nvalid) m = ea::ld2(p.m1s + (size_t)(f0 + r) * H + c);
+            const float2 d = ea::ld_pair(stage, r, c);
+            acc[i] = m.x > 0.f ? d.x : 0.f;
+            acc[i + 1] = m.y > 0.f ? d.y : 0.f;
+          });
+          hop::named_sync(ea::BAR_ALL, NCONS);  // the stage tile is read
+          ea::colsum<NW>(acc, t, red, sums ? sums + 2 * H : nullptr);  // b_p0
+          ea::emit<NW>(acc, tile, s.dzm, H, f0, nvalid, t);
+
+          // de2 = dz_e (masked) + dzm @ W_pe^T; de2c = bf16(de2)
+          ea::prefetch_rows(p.dze, H * 2, f0, nvalid);
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::add_dropped<NW>(acc, p.dze, H, f0, nvalid, p.drop, f0, t);
+          ea::colsum<NW>(acc, t, red, sums ? sums + 1 * H : nullptr);  // b_e1
+          ea::emit<NW>(acc, tile, s.de2c, H, f0, nvalid, t);
+
+          // de1 = bf16(where(e1 > 0, de2c @ W_e1^T, 0))
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          ea::apply_mask<NW>(acc, e1m);
+          ea::colsum<NW>(acc, t, red, sums);  // b_e0
+          ea::emit<NW>(acc, tile, s.de1, H, f0, nvalid, t);
+
+          // deo = de1 @ W_ee^T (+ dz_e with the skip)
+          ea::gemm<NW, false>(acc, ring, a, NK, false, t);
+          if (p.skip)
+            ea::add_dropped<NW>(acc, p.dze, H, f0, nvalid, p.drop, f0, t);
+          if constexpr (!ENC) {
+            ea::emit<NW>(acc, tile, p.de_win, H, f0, nvalid, t);
+          } else {
+            // the encoder's backward: deo_c -> dz2 -> dz1
+            ea::colsum<NW>(acc, t, red, sums ? sums + 5 * H : nullptr);  // be_2
+            ea::emit<NW>(acc, tile, s.deoc, H, f0, nvalid, t);
+            // h's recompute values are dead: without this the sums'
+            // read-write operands would keep them live through the chain
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float d0 = 0.f, d1 = 0.f;
-      if (v >= 0) {
-        const float2 m = ea::ld2(p.m1s + gh + c);
-        const float2 d = ea::ld2(s.dsm + (size_t)v * H + c);
-        d0 = m.x > 0.f ? d.x : 0.f;
-        d1 = m.y > 0.f ? d.y : 0.f;
-      }
-      sf[r * LDF + c] = d0;
-      sf[r * LDF + c + 1] = d1;
-    }
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 2 * H);  // b_p0
-  emit_bf16<H>(sf, bb, s.dzm, f0, nvalid);
-  __syncthreads();
-
-  // de2 = dz_e (masked) + dzm @ W_pe^T; de2c = bf16(de2)
-  ea::product<BM, H, true>(sf, bb, LDA, p.wpe, H, H);
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    if (r >= nvalid) continue;
-    const size_t gh = (size_t)(f0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(f0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      sf[r * LDF + c] = masked(p, p.dze, gh, c, rk) + sf[r * LDF + c];
-      sf[r * LDF + c + 1] =
-          masked(p, p.dze, gh, c + 1, rk) + sf[r * LDF + c + 1];
-    }
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 1 * H);  // b_e1
-  emit_bf16<H>(sf, bb, s.de2c, f0, nvalid);
-  __syncthreads();
-
-  // de1 = bf16(where(e1 > 0, de2c @ W_e1^T, 0))
-  ea::product<BM, H, true>(sf, bb, LDA, p.we1, H, H);
-  for (int i = threadIdx.x; i < BM * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    if (!(__bfloat162float(ba[r * LDA + c]) > 0.f)) sf[r * LDF + c] = 0.f;
-  }
-  __syncthreads();
-  ea::colsum<BM>(sf, LDF, H, H, nullptr, sums);  // b_e0
-  emit_bf16<H>(sf, ba, s.de1, f0, nvalid);
-  __syncthreads();
-
-  // deo = de1 @ W_ee^T (+ dz_e with the skip)
-  ea::product<BM, H, true>(sf, ba, LDA, p.wee, H, H);
-  if (p.skip) {
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      if (r >= nvalid) continue;
-      const size_t gh = (size_t)(f0 + r) * H;
-      const uint32_t rk = p.drop.key((uint32_t)(f0 + r));
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = q * 64 + lane * 2;
-        sf[r * LDF + c] += masked(p, p.dze, gh, c, rk);
-        sf[r * LDF + c + 1] += masked(p, p.dze, gh, c + 1, rk);
-      }
-    }
-    __syncthreads();
-  }
-  if constexpr (!ENC) {
-    emit_bf16<H>(sf, nullptr, p.de_win, f0, nvalid);
-  } else {
-    // the encoder's backward: deo_c -> dz2 -> dz1
-    constexpr int LDF128 = ldf_of(ea::ENC_HID);
-    ea::colsum<BM>(sf, LDF, H, H, nullptr, sums + 5 * H);  // be_2
-    emit_bf16<H>(sf, bb, s.deoc, f0, nvalid);
-    __syncthreads();
-    ea::product<BM, ea::ENC_HID, true>(sf, bb, LDA, p.wen2, H, H);
-    for (int i = threadIdx.x; i < BM * ea::ENC_HID; i += NTHREADS) {
-      const int r = i / ea::ENC_HID, c = i % ea::ENC_HID;
-      float v = sf[r * LDF128 + c];
-      if (!(__bfloat162float(sh2[r * LDH + c]) > 0.f)) v = 0.f;
-      sf[r * LDF128 + c] = v;
-      const bf16 vb = __float2bfloat16_rn(v);
-      sh2[r * LDH + c] = vb;  // dz2 replaces h2
-      if (r < nvalid) s.dz2[(size_t)(f0 + r) * ea::ENC_HID + c] = vb;
-    }
-    __syncthreads();
-    ea::colsum<BM>(sf, LDF128, ea::ENC_HID, H, nullptr, sums + 4 * H);
-    __syncthreads();
-    ea::product<BM, ea::ENC_HID, true>(sf, sh2, LDH, p.wen1, ea::ENC_HID,
-                                       ea::ENC_HID);
-    for (int i = threadIdx.x; i < BM * ea::ENC_HID; i += NTHREADS) {
-      const int r = i / ea::ENC_HID, c = i % ea::ENC_HID;
-      float v = sf[r * LDF128 + c];
-      if (!(__bfloat162float(sh1[r * LDH + c]) > 0.f)) v = 0.f;
-      sf[r * LDF128 + c] = v;
-      if (r < nvalid)
-        s.dz1[(size_t)(f0 + r) * ea::ENC_HID + c] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-    ea::colsum<BM>(sf, LDF128, ea::ENC_HID, H, nullptr, sums + 3 * H);
-  }
+            for (int i = 0; i < HW / 2; ++i) h[i] = 0.f;
+            ea::gemm<HW, false>(h, ring, a, NK, false, t);
+            ea::apply_mask<HW>(h, h2m);
+            ea::colsum<HW>(h, t, red, sums ? sums + 4 * H : nullptr, nullptr, H);
+            ea::emit<HW>(h, tile, s.dz2, C, f0, nvalid, t);
+            ea::gemm<HW, false>(h, ring, a, NKE, false, t);
+            ea::apply_mask<HW>(h, h1m);
+            ea::colsum<HW>(h, t, red, sums ? sums + 3 * H : nullptr, nullptr, H);
+            ea::emit<HW>(h, tile, s.dz1, C, f0, nvalid, t);
+          }
+        });
 }
 
 // ---- pass 3: the receiver and sender folds into dx -------------------------
 template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) bwd_node2_kernel(Params p) {
-  constexpr int LDA = lda_of(H);
-  constexpr int LDS = lda_of(2 * H);
-  constexpr int LDF = ldf_of(H);
-  constexpr int NQ = H / 64;
-  constexpr int RPW = BM / NWARP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* ba = reinterpret_cast<bf16*>(sf + BM * LDF);
-  bf16* bs = ba + BM * LDA;
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    bwd_node2_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int SLICE = ea::slice_bytes(H, true);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES * SLICE;
   const Scratch& s = p.s;
   const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const int n = row0 + r;
-    // r_de1: the node's run of de1 rows (it is their receiver)
-    float acc[NQ][2];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q][0] = acc[q][1] = 0.f;
-    for (int f = p.rlo[n]; f < p.rhi[n]; ++f) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float2 d = ea::ld2(s.de1 + (size_t)f * H + q * 64 + lane * 2);
-        acc[q][0] += d.x;
-        acc[q][1] += d.y;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      ea::st2(ba + r * LDA + c, acc[q][0], acc[q][1]);
-      ea::st2(s.rde1 + (size_t)n * H + c, acc[q][0], acc[q][1]);
-    }
-    // s = [de1 | dzm] summed over the node's sender-sorted slots: the
-    // slab-overlap halo and the far rows in one pass
-    float sa[NQ][2], sz[NQ][2];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) sa[q][0] = sa[q][1] = sz[q][0] = sz[q][1] = 0.f;
-    for (int k = p.soff[n]; k < p.soff[n + 1]; ++k) {
-      const size_t gh = (size_t)p.sorder[k] * H;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int c = q * 64 + lane * 2;
-        const float2 d = ea::ld2(s.de1 + gh + c);
-        const float2 z = ea::ld2(s.dzm + gh + c);
-        sa[q][0] += d.x;
-        sa[q][1] += d.y;
-        sz[q][0] += z.x;
-        sz[q][1] += z.y;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      ea::st2(bs + r * LDS + c, sa[q][0], sa[q][1]);
-      ea::st2(bs + r * LDS + H + c, sz[q][0], sz[q][1]);
-      ea::st2(s.snode + (size_t)n * 2 * H + c, sa[q][0], sa[q][1]);
-      ea::st2(s.snode + (size_t)n * 2 * H + H + c, sz[q][0], sz[q][1]);
-    }
-  }
-  __syncthreads();
-  // dx = bf16(r_de1 @ W_er^T + s @ W_sp^T + dxt (+ dz_x))
-  ea::product2<BM, H, true>(sf, ba, LDA, p.wer, H, H, bs, LDS, p.wsp, 2 * H,
-                            2 * H);
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(p.e + row0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float v0 = sf[r * LDF + c] + s.dxt[gh + c];
-      float v1 = sf[r * LDF + c + 1] + s.dxt[gh + c + 1];
-      if (p.skip) {
-        v0 += masked(p, p.dzx, gh, c, rk);
-        v1 += masked(p, p.dzx, gh, c + 1, rk);
-      }
-      ea::st2(p.dx + gh + c, v0, v1);
-    }
-  }
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  const int nvalid = max(0, min(BM, p.n - row0));
+  roles(smem, STAGES, SLICE,
+        [&](ea::Producer& pr, uint64_t*) {
+          pr.b<false>(&p.m.wg0t, H, 0, 0, NK, &p.m.dzg, 0, row0);
+          pr.b<false>(&p.m.wert, H, 0, 0, NK);
+          pr.b<false>(&p.m.wspt, H, 0, 0, NK);
+          pr.b<false>(&p.m.wspt, H, H, 0, NK);
+        },
+        [&](hop::Ring& ring, uint64_t*) {
+          Thr t;
+          const uint32_t a = hop::smem_u32(tile);
+          float acc[NW / 2];
+          if (p.skip) ea::prefetch_rows(p.dzx, H * 2, row0, nvalid);
+          // dzg @ W_g0[:H]^T (dzg streamed from node pass 1's operand)
+          ea::gemm<NW, false>(acc, ring, 0, NK, false, t);
+          // r_de1: the node's run of de1 rows (it is their receiver)
+          ea::run_sums<H>(tile, s.rde1, H, 0, s.de1, H, 0, p.rlo, p.rhi,
+                          nullptr, row0, nvalid);
+          hop::fence_async_smem();
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::gemm<NW, false>(acc, ring, a, NK, true, t);
+          // s = [de1 | dzm] summed over the node's sender-sorted slots: the
+          // slab-overlap halo and the far rows in one pass, half by half
+          for (int part = 0; part < 2; ++part) {
+            hop::named_sync(ea::BAR_ALL, NCONS);
+            ea::run_sums<H>(tile, s.snode, 2 * H, part * H,
+                            part ? s.dzm : s.de1, H, 0, p.soff, p.soff + 1,
+                            p.sorder, row0, nvalid);
+            hop::fence_async_smem();
+            hop::named_sync(ea::BAR_ALL, NCONS);
+            ea::gemm<NW, false>(acc, ring, a, NK, true, t);
+          }
+          // dx = bf16(dzg @ W_g0[:H]^T + r_de1 @ W_er^T + s @ W_sp^T (+
+          // dz_x)), one chain of sums
+          if (p.skip)
+            ea::add_dropped<NW>(acc, p.dzx, H, row0, nvalid, p.drop,
+                                p.e + row0, t);
+          ea::emit<NW>(acc, tile, p.dx, H, row0, nvalid, t);
+        });
 }
 
 struct Grads {
@@ -573,21 +472,24 @@ template <int H, bool ENC>
 cudaError_t launch(const Params& p, const Grads& g, cudaStream_t st) {
   cudaError_t err;
   const Scratch& s = p.s;
-  const int nb = p.n / BM, eb = (p.e + BM - 1) / BM;
-  const int smem1 = BM * ldf_of(H) * 4 + 3 * BM * lda_of(H) * 2 + BM * 4;
-  if ((err = set_smem(bwd_node1_kernel<H>, smem1)) != cudaSuccess)
+  const int nb = ea::grid_blocks(p.n), eb = ea::grid_blocks(p.e);
+  const int smem1 = ea::smem_bytes(STAGES, ea::slice_bytes(H, true),
+                                   ea::tile_bytes(H) +
+                                       ea::RED_WARPS * (H / ea::NWG) * 4 +
+                                       BM * 4 + 4 * H * 4);
+  if ((err = ea::set_smem(bwd_node1_kernel<H>, smem1)) != cudaSuccess)
     return err;
   bwd_node1_kernel<H><<<nb, NTHREADS, smem1, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int smem2 = BM * ldf_of(H) * 4 + 2 * BM * lda_of(H) * 2 +
-                    2 * BM * lda_of(ea::ENC_HID) * 2 + BM * 4;
-  if ((err = set_smem(bwd_edge_kernel<H, ENC>, smem2)) != cudaSuccess)
+  const int smem2 = ea::smem_bytes(STAGES_E, ea::slice_bytes(H, false),
+                                   2 * ea::tile_bytes(H) + BM * 4);
+  if ((err = ea::set_smem(bwd_edge_kernel<H, ENC>, smem2)) != cudaSuccess)
     return err;
   bwd_edge_kernel<H, ENC><<<eb, NTHREADS, smem2, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int smem3 =
-      BM * ldf_of(H) * 4 + BM * lda_of(H) * 2 + BM * lda_of(2 * H) * 2;
-  if ((err = set_smem(bwd_node2_kernel<H>, smem3)) != cudaSuccess)
+  const int smem3 = ea::smem_bytes(STAGES, ea::slice_bytes(H, true),
+                                   ea::tile_bytes(H));
+  if ((err = ea::set_smem(bwd_node2_kernel<H>, smem3)) != cudaSuccess)
     return err;
   bwd_node2_kernel<H><<<nb, NTHREADS, smem3, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -615,12 +517,43 @@ cudaError_t launch(const Params& p, const Grads& g, cudaStream_t st) {
   if (jobs.part_floats > part_floats(H, ENC)) return cudaErrorInvalidValue;
   if ((err = atb(jobs, s.part, st)) != cudaSuccess) return err;
   // bias rows: node slots 0-4 are rows 3-7; slot slots 0-5 rows 0-2, 8-10
-  if ((err = splitk::bias_reduce(s.nsum, nb, NODE_SUMS, NODE_SUMS,
+  if ((err = splitk::bias_reduce(s.nsum, p.n / BM, NODE_SUMS, NODE_SUMS,
                                  {{3, 4, 5, 6, 7}}, H, g.bias, st)) !=
       cudaSuccess)
     return err;
-  return splitk::bias_reduce(s.esum, eb, EDGE_SUMS, ENC ? EDGE_SUMS : 3,
-                             {{0, 1, 2, 8, 9, 10}}, H, g.bias, st);
+  return splitk::bias_reduce(s.esum, (p.e + BM - 1) / BM, EDGE_SUMS,
+                             ENC ? EDGE_SUMS : 3, {{0, 1, 2, 8, 9, 10}}, H,
+                             g.bias, st);
+}
+
+bool make_maps(Maps* m, const Params& p, const void* const* w, int h,
+               int enc) {
+  // w: wer, wee, wsp, we1, wpe, wp1, wg0, wg1, wb0, wb1, wen1, wen2
+  const int c = ea::ENC_HID;
+  bool ok = ea::map_a(&m->x, p.x, p.n, h, h) &&
+            ea::map_a(&m->e1s, p.e1s, p.e, h, h) &&
+            ea::map_a(&m->dzg, p.s.dzg, p.n, h, h) &&
+            ea::map_mn(&m->wp1, w[5], h, h) &&
+            ea::map_mn(&m->wg0, w[6], 2 * h, h) &&
+            ea::map_mn(&m->wg1, w[7], h, h) &&
+            ea::map_mn(&m->wb0, w[8], h, h) &&
+            ea::map_mn(&m->we1, w[3], h, h) &&
+            ea::map_k(&m->wb1t, w[9], h, h, h) &&
+            ea::map_k(&m->wb0t, w[8], h, h, h) &&
+            ea::map_k(&m->wg1t, w[7], h, h, h) &&
+            ea::map_k(&m->wg0t, w[6], 2 * h, h, h) &&
+            ea::map_k(&m->wp1t, w[5], h, h, h) &&
+            ea::map_k(&m->wpet, w[4], h, h, h) &&
+            ea::map_k(&m->we1t, w[3], h, h, h) &&
+            ea::map_k(&m->weet, w[1], h, h, h) &&
+            ea::map_k(&m->wert, w[0], h, h, h) &&
+            ea::map_k(&m->wspt, w[2], h, 2 * h, h);
+  if (enc)
+    ok = ok && ea::map_mn(&m->wen1, w[10], c, c) &&
+         ea::map_mn(&m->wen2, w[11], c, h) &&
+         ea::map_k(&m->wen2t, w[11], c, h, c) &&
+         ea::map_k(&m->wen1t, w[10], c, c, c);
+  return ok;
 }
 
 }  // namespace
@@ -651,19 +584,7 @@ extern "C" int ea_block_bwd(
   p.m1s = static_cast<const bf16*>(m1s);
   p.x = static_cast<const bf16*>(x);
   p.e_in = static_cast<const bf16*>(e_in);
-  p.wer = static_cast<const bf16*>(wer);
-  p.wee = static_cast<const bf16*>(wee);
-  p.wsp = static_cast<const bf16*>(wsp);
-  p.we1 = static_cast<const bf16*>(we1);
-  p.wpe = static_cast<const bf16*>(wpe);
-  p.wp1 = static_cast<const bf16*>(wp1);
-  p.wg0 = static_cast<const bf16*>(wg0);
-  p.wg1 = static_cast<const bf16*>(wg1);
-  p.wb0 = static_cast<const bf16*>(wb0);
-  p.wb1 = static_cast<const bf16*>(wb1);
   p.wen0 = static_cast<const bf16*>(wen0);
-  p.wen1 = static_cast<const bf16*>(wen1);
-  p.wen2 = static_cast<const bf16*>(wen2);
   p.bias = static_cast<const float*>(bias);
   p.recv = static_cast<const int*>(recv);
   p.rlo = static_cast<const int*>(rlo);
@@ -675,7 +596,6 @@ extern "C" int ea_block_bwd(
   p.de_win = static_cast<bf16*>(de_win);
   p.n = n;
   p.e = e;
-  p.enc = enc;
   p.skip = skip;
   p.drop = {dropout, thr, s0, s1, scale};
   carve(static_cast<unsigned char*>(scratch), n, e, h, enc, &p.s);
@@ -687,6 +607,9 @@ extern "C" int ea_block_bwd(
              static_cast<float*>(dwen0), static_cast<float*>(dwen1),
              static_cast<float*>(dwen2), static_cast<float*>(dbias)};
   if (n % BM != 0) return (int)cudaErrorInvalidValue;
+  const void* w[] = {wer, wee, wsp, we1, wpe, wp1, wg0, wg1, wb0, wb1,
+                     wen1, wen2};
+  if (!make_maps(&p.m, p, w, h, enc)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (h * 2 + (enc ? 1 : 0)) {

@@ -11,344 +11,401 @@
 // rows' projections to find each slot's sender, a [W, tile] one for its
 // receiver, and the transposed receiver selection for the scatter-mean.
 // Here the windows are flattened to E slots and three passes run on one
-// stream:
-//   1. projection pass, one block per 64 nodes and H output columns:
-//      p = bf16(x @ [W_sp | W_er]) -> [N, 3H] scratch, once per node (the
-//      TPU projects every slab row, and adjacent slabs overlap by width);
-//   2. edge pass, one block per 64 slots: the slot's sender and receiver
-//      projections are row gathers of p by global id (the far table and
-//      the slab are one id space; pads gather nothing), and e1 -> e2 -> m1
-//      chain in shared memory (a 64-row bf16 tile of H = 512 is 64 KB);
-//      writes ze (skip and dropout applied), m1 and, with save_res, e1; in
-//      encoder mode the 3-layer edge encoder runs first from the raw
-//      [64, 8] rows, so the encoded window never reaches device memory;
-//   3. node pass, one block per 32 nodes: sm sums each node's contiguous
-//      run of m1 rows (slots are receiver-sorted), then agg, gamma, beta,
-//      skip and dropout; x1f stays in shared memory in f32 for x2.
-// Products are wmma 16x16x16 bf16 with f32 sums from shared or global
-// memory; weights are read from global memory (L2). No TMA, wgmma or
-// pipelining yet.
+// stream, each a chain of products on the engine of ea_common.cuh (64-row
+// blocks in clusters of two, weights through a TMA ring, wgmma):
+//   1. projection pass: p = bf16(x @ [W_sp | W_er]) -> [N, 3H] scratch, once
+//      per node (the TPU projects every slab row; adjacent slabs overlap),
+//      x loaded once into the row tile by TMA;
+//   2. edge pass, 64 slots a block: e_in comes into the row tile by TMA (in
+//      encoder mode the 3-layer edge encoder makes it in place from the raw
+//      [64, 8] rows: the first layer as f32 FMAs, the others on the engine),
+//      p_s[send] rows by cp.async into a staging tile while e_in @ W_ee
+//      runs; e1 -> e2 -> m1 chain in the row tile. Receivers repeat within
+//      a block (slots are receiver-sorted), so p_r[recv] is read in the
+//      epilogue from L2.
+//      Writes ze (skip and dropout applied; through the staging tile, after
+//      which p_p[send] is staged during the m1 product), m1 and, with
+//      save_res, e1, each from a tile in coalesced 16-byte rows;
+//   3. node pass, 64 nodes a block: sm sums each node's contiguous run of
+//      m1 rows into the row tile, then agg, g1 = [x | agg] @ W_g0 (x
+//      streamed beside the weight's first half), x1, b1 and zx; x1f, needed
+//      in f32 by x2, waits in a per-thread scratch between its two uses;
+//      the pass's five bias rows wait in shared memory.
 //
 // What bounds it on an H100: at the ea-virtual shape (224,650 valid slots
 // of E = 239,168, N = 51,712, H = 512) the useful products are 2 H^2 (3 E
 // + 9 N) over valid slots = 597 GFLOP (0.60 ms at 989 TFLOP/s) against
 // ~0.5 GB of compulsory traffic (0.15 ms at 3.35 TB/s): bound by
-// operations. This design also writes
-// and reads p (159 MB) and, when serving, m1 (245 MB).
+// operations. Each pass now waits on its epilogues (the chain serialises
+// product and epilogue within a block, one block per SM) and on the L2
+// gathers; this design also writes and reads p (159 MB) and, when serving,
+// m1 (245 MB).
 
 #include "ea_common.cuh"
 
 namespace {
 
 using ea::bf16;
-using ea::lda_of;
-using ea::ldf_of;
+using ea::BK;
+using ea::BM;
+using ea::NCONS;
 using ea::NTHREADS;
-using ea::NWARP;
+using ea::Thr;
+
+struct Maps {
+  CUtensorMap x, e_in, wsp, wer, wee, we1, wpe, wp1, wg0, wg1, wb0, wb1, wen1,
+      wen2;
+};
 
 struct Params {
+  Maps m;
   const bf16* x;      // [N, H]
   const bf16* e_in;   // [E, H], or the raw [E, 8] window (enc)
-  const bf16 *wer, *wee, *wsp, *we1, *wpe, *wp1, *wg0, *wg1, *wb0, *wb1;
-  const bf16 *wen0, *wen1, *wen2;
+  const bf16* wen0;   // [8, 128]
   const float* bias;  // [8 | 11, H]
   const int *send, *recv, *rlo, *rhi;
   const float* cnt;   // [N]
   bf16* proj;         // [N, 3H] scratch
+  float* x1f;         // per-thread x1f scratch of the node pass
   bf16 *zx, *ze, *e1s, *m1s;
-  int n, e, enc, skip, save_res;
+  int n, e, skip, save_res;
   ea::Drop drop;
 };
 
-constexpr int BM_P = 64;  // rows per projection block
-constexpr int BM_E = 64;  // slots per edge block
-constexpr int BM_N = 32;  // nodes per node block
+constexpr int STAGES_E = 3;  // ring slices of the edge pass (H = 512: 32 KB)
+constexpr int STAGES = 4;    // of the other passes
 
-// the encoder's two [BM_E, 128] hidden tiles fit in the e_in tile's space
-__host__ __device__ constexpr bool enc_overlay(int h) {
-  return 2 * lda_of(ea::ENC_HID) <= lda_of(h);
+#define EA_CLUSTER __cluster_dims__(2, 1, 1)
+static_assert(ea::CLUSTER == 2, "EA_CLUSTER names the cluster size");
+
+// the role split: the producer warpgroup's first thread runs ``produce``,
+// the consumers ``consume``; both walk the same products in the same
+// order. Each role ends in its own cluster barrier: the roles never
+// reconverge, so that setmaxnreg holds
+template <typename P, typename C>
+__device__ __forceinline__ void roles(unsigned char* smem, int stages,
+                                      int slice, P produce, C consume) {
+  ea::Smem* sm = reinterpret_cast<ea::Smem*>(smem);
+  ea::init_barriers(sm, stages);
+  hop::Ring ring = ea::make_ring(sm, smem, stages, slice);
+  if (threadIdx.x >= NCONS) {
+    hop::reg_dealloc<ea::PROD_REGS>();
+    if (threadIdx.x == NCONS) {
+      ea::Producer pr{ring, hop::cluster_rank()};
+      produce(pr, &sm->abar);
+    }
+    __syncwarp();
+    hop::cluster_sync();
+  } else {
+    hop::reg_alloc<ea::CONS_REGS>();
+    consume(ring, &sm->abar);
+    hop::cluster_sync();
+  }
+}
+
+// ---- the engine alone: out = A @ W or A @ W^T, f32 -------------------------
+// For the engine test (tests/test_torch_port_cuda.py): K <= 512 takes A
+// whole into the row tile; K = 1024 streams A's first half beside the
+// weight and takes the second half into the tile, as [x | agg] @ W_g0 does.
+struct TestParams {
+  CUtensorMap a, w;
+  float* out;
+  int m, k;
+};
+
+template <int NW, bool MN>
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    engine_test_kernel(const __grid_constant__ TestParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  constexpr int SLICE = ea::slice_bytes(ea::NWG * NW, true);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES * SLICE;
+  const int row0 = blockIdx.x * BM;
+  const int split = p.k > 512 ? p.k / 2 : 0;  // streamed columns
+  roles(smem, STAGES, SLICE,
+        [&](ea::Producer& pr, uint64_t* abar) {
+          pr.tile(tile, abar, &p.a, p.k - split, row0, split);
+          if (split) pr.b<MN>(&p.w, ea::NWG * NW, 0, 0, split / BK, &p.a, 0, row0);
+          pr.b<MN>(&p.w, ea::NWG * NW, split, 0, (p.k - split) / BK);
+        },
+        [&](hop::Ring& ring, uint64_t* abar) {
+          Thr t;
+          float acc[NW / 2];
+          hop::mbar_wait(abar, 0);
+          if (split) ea::gemm<NW, MN>(acc, ring, 0, split / BK, false, t);
+          ea::gemm<NW, MN>(acc, ring, hop::smem_u32(tile), (p.k - split) / BK,
+                           split > 0, t);
+          ea::pairs<NW>(t, [&](int i, int r, int c) {
+            if (row0 + r < p.m)
+              *reinterpret_cast<float2*>(p.out + (size_t)(row0 + r) * ea::NWG * NW +
+                                         c) = make_float2(acc[i], acc[i + 1]);
+          });
+        });
 }
 
 // ---- pass 1: p = bf16(x @ [W_sp | W_er]) --------------------------------
 template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) fwd_proj_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  const int row0 = blockIdx.x * BM_P;
-  const int part = blockIdx.y;  // 0, 1: halves of W_sp; 2: W_er
-  const bf16* b = part < 2 ? p.wsp + part * H : p.wer;
-  const int ldb = part < 2 ? 2 * H : H;
-  ea::product<BM_P, H, false>(sf, p.x + (size_t)row0 * H, H, b, ldb, H);
-  constexpr int LDF = ldf_of(H);
-  for (int i = threadIdx.x; i < BM_P * H / 2; i += NTHREADS) {
-    const int r = i / (H / 2);
-    const int c = (i % (H / 2)) * 2;
-    ea::st2(p.proj + (size_t)(row0 + r) * 3 * H + part * H + c,
-            sf[r * LDF + c], sf[r * LDF + c + 1]);
-  }
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    fwd_proj_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int SLICE = ea::slice_bytes(H, false);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES * SLICE;
+  const int row0 = blockIdx.x * BM;
+  const int nvalid = max(0, min(BM, p.n - row0));
+  roles(smem, STAGES, SLICE,
+        [&](ea::Producer& pr, uint64_t* abar) {
+          pr.tile(tile, abar, &p.m.x, H, row0);
+          pr.b<true>(&p.m.wsp, H, 0, 0, NK);
+          pr.b<true>(&p.m.wsp, H, 0, H, NK);
+          pr.b<true>(&p.m.wer, H, 0, 0, NK);
+        },
+        [&](hop::Ring& ring, uint64_t* abar) {
+          Thr t;
+          float acc[NW / 2];
+          hop::mbar_wait(abar, 0);
+          for (int part = 0; part < 3; ++part) {
+            ea::gemm<NW, true>(acc, ring, hop::smem_u32(tile), NK, false, t);
+            ea::to_global<NW>(acc, p.proj, 3 * H, part * H, row0, nvalid, t);
+          }
+        });
 }
 
 // ---- pass 2: the edge chain ---------------------------------------------
 template <int H, bool ENC>
-__global__ void __launch_bounds__(NTHREADS, 1) fwd_edge_kernel(Params p) {
-  constexpr int LDA = lda_of(H);
-  constexpr int LDF = ldf_of(H);
-  constexpr int NQ = H / 64;
-  constexpr int RPW = BM_E / NWARP;
-  constexpr int LDH = lda_of(ea::ENC_HID);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* sa = reinterpret_cast<bf16*>(smem + BM_E * LDF * 4);
-  // encoder mode: h1 and h2 overlay sa when they fit (H = 512), else they
-  // follow it
-  bf16* sh1 = enc_overlay(H) ? sa : sa + BM_E * LDA;
-  bf16* sh2 = sh1 + BM_E * LDH;
-  int* ssend = reinterpret_cast<int*>(
-      smem + BM_E * LDF * 4 + BM_E * LDA * 2 +
-      (ENC && !enc_overlay(H) ? 2 * BM_E * LDH * 2 : 0));
-  int* srecv = ssend + BM_E;
-  const int f0 = blockIdx.x * BM_E;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nvalid = min(BM_E, p.e - f0);
-  if (threadIdx.x < BM_E) {
-    const bool ok = threadIdx.x < nvalid;
-    ssend[threadIdx.x] = ok ? p.send[f0 + threadIdx.x] : -1;
-    srecv[threadIdx.x] = ok ? p.recv[f0 + threadIdx.x] : -1;
-  }
-  // e_in -> sa
-  if constexpr (ENC) {
-    ea::encoder_hidden<BM_E>(p.e_in, f0, p.e, p.wen0, p.wen1, p.bias + 8 * H,
-                             p.bias + 9 * H, sh1, sh2, sf);
-    ea::product<BM_E, H, false>(sf, sh2, LDH, p.wen2, H, ea::ENC_HID);
-    const float* b10 = p.bias + 10 * H;
-    for (int i = threadIdx.x; i < BM_E * H / 2; i += NTHREADS) {
-      const int r = i / (H / 2);
-      const int c = (i % (H / 2)) * 2;
-      ea::st2(sa + r * LDA + c, sf[r * LDF + c] + b10[c],
-              sf[r * LDF + c + 1] + b10[c + 1]);
-    }
-  } else {
-    ea::load_rows<BM_E, H>(sa, p.e_in + (size_t)f0 * H, nvalid);
-  }
-  __syncthreads();
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    fwd_edge_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int HW = ea::ENC_HID / ea::NWG;  // the encoder's warpgroup width
+  constexpr int SLICE = ea::slice_bytes(H, false);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES_E * SLICE;
+  unsigned char* stage = tile + ea::tile_bytes(H);  // gathered rows
+  int* ssend = reinterpret_cast<int*>(stage + ea::tile_bytes(H));
+  int* srecv = ssend + BM;
+  const int f0 = blockIdx.x * BM;
+  const int nvalid = max(0, min(BM, p.e - f0));
+  roles(smem, STAGES_E, SLICE,
+        [&](ea::Producer& pr, uint64_t* abar) {
+          if constexpr (ENC) {
+            pr.b<true>(&p.m.wen1, ea::ENC_HID, 0, 0, ea::ENC_HID / BK);
+            pr.b<true>(&p.m.wen2, H, 0, 0, ea::ENC_HID / BK);
+          } else {
+            pr.tile(tile, abar, &p.m.e_in, H, f0);
+          }
+          pr.b<true>(&p.m.wee, H, 0, 0, NK);
+          pr.b<true>(&p.m.we1, H, 0, 0, NK);
+          pr.b<true>(&p.m.wpe, H, 0, 0, NK);
+        },
+        [&](hop::Ring& ring, uint64_t* abar) {
+          Thr t;
+          const uint32_t a = hop::smem_u32(tile);
+          if (threadIdx.x < BM) {
+            const bool ok = (int)threadIdx.x < nvalid;
+            ssend[threadIdx.x] = ok ? p.send[f0 + threadIdx.x] : -1;
+            srecv[threadIdx.x] = ok ? p.recv[f0 + threadIdx.x] : -1;
+          }
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::gather_rows<H>(stage, p.proj, 3 * H, 0, ssend);  // p_s[send]
+          float acc[NW / 2];
+          if constexpr (ENC) {
+            // h1 = bf16(relu(raw @ wen0 + b8)), f32 FMAs in k order
+            float h[HW / 2];
+            ea::encoder_first<HW>(h, p.e_in, f0, nvalid, p.wen0,
+                                  p.bias + 8 * H, t);
+            ea::to_tile<HW>(h, tile, t);
+            // h2 = bf16(relu(h1 @ wen1 + b9))
+            ea::prefetch_bias(p.bias + 9 * H, ea::ENC_HID);
+            ea::gemm<HW, true>(h, ring, a, ea::ENC_HID / BK, false, t);
+            ea::add_bias<HW>(h, p.bias + 9 * H, t);
+            ea::relu<HW>(h);
+            ea::to_tile<HW>(h, tile, t);
+            // e_in = bf16(h2 @ wen2 + b10)
+            ea::prefetch_bias(p.bias + 10 * H, H);
+            ea::gemm<NW, true>(acc, ring, a, ea::ENC_HID / BK, false, t);
+            ea::add_bias<NW>(acc, p.bias + 10 * H, t);
+            ea::to_tile<NW>(acc, tile, t);
+          } else {
+            hop::mbar_wait(abar, 0);
+          }
 
-  // e1 = bf16(relu(e_in @ W_ee + p_r[recv] + p_s[send] + b_e0))
-  ea::product<BM_E, H, false>(sf, sa, LDA, p.wee, H, H);
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const int s = ssend[r];
-    const int v = srecv[r];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float z0 = sf[r * LDF + c], z1 = sf[r * LDF + c + 1];
-      if (v >= 0) {
-        const float2 pr = ea::ld2(p.proj + (size_t)v * 3 * H + 2 * H + c);
-        z0 += pr.x;
-        z1 += pr.y;
-      }
-      if (s >= 0) {
-        const float2 ps = ea::ld2(p.proj + (size_t)s * 3 * H + c);
-        z0 += ps.x;
-        z1 += ps.y;
-      }
-      z0 = fmaxf(z0 + p.bias[c], 0.f);
-      z1 = fmaxf(z1 + p.bias[c + 1], 0.f);
-      ea::st2(sa + r * LDA + c, z0, z1);
-      if (p.save_res && r < nvalid)
-        ea::st2(p.e1s + (size_t)(f0 + r) * H + c, z0, z1);
-    }
-  }
-  __syncthreads();
+          // e1 = bf16(relu(e_in @ W_ee + p_r[recv] + p_s[send] + b_e0))
+          ea::prefetch_bias(p.bias, H);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          hop::cp_wait_all();
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
+            const int v = srecv[r];
+            if (v >= 0) {
+              const float2 pr = ea::ld2(p.proj + (size_t)v * 3 * H + 2 * H + c);
+              acc[i] += pr.x;
+              acc[i + 1] += pr.y;
+            }
+            const float2 ps = ea::ld_pair(stage, r, c);
+            acc[i] += ps.x;
+            acc[i + 1] += ps.y;
+          });
+          ea::add_bias<NW>(acc, p.bias, t);
+          ea::relu<NW>(acc);
+          ea::to_tile<NW>(acc, tile, t);
+          if (p.save_res) ea::flush<H>(tile, p.e1s, H, 0, f0, nvalid);
 
-  // e2f = e1 @ W_e1 + b_e1; ze = dropout(e2f (+ e_in)); e2 = bf16(e2f)
-  ea::product<BM_E, H, false>(sf, sa, LDA, p.we1, H, H);
-  const float* b1 = p.bias + H;
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const bool ok = r < nvalid;
-    const size_t gh = (size_t)(f0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(f0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const float a0 = sf[r * LDF + c] + b1[c];
-      const float a1 = sf[r * LDF + c + 1] + b1[c + 1];
-      ea::st2(sa + r * LDA + c, a0, a1);
-      if (!ok) continue;
-      float o0 = a0, o1 = a1;
-      if (p.skip) {
-        const float2 ei = ea::ld2(p.e_in + gh + c);
-        o0 += ei.x;
-        o1 += ei.y;
-      }
-      if (p.drop.on) {
-        o0 = p.drop.apply(o0, rk, c);
-        o1 = p.drop.apply(o1, rk, c + 1);
-      }
-      ea::st2(p.ze + gh + c, o0, o1);
-    }
-  }
-  __syncthreads();
+          // e2f = e1 @ W_e1 + b_e1; ze = dropout(e2f (+ e_in)); e2 = bf16(e2f)
+          ea::prefetch_bias(p.bias + H, H);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          ea::add_bias<NW>(acc, p.bias + H, t);
+          ea::to_tile<NW>(acc, tile, t);
+          if (p.skip) ea::add_pairs<NW>(acc, p.e_in, H, f0, nvalid, t);
+          ea::dropout<NW>(acc, p.drop, f0, t);
+          ea::emit<NW>(acc, stage, p.ze, H, f0, nvalid, t);  // via the stage
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::gather_rows<H>(stage, p.proj, 3 * H, H, ssend);  // p_p[send]
 
-  // m1 = bf16(relu(e2 @ W_pe + p_p[send] + b_p0))
-  ea::product<BM_E, H, false>(sf, sa, LDA, p.wpe, H, H);
-  const float* b2 = p.bias + 2 * H;
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    if (r >= nvalid) continue;
-    const int s = ssend[r];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float z0 = sf[r * LDF + c], z1 = sf[r * LDF + c + 1];
-      if (s >= 0) {
-        const float2 ps = ea::ld2(p.proj + (size_t)s * 3 * H + H + c);
-        z0 += ps.x;
-        z1 += ps.y;
-      }
-      ea::st2(p.m1s + (size_t)(f0 + r) * H + c, fmaxf(z0 + b2[c], 0.f),
-              fmaxf(z1 + b2[c + 1], 0.f));
-    }
-  }
+          // m1 = bf16(relu(e2 @ W_pe + p_p[send] + b_p0))
+          ea::prefetch_bias(p.bias + 2 * H, H);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          hop::cp_wait_all();
+          hop::named_sync(ea::BAR_ALL, NCONS);
+          ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
+            const float2 pp = ea::ld_pair(stage, r, c);
+            acc[i] += pp.x;
+            acc[i + 1] += pp.y;
+          });
+          ea::add_bias<NW>(acc, p.bias + 2 * H, t);
+          ea::relu<NW>(acc);
+          ea::emit<NW>(acc, tile, p.m1s, H, f0, nvalid, t);
+        });
 }
 
 // ---- pass 3: the node chain ---------------------------------------------
 template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) fwd_node_kernel(Params p) {
-  constexpr int LDA = lda_of(H);
-  constexpr int LDF = ldf_of(H);
-  constexpr int NQ = H / 64;
-  constexpr int RPW = BM_N / NWARP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  float* sx1 = sf + BM_N * LDF;
-  bf16* sa = reinterpret_cast<bf16*>(sx1 + BM_N * LDF);
-  const int row0 = blockIdx.x * BM_N;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+__global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
+    fwd_node_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / ea::NWG, NK = H / BK;
+  constexpr int SLICE = ea::slice_bytes(H, true);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ea::align_smem(smem_raw);
+  unsigned char* tile = smem + ea::ring_offset() + STAGES * SLICE;
+  float* sb = reinterpret_cast<float*>(tile + ea::tile_bytes(H));  // rows 3-7
+  const int row0 = blockIdx.x * BM;
+  const int nvalid = max(0, min(BM, p.n - row0));
+  roles(smem, STAGES, SLICE,
+        [&](ea::Producer& pr, uint64_t*) {
+          pr.b<true>(&p.m.wp1, H, 0, 0, NK);
+          pr.b<true>(&p.m.wg0, H, 0, 0, NK, &p.m.x, 0, row0);
+          pr.b<true>(&p.m.wg0, H, H, 0, NK);
+          pr.b<true>(&p.m.wg1, H, 0, 0, NK);
+          pr.b<true>(&p.m.wb0, H, 0, 0, NK);
+          pr.b<true>(&p.m.wb1, H, 0, 0, NK);
+        },
+        [&](hop::Ring& ring, uint64_t*) {
+          Thr t;
+          const uint32_t a = hop::smem_u32(tile);
+          float acc[NW / 2];
+          ea::stage_bias(sb, p.bias, 3, 5, H);
+          // sm = bf16(sum of the node's m1 rows, in slot order)
+          ea::run_sums<H>(tile, nullptr, 0, 0, p.m1s, H, 0, p.rlo, p.rhi,
+                          nullptr, row0, nvalid);
+          hop::fence_async_smem();
+          hop::named_sync(ea::BAR_ALL, NCONS);
 
-  // sm = bf16(sum of the node's m1 rows, in slot order)
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const int lo = p.rlo[row0 + r], hi = p.rhi[row0 + r];
-    float acc[NQ][2];
+          // agg = bf16((sm @ W_p1 + cnt * b_p1) / max(cnt, 1))
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          const float* b3 = sb;
+          const float cnt[2] = {
+              t.r0 < nvalid ? ea::ldf(p.cnt + row0 + t.r0) : 0.f,
+              t.r0 + 8 < nvalid ? ea::ldf(p.cnt + row0 + t.r0 + 8) : 0.f};
+          ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
+            const float cn = cnt[(i / 2) % 2];
+            const float2 b = *reinterpret_cast<const float2*>(b3 + c);
+            acc[i] = (acc[i] + cn * b.x) / fmaxf(cn, 1.f);
+            acc[i + 1] = (acc[i + 1] + cn * b.y) / fmaxf(cn, 1.f);
+          });
+          ea::to_tile<NW>(acc, tile, t);
+
+          // g1 = bf16(relu(x @ W_g0[:H] + agg @ W_g0[H:] + b_g0))
+          ea::gemm<NW, true>(acc, ring, 0, NK, false, t);
+          ea::gemm<NW, true>(acc, ring, a, NK, true, t);
+          ea::add_bias<NW>(acc, sb + 1 * H, t);
+          ea::relu<NW>(acc);
+          ea::to_tile<NW>(acc, tile, t);
+
+          // x1f = g1 @ W_g1 + b_g1 (kept in f32), x1 = bf16(x1f)
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          float4* spill = reinterpret_cast<float4*>(p.x1f) +
+                          (size_t)blockIdx.x * (NW / 8) * NCONS + threadIdx.x;
+          ea::add_bias<NW>(acc, sb + 2 * H, t);
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q][0] = acc[q][1] = 0.f;
-    for (int f = lo; f < hi; ++f) {
+          for (int q = 0; q < NW / 8; ++q)
+            spill[q * NCONS] = make_float4(acc[4 * q], acc[4 * q + 1],
+                                           acc[4 * q + 2], acc[4 * q + 3]);
+          ea::to_tile<NW>(acc, tile, t);
+
+          // b1 = bf16(relu(x1 @ W_b0 + b_b0))
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
+          ea::add_bias<NW>(acc, sb + 3 * H, t);
+          ea::relu<NW>(acc);
+          ea::to_tile<NW>(acc, tile, t);
+
+          // zx = bf16(dropout(x1f + b1 @ W_b1 + b_b1 (+ x)))
+          if (p.skip) ea::prefetch_rows(p.x, H * 2, row0, nvalid);
+          ea::gemm<NW, true>(acc, ring, a, NK, false, t);
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float2 m = ea::ld2(p.m1s + (size_t)f * H + q * 64 + lane * 2);
-        acc[q][0] += m.x;
-        acc[q][1] += m.y;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q)
-      ea::st2(sa + r * LDA + q * 64 + lane * 2, acc[q][0], acc[q][1]);
-  }
-  __syncthreads();
-
-  // agg = bf16((sm @ W_p1 + cnt * b_p1) / max(cnt, 1))
-  ea::product<BM_N, H, false>(sf, sa, LDA, p.wp1, H, H);
-  const float* b3 = p.bias + 3 * H;
-  for (int i = threadIdx.x; i < BM_N * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    const float cn = p.cnt[row0 + r];
-    sa[r * LDA + c] = __float2bfloat16_rn((sf[r * LDF + c] + cn * b3[c]) /
-                                          fmaxf(cn, 1.f));
-  }
-  __syncthreads();
-
-  // g1 = bf16(relu(x @ W_g0[:H] + agg @ W_g0[H:] + b_g0))
-  ea::product2<BM_N, H, false>(sf, p.x + (size_t)row0 * H, H, p.wg0, H, H,
-                               sa, LDA, p.wg0 + (size_t)H * H, H, H);
-  const float* b4 = p.bias + 4 * H;
-  for (int i = threadIdx.x; i < BM_N * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sa[r * LDA + c] = __float2bfloat16_rn(fmaxf(sf[r * LDF + c] + b4[c], 0.f));
-  }
-  __syncthreads();
-
-  // x1f = g1 @ W_g1 + b_g1 (kept in f32), x1 = bf16(x1f)
-  ea::product<BM_N, H, false>(sf, sa, LDA, p.wg1, H, H);
-  const float* b5 = p.bias + 5 * H;
-  for (int i = threadIdx.x; i < BM_N * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    const float v = sf[r * LDF + c] + b5[c];
-    sx1[r * LDF + c] = v;
-    sa[r * LDA + c] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-
-  // b1 = bf16(relu(x1 @ W_b0 + b_b0))
-  ea::product<BM_N, H, false>(sf, sa, LDA, p.wb0, H, H);
-  const float* b6 = p.bias + 6 * H;
-  for (int i = threadIdx.x; i < BM_N * H; i += NTHREADS) {
-    const int r = i / H, c = i % H;
-    sa[r * LDA + c] = __float2bfloat16_rn(fmaxf(sf[r * LDF + c] + b6[c], 0.f));
-  }
-  __syncthreads();
-
-  // zx = bf16(dropout(x1f + b1 @ W_b1 + b_b1 (+ x)))
-  ea::product<BM_N, H, false>(sf, sa, LDA, p.wb1, H, H);
-  const float* b7 = p.bias + 7 * H;
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = p.drop.key((uint32_t)(p.e + row0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float o0 = sx1[r * LDF + c] + sf[r * LDF + c] + b7[c];
-      float o1 = sx1[r * LDF + c + 1] + sf[r * LDF + c + 1] + b7[c + 1];
-      if (p.skip) {
-        const float2 xv = ea::ld2(p.x + gh + c);
-        o0 += xv.x;
-        o1 += xv.y;
-      }
-      if (p.drop.on) {
-        o0 = p.drop.apply(o0, rk, c);
-        o1 = p.drop.apply(o1, rk, c + 1);
-      }
-      ea::st2(p.zx + gh + c, o0, o1);
-    }
-  }
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+          for (int q = 0; q < NW / 8; ++q) {
+            const float4 x1 = spill[q * NCONS];
+            acc[4 * q] = x1.x + acc[4 * q];
+            acc[4 * q + 1] = x1.y + acc[4 * q + 1];
+            acc[4 * q + 2] = x1.z + acc[4 * q + 2];
+            acc[4 * q + 3] = x1.w + acc[4 * q + 3];
+            if (q % 8 == 7) asm volatile("" ::: "memory");
+          }
+          ea::add_bias<NW>(acc, sb + 4 * H, t);
+          if (p.skip) ea::add_pairs<NW>(acc, p.x, H, row0, nvalid, t);
+          ea::dropout<NW>(acc, p.drop, p.e + row0, t);
+          ea::emit<NW>(acc, tile, p.zx, H, row0, nvalid, t);
+        });
 }
 
 template <int H, bool ENC>
 cudaError_t launch(const Params& p, cudaStream_t st) {
   cudaError_t err;
-  const int smem_p = BM_P * ldf_of(H) * 4;
-  if ((err = set_smem(fwd_proj_kernel<H>, smem_p)) != cudaSuccess)
+  const int smem_p = ea::smem_bytes(STAGES, ea::slice_bytes(H, false),
+                                    ea::tile_bytes(H));
+  if ((err = ea::set_smem(fwd_proj_kernel<H>, smem_p)) != cudaSuccess)
     return err;
-  fwd_proj_kernel<H><<<dim3(p.n / BM_P, 3), NTHREADS, smem_p, st>>>(p);
+  fwd_proj_kernel<H><<<ea::grid_blocks(p.n), NTHREADS, smem_p, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int smem_e = BM_E * ldf_of(H) * 4 + BM_E * lda_of(H) * 2 +
-                     (ENC && !enc_overlay(H)
-                          ? 2 * BM_E * lda_of(ea::ENC_HID) * 2 : 0) +
-                     2 * BM_E * 4;
-  if ((err = set_smem(fwd_edge_kernel<H, ENC>, smem_e)) != cudaSuccess)
+  const int smem_e = ea::smem_bytes(STAGES_E, ea::slice_bytes(H, false),
+                                    2 * ea::tile_bytes(H) + 2 * BM * 4);
+  if ((err = ea::set_smem(fwd_edge_kernel<H, ENC>, smem_e)) != cudaSuccess)
     return err;
-  fwd_edge_kernel<H, ENC><<<(p.e + BM_E - 1) / BM_E, NTHREADS, smem_e, st>>>(
-      p);
+  fwd_edge_kernel<H, ENC><<<ea::grid_blocks(p.e), NTHREADS, smem_e, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int smem_n = 2 * BM_N * ldf_of(H) * 4 + BM_N * lda_of(H) * 2;
-  if ((err = set_smem(fwd_node_kernel<H>, smem_n)) != cudaSuccess)
+  const int smem_n = ea::smem_bytes(STAGES, ea::slice_bytes(H, true),
+                                    ea::tile_bytes(H) + 5 * H * 4);
+  if ((err = ea::set_smem(fwd_node_kernel<H>, smem_n)) != cudaSuccess)
     return err;
-  fwd_node_kernel<H><<<p.n / BM_N, NTHREADS, smem_n, st>>>(p);
+  fwd_node_kernel<H><<<ea::grid_blocks(p.n), NTHREADS, smem_n, st>>>(p);
   return cudaGetLastError();
 }
 
 size_t align256(size_t b) { return (b + 255) / 256 * 256; }
+
+size_t proj_bytes(int n, int h) {
+  return align256((size_t)n * 3 * h * sizeof(bf16));
+}
+
+template <int NW, bool MN>
+cudaError_t launch_test(const TestParams& p, cudaStream_t st) {
+  const int smem = ea::smem_bytes(STAGES, ea::slice_bytes(ea::NWG * NW, true),
+                                  ea::tile_bytes(512));
+  cudaError_t err = ea::set_smem(engine_test_kernel<NW, MN>, smem);
+  if (err != cudaSuccess) return err;
+  engine_test_kernel<NW, MN><<<ea::grid_blocks(p.m), NTHREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -356,7 +413,36 @@ extern "C" long long ea_block_fwd_scratch_bytes(int n, int e, int h,
                                                 int enc) {
   (void)e;
   (void)enc;
-  return (long long)align256((size_t)n * 3 * h * sizeof(bf16));
+  // p, then the node pass's x1f: its sums (h / NWG / 2) per consumer
+  // thread
+  return (long long)(proj_bytes(n, h) +
+                     align256((size_t)ea::grid_blocks(n) * NCONS *
+                              (h / ea::NWG / 2) * sizeof(float)));
+}
+
+// out [m, n] f32 = a [m, k] @ w (w [k, n]), or a @ w^T (wt: w [n, k]); the
+// engine alone, for its test. n in (128, 256, 512), k in (128, ..., 1024).
+extern "C" int ea_engine_product(const void* a, const void* w, void* out,
+                                 int m, int k, int n, int wt, void* stream) {
+  TestParams p;
+  p.out = static_cast<float*>(out);
+  p.m = m;
+  p.k = k;
+  if (k % 64 != 0 || k > 1024 || (k > 512 && k != 1024))
+    return (int)cudaErrorInvalidValue;
+  if (!ea::map_a(&p.a, a, m, k, k)) return (int)cudaErrorInvalidValue;
+  const bool ok = wt ? ea::map_k(&p.w, w, n, k, n) : ea::map_mn(&p.w, w, k, n);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n * 2 + (wt ? 1 : 0)) {
+    case 256: return (int)launch_test<128 / ea::NWG, true>(p, st);
+    case 257: return (int)launch_test<128 / ea::NWG, false>(p, st);
+    case 512: return (int)launch_test<256 / ea::NWG, true>(p, st);
+    case 513: return (int)launch_test<256 / ea::NWG, false>(p, st);
+    case 1024: return (int)launch_test<512 / ea::NWG, true>(p, st);
+    case 1025: return (int)launch_test<512 / ea::NWG, false>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ea_block_fwd(
@@ -372,19 +458,7 @@ extern "C" int ea_block_fwd(
   Params p;
   p.x = static_cast<const bf16*>(x);
   p.e_in = static_cast<const bf16*>(e_in);
-  p.wer = static_cast<const bf16*>(wer);
-  p.wee = static_cast<const bf16*>(wee);
-  p.wsp = static_cast<const bf16*>(wsp);
-  p.we1 = static_cast<const bf16*>(we1);
-  p.wpe = static_cast<const bf16*>(wpe);
-  p.wp1 = static_cast<const bf16*>(wp1);
-  p.wg0 = static_cast<const bf16*>(wg0);
-  p.wg1 = static_cast<const bf16*>(wg1);
-  p.wb0 = static_cast<const bf16*>(wb0);
-  p.wb1 = static_cast<const bf16*>(wb1);
   p.wen0 = static_cast<const bf16*>(wen0);
-  p.wen1 = static_cast<const bf16*>(wen1);
-  p.wen2 = static_cast<const bf16*>(wen2);
   p.bias = static_cast<const float*>(bias);
   p.send = static_cast<const int*>(send);
   p.recv = static_cast<const int*>(recv);
@@ -392,17 +466,36 @@ extern "C" int ea_block_fwd(
   p.rhi = static_cast<const int*>(rhi);
   p.cnt = static_cast<const float*>(cnt);
   p.proj = static_cast<bf16*>(scratch);
+  p.x1f = reinterpret_cast<float*>(static_cast<unsigned char*>(scratch) +
+                                   proj_bytes(n, h));
   p.zx = static_cast<bf16*>(zx);
   p.ze = static_cast<bf16*>(ze);
   p.e1s = static_cast<bf16*>(e1s);
   p.m1s = static_cast<bf16*>(m1s);
   p.n = n;
   p.e = e;
-  p.enc = enc;
   p.skip = skip;
   p.save_res = save_res;
   p.drop = {dropout, thr, s0, s1, scale};
-  if (n % BM_P != 0) return (int)cudaErrorInvalidValue;
+  if (n % BM != 0) return (int)cudaErrorInvalidValue;
+  const int c = ea::ENC_HID;
+  bool ok = ea::map_a(&p.m.x, x, n, h, h) &&
+            ea::map_mn(&p.m.wsp, wsp, h, 2 * h) &&
+            ea::map_mn(&p.m.wer, wer, h, h) &&
+            ea::map_mn(&p.m.wee, wee, h, h) &&
+            ea::map_mn(&p.m.we1, we1, h, h) &&
+            ea::map_mn(&p.m.wpe, wpe, h, h) &&
+            ea::map_mn(&p.m.wp1, wp1, h, h) &&
+            ea::map_mn(&p.m.wg0, wg0, 2 * h, h) &&
+            ea::map_mn(&p.m.wg1, wg1, h, h) &&
+            ea::map_mn(&p.m.wb0, wb0, h, h) &&
+            ea::map_mn(&p.m.wb1, wb1, h, h);
+  if (enc)
+    ok = ok && ea::map_mn(&p.m.wen1, wen1, c, c) &&
+         ea::map_mn(&p.m.wen2, wen2, c, h);
+  else
+    ok = ok && ea::map_a(&p.m.e_in, e_in, e, h, h);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (h * 2 + (enc ? 1 : 0)) {

@@ -260,6 +260,42 @@ def make_ea_context(batch) -> EAContext:
                      soff=soff.to(i32), cnt=eaw.window_count(batch))
 
 
+# the kernels' passes (csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu)
+FWD_PASSES = ("fwd_proj", "fwd_edge", "fwd_node")
+BWD_PASSES = ("bwd_node1", "bwd_edge", "bwd_node2", "bwd_weights")
+
+
+def pass_flops(n: int, ev: int, h: int, *, enc: bool = False
+               ) -> dict[str, int]:
+    """Operations (two per multiply-add) of the products each kernel pass
+    runs for ``n`` nodes and ``ev`` valid slots at width ``h``, keyed by
+    `FWD_PASSES` and `BWD_PASSES`. Products over slots count valid slots
+    only (the kernels compute the pads and drop them); the backward counts
+    its recomputed forward products. In encoder mode the encoder's layers
+    count too, its first (K = 8, f32 FMAs in the kernels) as a product."""
+    c = ENC_HID
+    hh = h * h
+    enc_f = (ENC_IN * c + c * c + c * h) if enc else 0  # encoder forward
+    enc_d = (c * h + c * c) if enc else 0  # its data gradients
+    enc_w = (c * h + c * c + ENC_IN * c) if enc else 0  # its weights'
+    return {
+        "fwd_proj": 2 * n * 3 * hh,  # x @ [W_sp | W_er]
+        "fwd_edge": 2 * ev * (3 * hh + enc_f),  # W_ee, W_e1, W_pe
+        "fwd_node": 2 * n * 6 * hh,  # W_p1, W_g0 (2H in), W_g1, W_b0, W_b1
+        # the five recomputed, then W_b1^T, W_b0^T, W_g1^T, W_g0[H:]^T,
+        # W_p1^T
+        "bwd_node1": 2 * n * 10 * hh,
+        # e2, then W_pe^T, W_e1^T, W_ee^T (and the encoder's recompute and
+        # data gradients)
+        "bwd_edge": 2 * ev * (4 * hh + enc_f + enc_d),
+        # W_g0[:H]^T (dxt), W_er^T, W_sp^T (2H in)
+        "bwd_node2": 2 * n * 4 * hh,
+        # dW over nodes: W_b1, W_b0, W_g1, W_g0 (2), W_p1, W_er, W_sp (2);
+        # over slots: W_pe, W_e1, W_ee (and the encoder's three)
+        "bwd_weights": 2 * (n * 9 * hh + ev * (3 * hh + enc_w)),
+    }
+
+
 def supports_fused_encoder(batch, h: int, fe: int) -> bool:
     """In-kernel edge-encoder fusion for layer 0: the 3-layer encoder
     (hidden > 128) with at most 8 raw edge features."""
@@ -610,6 +646,34 @@ def _launch_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx, *, skip, rate,
         raise RuntimeError(f"ea_block_bwd launch failed: CUDA error {err}")
     LAUNCHES["ea_block_bwd"] += 1
     return dx, de_win, dw, dbias
+
+
+def engine_product(a: torch.Tensor, w: torch.Tensor, *,
+                   transpose: bool = False) -> torch.Tensor:
+    """The EA kernels' product engine alone (csrc/ea_common.cuh), for its
+    card test: float32 ``a @ w`` (w [K, N], read MN-major) or, with
+    ``transpose``, ``a @ w.T`` (w [N, K], read K-major), from bf16 CUDA
+    tensors; N in (128, 256, 512), K a multiple of 64 up to 512, or 1024
+    (first half streamed, second half in the row tile)."""
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    m, k = a.shape
+    n = w.shape[0] if transpose else w.shape[1]
+    _check(a.is_cuda and w.device == a.device, "CUDA tensors")
+    _check(a.dtype == w.dtype == torch.bfloat16, "bfloat16 operands")
+    _check(a.is_contiguous() and w.is_contiguous(), "contiguous operands")
+    _check(tuple(w.shape) == ((n, k) if transpose else (k, n)), "w shape")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    fn = cuda_build.load("ea_block_fwd").ea_engine_product
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = fn(_ptr(a), _ptr(w), _ptr(out), m, k, n, int(transpose),
+             ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"ea_engine_product failed: CUDA error {err}")
+    return out
 
 
 def ea_block_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx: EAContext, *,

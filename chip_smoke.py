@@ -52,7 +52,9 @@ Phases, each fatal on failure:
      the plain path) and train it (6 ea_block_fwd and 6 ea_block_bwd per
      step and no SAGE kernel; one step's loss, and the gradients of a
      linear readout of the pooled features, against the plain path at
-     three generator seeds);
+     three generator seeds), printing one line per pass of both kernels
+     from the train step's profile (device ms, operations, TFLOP/s) and
+     the train step's peak device memory;
   7. time each kernel beside its bound, its plain version and a PyTorch
      composition of the same function, at the shape its main path gives;
   8. general graphs, the csr-virtual cell (``config="csr-virtual"``: the
@@ -505,10 +507,12 @@ def bwd_bound(args, kw):
                                  else "bytes"), flops, nbytes
 
 
-def step_profile(label, step, step_ms, card, steps=3):
+def step_profile(label, step, step_ms, card, steps=3, rows_out=None):
     """Device time of a few steps by kernel (torch.profiler), and the
     device's busy share of the host-clock step time. Only the device-side
-    kernel events count: an operator's own row repeats its kernels' time."""
+    kernel events count: an operator's own row repeats its kernels' time.
+    ``rows_out``, a list, receives every (name, ms per step, calls per
+    step) row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -525,6 +529,8 @@ def step_profile(label, step, step_ms, card, steps=3):
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    if rows_out is not None:
+        rows_out.extend((k, ms, c // steps) for k, ms, c in rows)
     return {"profile": f"{label}, device ms per step by kernel",
             "card": card, "device_ms": busy_ms, "step_ms": step_ms,
             "busy_share": busy_ms / step_ms,
@@ -1307,19 +1313,18 @@ def library_ea_bwd(dzx, dze, e1s, m1s, x, e, w, bias, ctx, *, skip):
 
 
 def ea_bounds(x, e, w, ctx, *, enc, train):
-    """(fwd bound ms, what bounds it, bwd bound ms, what bounds it) of one
-    block call at these inputs: the useful products at the bf16 peak (per
-    valid slot 3 H^2 forward and 7 H^2 backward, per node 9 H^2 forward
-    and 23 H^2 backward, and the encoder's in encoder mode; not the TPU's
-    one-hot selection products) against each input read once and each
-    output written once (valid slots only) at the HBM rate. ``train``
-    adds the residuals e1 and m1 to the forward's writes."""
+    """(fwd bound ms, what bounds it, bwd bound ms, what bounds it, fwd
+    operations, bwd operations) of one block call at these inputs: the
+    products of the kernels' passes over valid slots
+    (ops/ea_block.py::pass_flops; not the TPU's one-hot selection
+    products) at the bf16 peak, against each input read once and each
+    output written once (valid slots only) at the HBM rate. ``train`` adds
+    the residuals e1 and m1 to the forward's writes."""
     n, h = x.shape
     ev = int((ctx.recv >= 0).sum())
-    c = eb.ENC_HID
-    enc_fwd = (eb.ENC_IN * c + c * c + c * h) if enc else 0
-    f_fwd = 2 * (ev * (3 * h * h + enc_fwd) + n * 9 * h * h)
-    f_bwd = 2 * (ev * (7 * h * h + 2 * enc_fwd) + n * 23 * h * h)
+    flops = eb.pass_flops(n, ev, h, enc=enc)
+    f_fwd = sum(flops[k] for k in eb.FWD_PASSES)
+    f_bwd = sum(flops[k] for k in eb.BWD_PASSES)
     e_w = e.element_size() * e.shape[-1]
     wbytes = sum(t.numel() * t.element_size() for t in w.values())
     ctx_bytes = nbytes_of(ctx.send, ctx.recv, ctx.rlo, ctx.rhi, ctx.cnt)
@@ -1332,6 +1337,37 @@ def ea_bounds(x, e, w, ctx, *, enc, train):
     fb = bound(f_fwd, 0, fwd_bytes)
     bb = bound(f_bwd, 0, bwd_bytes)
     return fb[0], fb[1], bb[0], bb[1], f_fwd, f_bwd
+
+
+# the kernel names of each pass in a profile (the weight pass with its
+# reductions)
+EA_PASS_KERNELS = {
+    "fwd_proj": ("fwd_proj_kernel",), "fwd_edge": ("fwd_edge_kernel",),
+    "fwd_node": ("fwd_node_kernel",), "bwd_node1": ("bwd_node1_kernel",),
+    "bwd_edge": ("bwd_edge_kernel",), "bwd_node2": ("bwd_node2_kernel",),
+    "bwd_weights": ("atb_kernel", "atb_reduce_kernel", "bias_reduce_kernel")}
+
+
+def ea_pass_lines(rows, batch, card, layers=6):
+    """One line per pass of #5 and #6 from an ea-virtual train step's
+    profile rows (name, device ms per step, calls per step): device ms per
+    step and per block call (``layers`` calls of each kernel per step), the
+    pass's kernel launches, its operations per step (layer 0 in encoder
+    mode, the others not) and its achieved TFLOP/s."""
+    ctx = eb.make_ea_context(batch)
+    n, ev = batch.n_node_cap, int((ctx.recv >= 0).sum())
+    h = 512
+    plain, enc = (eb.pass_flops(n, ev, h, enc=m) for m in (False, True))
+    for name, pats in EA_PASS_KERNELS.items():
+        hits = [r for r in rows if any(p in r[0] for p in pats)]
+        ms = sum(r[1] for r in hits)
+        launches = sum(r[2] for r in hits if pats[0] in r[0])
+        flops = (layers - 1) * plain[name] + enc[name]
+        print(json.dumps({
+            "ea_pass": name, "card": card, "device_ms_per_step": ms,
+            "ms_per_call": ms / layers, "launches_per_step": launches,
+            "flops_per_step": flops,
+            "tflop_per_s": flops / ms / 1e9 if ms else None}))
 
 
 # ---- general graphs: the CSR segment sum and the epilogue ---------------
@@ -1899,12 +1935,21 @@ def main():
         "ea-virtual", etrain, {"ea_block_fwd": 1, "ea_block_bwd": 1})
     egrad_err = train_vs_plain(etrain, "ea-virtual", gen_seeds=(11, 12, 13),
                                pred_tol=EA_PRED_TOL, readout=True)
-    print(json.dumps(step_profile(
-        "ea-virtual train step",
-        lambda: etrain["train_step"](etrain["batch"], etrain["lr"],
-                                     etrain["generator"]),
-        ebench["train_step_ms"], card)))
     ea_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    erows = []
+    estep = lambda: etrain["train_step"](etrain["batch"], etrain["lr"],
+                                         etrain["generator"])
+    print(json.dumps(step_profile("ea-virtual train step", estep,
+                                  ebench["train_step_ms"], card,
+                                  rows_out=erows)))
+    ea_pass_lines(erows, etrain["batch"], card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    estep()
+    torch.cuda.synchronize()
+    print(json.dumps({"ea_train_step_peak_mem_gb":
+                      torch.cuda.max_memory_allocated() / 1e9,
+                      "card": card}))
 
     # ---- 7. kernel timing at the main paths' shapes ----------------------
     args, kw, _ = layer_inputs(batch, x0, weights, True, True, True)

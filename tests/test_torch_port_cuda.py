@@ -4,10 +4,14 @@ The fused layer's forward (with and without the spill term), its merged
 backward, the split backward's tile kernel and the banded SpMM with the
 spill window, each held to its plain version within its gate; the split
 kernels' determinism; and gates that fail a forward or a banded product
-without its spill term. The fused EA block's forward and backward
-(ea_block_fwd.cu, ea_block_bwd.cu) on two small ragged windowed batches
-(one ends in a partial 64-slot block), in plain and encoder mode, skip on
-and off, dropout 0 and 0.1; their determinism; and gates that fail a
+without its spill term. The EA kernels' product engine alone
+(ea_common.cuh: TMA ring, wgmma) against a float32 matmul for W and W^T
+at every width and depth the kernels use. The fused EA block's forward
+and backward (ea_block_fwd.cu, ea_block_bwd.cu) on three small ragged
+windowed batches (one ends in a partial 64-slot block, one at tile 64
+has N % 128 = 64, so its last cluster of two 64-row blocks has an empty
+block), in plain and encoder mode, skip on and off, dropout 0 and 0.1;
+their determinism; and gates that fail a
 forward without its far senders, its cnt * b_p1 term or its skip, a
 backward without its halo or far part or wrong in a few rows of dx only,
 and a dW_sp without the far slots. The CSR segment sum (csr_segment.cu),
@@ -476,30 +480,57 @@ EA_MODES = [(128, False), (256, False), (256, True), (512, False),
             (512, True)]  # (H, encoder mode); the encoder needs H > 128
 
 
-EA_BATCHES = {"full": (16, 0), "partial": (12, 552)}  # (panels, W floor)
+# (panels, W floor, band tile, node-cap multiple, E % 64)
+EA_BATCHES = {"full": (16, 0, 128, 256, 0), "partial": (12, 552, 128, 256, 16),
+              "tile64": (8, 0, 64, 64, 48)}
 
 
 def _ea_batch(dev, which="full"):
-    """Virtual-edge panels of 8-11 nodes a side, tile 128, width 64,
-    packed by batch_iterator with a floor on W: "full" is 16 panels, 12
+    """Virtual-edge panels of 8-11 nodes a side, width 64, packed by
+    batch_iterator with a floor on W: "full" is 16 panels at tile 128, 12
     node tiles of W = 528 (not a multiple of 64), E a whole number of the
     kernels' 64-slot blocks; "partial" is 12 panels with W = 552, 10 tiles
-    and E % 64 = 16, so the last block is partial. Both have far
-    senders."""
-    n_graphs, w_floor = EA_BATCHES[which]
+    and E % 64 = 16, so the last block is partial; "tile64" is 8 panels at
+    tile 64, N = 704 (N % 128 = 64: the last cluster of two 64-row blocks
+    has one empty block) and E % 64 = 48. All have far senders."""
+    n_graphs, w_floor, tile, mult, e_rem = EA_BATCHES[which]
     ds = generate_dataset(n_graphs, seed=2, min_side=8, max_side=11,
                           use_super_node=False, use_virtual_edges=True)
     n = sum(g.n_node for g in ds) + 1
-    ncap = ((n + 2 * TILE - 1) // (2 * TILE)) * (2 * TILE)
+    ncap = ((n + mult - 1) // mult) * mult
     ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
     (b,) = tb.batch_iterator(ds, n_graphs, ncap, ecap, band_width=WIDTH,
-                             band_tile=TILE, min_win_cap=w_floor,
+                             band_tile=tile, min_win_cap=w_floor,
                              device="cpu")
     b = b.to(dev)
     t, wc = b.win_sidx.shape
     assert t >= 4 and wc % 64 != 0
-    assert (t * wc) % 64 == (0 if which == "full" else 16)
+    assert (t * wc) % 64 == e_rem
+    assert which != "tile64" or b.n_node_cap % 128 == 64
     return b, eb.make_ea_context(b)
+
+
+@pytest.mark.parametrize("n", [128, 256, 512])
+@pytest.mark.parametrize("k", [128, 512, 1024])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_ea_engine_product_matches_matmul(n, k, transpose):
+    """The EA kernels' product engine alone (TMA ring, wgmma, both
+    major-nesses of the weight) against a float32 matmul of the same bf16
+    operands, on 138 rows: two clusters of two 64-row blocks, the third
+    block partial and the fourth empty. Both sides sum exact bf16 products
+    in float32 in another order (differences ~1e-6 at unit scale); a wrong
+    descriptor, swizzle or slice order moves entries by O(1)."""
+    dev = _card()
+    rng = np.random.default_rng(n + k + int(transpose))
+    m = 138
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(n, k) if transpose else (k, n))
+                          / np.sqrt(k)).astype(np.float32))
+    a, w = (v.to(dev, torch.bfloat16).contiguous() for v in (a, w))
+    got = eb.engine_product(a, w, transpose=transpose)
+    ref = a.float() @ (w.float().t() if transpose else w.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
 
 
 def _ea_case(dev, h, enc, seed, which="full"):

@@ -16,7 +16,9 @@ the CUDA kernels. They are held to:
   the mean or without the skip, a backward without the slab-overlap
   (halo) part or the far part of dx (its norm gate), without one node's
   sender run, one far rank or the first tile's halo (its row gate), and a
-  dW_sp without the far slots.
+  dW_sp without the far slots;
+- PyTorch's FlopCounterMode over the plain versions: `pass_flops`, the
+  kernels' per-pass operation counts behind chip_smoke.py's bounds.
 
 Both sides get the same packed graphs (16 panels of 8-11 nodes a side,
 tile 128, width 64, 12 node tiles, far senders present), activations and
@@ -297,3 +299,66 @@ def test_scope_guards():
     with pytest.raises(ValueError, match="seed"):
         eb.fused_ea_block(x, e, blk, ctx, skip=False, rate=0.1,
                           deterministic=False)
+
+
+def _full_context(n, t, w_cap, seed):
+    """An EAContext on n nodes with every one of its t * w_cap slots valid
+    (random senders, receivers sorted as a batch's are)."""
+    rng = np.random.default_rng(seed)
+    e = t * w_cap
+    recv = np.sort(rng.integers(0, n, size=e))
+    send = rng.integers(0, n, size=e)
+    nodes = np.arange(n)
+    sorder = np.argsort(send, kind="stable")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return eb.EAContext(
+        n_nodes=n, n_tiles=t, w_cap=w_cap, send=i32(send), recv=i32(recv),
+        rlo=i32(np.searchsorted(recv, nodes)),
+        rhi=i32(np.searchsorted(recv, nodes, side="right")),
+        sorder=i32(sorder),
+        soff=i32(np.searchsorted(send[sorder], np.arange(n + 1))),
+        cnt=torch.from_numpy(np.bincount(recv, minlength=n).astype(
+            np.float32)))
+
+
+@pytest.mark.parametrize("enc", [False, True])
+def test_pass_flops_match_the_flop_counter(enc):
+    """`pass_flops` (the kernels' per-pass operation counts behind
+    chip_smoke.py's bounds and per-pass rates) against
+    torch.utils.flop_counter.FlopCounterMode over the plain forward and
+    backward, on a context whose slots are all valid: each count is two
+    per multiply-add of the same products, the backward's recomputed
+    forward products and, in encoder mode, the encoder's K = 8 first layer
+    included (the kernels run it as f32 FMAs; both sides count it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    n, t, w_cap = 64, 4, 48
+    h = 256 if enc else 128
+    ctx = _full_context(n, t, w_cap, seed=3)
+    rng = np.random.default_rng(4)
+    f32 = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    dims = dict(wer=(h, h), wee=(h, h), wsp=(h, 2 * h), we1=(h, h),
+                wpe=(h, h), wp1=(h, h), wg0=(2 * h, h), wg1=(h, h),
+                wb0=(h, h), wb1=(h, h))
+    if enc:
+        dims.update(wen0=(eb.ENC_IN, eb.ENC_HID),
+                    wen1=(eb.ENC_HID, eb.ENC_HID), wen2=(eb.ENC_HID, h))
+    w = {k: f32(*d) / np.sqrt(d[0]) for k, d in dims.items()}
+    bias = f32(11 if enc else 8, h)
+    x = f32(n, h)
+    e_win = f32(t, w_cap, eb.ENC_IN if enc else h)
+    kw = dict(skip=not enc, enc=enc)
+    with FlopCounterMode(display=False) as fc:
+        _, ze, e1s, m1s = eb.ea_block_fwd_plain(x, e_win, w, bias, ctx,
+                                                save_res=True, **kw)
+    fwd = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        eb.ea_block_bwd_plain(f32(n, h), f32(*ze.shape), e1s, m1s, x, e_win,
+                              w, bias, ctx, **kw)
+    bwd = fc.get_total_flops()
+    counts = eb.pass_flops(n, t * w_cap, h, enc=enc)
+    want_fwd = sum(counts[k] for k in eb.FWD_PASSES)
+    want_bwd = sum(counts[k] for k in eb.BWD_PASSES)
+    assert (fwd, bwd) == (want_fwd, want_bwd), (
+        f"pass_flops {counts} against the counter's forward {fwd} and "
+        f"backward {bwd}")
