@@ -59,6 +59,7 @@ using ea::BK;
 using ea::BM;
 using ea::NCONS;
 using ea::NTHREADS;
+using ea::roles;
 using ea::Thr;
 
 using splitk::atb;
@@ -141,31 +142,6 @@ size_t carve(unsigned char* base, int n, int e, int h, int enc, Scratch* s) {
       take((size_t)((e + BM - 1) / BM) * EDGE_SUMS * h * 4));
   s->part = reinterpret_cast<float*>(take(part_floats(h, enc) * 4));
   return off;
-}
-
-// the role split: the producer warpgroup's first thread runs ``produce``,
-// the consumers ``consume``; both walk the same products in the same
-// order. Each role ends in its own cluster barrier: the roles never
-// reconverge, so that setmaxnreg holds
-template <typename P, typename C>
-__device__ __forceinline__ void roles(unsigned char* smem, int stages,
-                                      int slice, P produce, C consume) {
-  ea::Smem* sm = reinterpret_cast<ea::Smem*>(smem);
-  ea::init_barriers(sm, stages);
-  hop::Ring ring = ea::make_ring(sm, smem, stages, slice);
-  if (threadIdx.x >= NCONS) {
-    hop::reg_dealloc<ea::PROD_REGS>();
-    if (threadIdx.x == NCONS) {
-      ea::Producer pr{ring, hop::cluster_rank()};
-      produce(pr, &sm->abar);
-    }
-    __syncwarp();
-    hop::cluster_sync();
-  } else {
-    hop::reg_alloc<ea::CONS_REGS>();
-    consume(ring, &sm->abar);
-    hop::cluster_sync();
-  }
 }
 
 // ---- pass 1: node side ----------------------------------------------------

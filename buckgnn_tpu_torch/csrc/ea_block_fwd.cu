@@ -50,6 +50,7 @@ using ea::BK;
 using ea::BM;
 using ea::NCONS;
 using ea::NTHREADS;
+using ea::roles;
 using ea::Thr;
 
 struct Maps {
@@ -77,31 +78,6 @@ constexpr int STAGES = 4;    // of the other passes
 
 #define EA_CLUSTER __cluster_dims__(2, 1, 1)
 static_assert(ea::CLUSTER == 2, "EA_CLUSTER names the cluster size");
-
-// the role split: the producer warpgroup's first thread runs ``produce``,
-// the consumers ``consume``; both walk the same products in the same
-// order. Each role ends in its own cluster barrier: the roles never
-// reconverge, so that setmaxnreg holds
-template <typename P, typename C>
-__device__ __forceinline__ void roles(unsigned char* smem, int stages,
-                                      int slice, P produce, C consume) {
-  ea::Smem* sm = reinterpret_cast<ea::Smem*>(smem);
-  ea::init_barriers(sm, stages);
-  hop::Ring ring = ea::make_ring(sm, smem, stages, slice);
-  if (threadIdx.x >= NCONS) {
-    hop::reg_dealloc<ea::PROD_REGS>();
-    if (threadIdx.x == NCONS) {
-      ea::Producer pr{ring, hop::cluster_rank()};
-      produce(pr, &sm->abar);
-    }
-    __syncwarp();
-    hop::cluster_sync();
-  } else {
-    hop::reg_alloc<ea::CONS_REGS>();
-    consume(ring, &sm->abar);
-    hop::cluster_sync();
-  }
-}
 
 // ---- the engine alone: out = A @ W or A @ W^T, f32 -------------------------
 // For the engine test (tests/test_torch_port_cuda.py): K <= 512 takes A

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's products: mbarriers, TMA
 // tensor copies (plain and multicast to a 2-block cluster), wgmma with its
 // shared-memory descriptors, cp.async row copies, named barriers and the
-// host-side tensor maps. Used by the EA product engine (ea_common.cuh) and
-// the split-K weight pass (atb.cuh).
+// host-side tensor maps. Used by the product engine (engine.cuh) and the
+// split-K weight pass (atb.cuh).
 //
 // Layout: operand tiles in shared memory come in slices 32 bf16 deep along
 // K, in one of two swizzles:

@@ -12,14 +12,15 @@
 // over their sequential grid; here every 64-row block writes f32 partials
 // [2GW, H] and this kernel adds them in block order for each table row.
 //
-// spill_window_start / add_spill_run: the spill term of the forward and of
-// the banded SpMM. Tile t's messages are SPILL_CHUNK rows of the
-// receiver-sorted spill list from w_t = clip(off[t] / SPILL_ALIGN *
-// SPILL_ALIGN, 0, Es - SPILL_CHUNK) (graph/batch.py::_host_spill_ranges),
-// and each row's messages are one contiguous run [lo, hi) of that window.
-// The TPU kernels take the run's sum as a one-hot [T, SPILL_CHUNK] product
-// with the window; here a warp adds the run's rows directly: the same f32
-// sum without the zero products.
+// spill_window_start / add_spill_run: the spill term of the banded SpMM
+// (the forward, sage_layer_fwd.cu::add_spill, sums the same runs in the same
+// order on its accumulator registers). Tile t's messages are SPILL_CHUNK
+// rows of the receiver-sorted spill list from w_t = clip(off[t] /
+// SPILL_ALIGN * SPILL_ALIGN, 0, Es - SPILL_CHUNK) (graph/batch.py::
+// _host_spill_ranges), and each row's messages are one contiguous run
+// [lo, hi) of that window. The TPU kernels take the run's sum as a one-hot
+// [T, SPILL_CHUNK] product with the window; here the run's rows are added
+// directly: the same f32 sum without the zero products.
 
 #pragma once
 

@@ -46,34 +46,63 @@
 // ~0.56 GB of compulsory traffic, so it is bound by operations (~0.26 ms at
 // 989 TFLOP/s). This design also writes and reads dagg, dxp and dout
 // (~318 MB each way) and the table partials, a known cost: the TPU kernel
-// keeps dagg in VMEM. Products use wmma 16x16x16 bf16 fragments with f32
-// accumulators; there is no TMA, wgmma or pipelining yet. The split tile
-// kernel at the virtual-edge shape (the same N, T, W and H, no supernodes)
-// does ~217 GFLOP (0.22 ms at 989 TFLOP/s) against ~0.64 GB of compulsory
-// traffic (dz, y, agg, x read; dagg, dxp written: 0.19 ms at 3.35 TB/s),
-// so it is bound by operations too; it also writes and reads dout.
+// keeps dagg in VMEM. The split tile kernel at the virtual-edge shape (the
+// same N, T, W and H, no supernodes) does ~217 GFLOP (0.22 ms at 989
+// TFLOP/s) against ~0.64 GB of compulsory traffic (dz, y, agg, x read;
+// dagg, dxp written: 0.19 ms at 3.35 TB/s), so it is bound by operations
+// too; it also writes and reads dout.
+//
+// The tile pass runs on the product engine of engine.cuh: one block of
+// four consumer warpgroups (H/4 columns each) and a producer warp per 64
+// rows, in clusters of two neighbouring blocks. The producer first brings
+// the block's y and dz rows by TMA into the row tile and the staging tile.
+// The dout prologue works in the wgmma accumulator layout, on a thread's
+// two rows and its column pairs: dz_eff (dz, the next layer's table row,
+// the keep mask), the relu mask of y, s = sum(dy * y) over the thread's
+// pairs, its quad, then the four warpgroups through shared memory in a
+// fixed order, and dout. bf16
+// dout goes into the swizzled row tile, the A of both products, and from
+// there to device memory (the weight pass reads it); db_l's partial is a
+// fixed-order column sum of the f32 dout. Then dxp = dout @ W_r^T (+ dz_eff
+// with the skip) and dagg = bf16(dout @ W_l^T): the producer streams W_r's
+// and then W_l's K-major slices of the same [in, out] tensors (the
+// descriptor transposes), multicast to both blocks of the cluster, so the
+// second product's slices arrive while the first epilogue runs. dxp leaves
+// through a staging tile and dagg through the row tile, in 16-byte rows;
+// the own-table partials are summed from the bf16 dagg in the tile by
+// accumulate code, in row order (engine.cuh::code_sums). Shared memory at
+// H = 512: 2 KB of slack, barriers and codes, 3 ring slices of 32 KB, the
+// row tile (y, then the column sums, dout and dagg) and the staging tile
+// (dz, then dxp), 64 KB each, and 1 KB of row sums: all 227 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include <algorithm>
 
 #include "atb.cuh"
 #include "banded.cuh"
-#include "sage_common.cuh"
-
-using namespace nvcuda;
+#include "engine.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // rows per block of the tile pass
-constexpr int NWARP = 8;
-constexpr int NTHREADS = NWARP * 32;
+using eng::BK;
+using eng::BM;
+using eng::NCONS;
+using eng::NTHREADS;
+using eng::NWG;
+using eng::Thr;
 using splitk::KSPLIT;  // row chunks of the weight pass
 
 typedef __nv_bfloat16 bf16;
 
+#define SAGE_CLUSTER __cluster_dims__(2, 1, 1)
+static_assert(eng::CLUSTER == 2, "SAGE_CLUSTER names the cluster size");
+static_assert(sizeof(eng::Smem) <= 512, "barriers before the codes");
+
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block (H100)
+constexpr int MAX_STAGES = 4;
+
 struct Params {
+  CUtensorMap w_l_t, w_r_t;  // W_l, W_r [H, H] read K-major (W^T)
+  CUtensorMap y_t, dz_t;     // y, dz [N, H] in [64, 32] row-tile boxes
   const bf16* dz;        // [N, H]
   const bf16* y;         // [N, H]
   const float* inv;      // [N]
@@ -93,21 +122,9 @@ struct Params {
   float* db_part;        // [N / BM, H]
   float* t_part;         // [N / BM, 2GW, H] (has_super)
   float* dw_part;        // [2, KSPLIT, H, H]
-  int n, tile, width, gw, t0, apply_prev, has_super, skip, dropout;
-  uint32_t thr, s0, s1;
-  float scale;
+  int n, tile, width, gw, t0, apply_prev, has_super, skip, stages;
+  eng::Drop drop;
 };
-
-// dz_eff of one element (before the relu mask)
-template <int H>
-__device__ __forceinline__ float dz_eff(const Params& p, size_t grow_h, int c,
-                                        int trow, uint32_t rk) {
-  float v = __bfloat162float(p.dz[grow_h + c]);
-  if (trow >= 0) v += __bfloat162float(p.tprev[(size_t)trow * H + c]);
-  if (p.dropout)
-    v = sage::dropout_bits(rk, p.s1, c) < p.thr ? v * p.scale : 0.f;
-  return v;
-}
 
 // the table row that a selector code picks in tile t's window, or -1
 __device__ __forceinline__ int table_row(const Params& p, int code, int wb) {
@@ -115,199 +132,155 @@ __device__ __forceinline__ int table_row(const Params& p, int code, int wb) {
   return code < p.gw ? wb + code : p.t0 + wb + (code - p.gw);
 }
 
-// acc[64, H] = sA[64, H] (bf16, smem, row-major, lda) @ W^T, W [H, H]
-// row-major in global memory, read as a column-major B fragment
+// ---- pass 1: the tile pass ------------------------------------------------
 template <int H>
-__device__ __forceinline__ void product_wt(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[BM / 16]
-                                                             [H / NWARP / 16],
-    const bf16* sA, int lda, const bf16* w, int n0) {
-  constexpr int MF = BM / 16;
-  constexpr int NF = H / NWARP / 16;
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[MF];
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-      wmma::load_matrix_sync(a[i], sA + i * 16 * lda + k0, lda);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      // B(k, n) = W[n, k]: column-major with leading dimension H
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, w + (size_t)(n0 + j * 16) * H + k0, H);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-}
-
-template <int H>
-__device__ __forceinline__ void store_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[BM / 16]
-                                                             [H / NWARP / 16],
-    float* sf, int ldf, int n0) {
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < H / NWARP / 16; ++j)
-      wmma::store_matrix_sync(sf + i * 16 * ldf + n0 + j * 16, acc[i][j], ldf,
-                              wmma::mem_row_major);
-}
-
-// ---- pass 1: per-row tile math ------------------------------------------
-template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) bwd_tile_kernel(Params p) {
-  constexpr int WN = H / NWARP;
-  constexpr int NF = WN / 16;
-  constexpr int MF = BM / 16;
-  constexpr int LDF = H + 4;  // f32 staging stride (floats)
-  constexpr int LDA = H + 8;  // bf16 dout stride (elements)
-  constexpr int NQ = H / 64;  // column pairs per lane
-  constexpr int RPW = BM / NWARP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  bf16* sd = reinterpret_cast<bf16*>(smem + BM * LDF * 4);
-  int* strow = reinterpret_cast<int*>(smem + BM * LDF * 4 + BM * LDA * 2);
+__global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
+    bwd_tile_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / NWG, NK = H / BK;
+  constexpr int SLICE = eng::slice_bytes(H, false);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = eng::align_smem(smem_raw);
+  int* strow = reinterpret_cast<int*>(smem + 512);
   int* sacc = strow + BM;
-
-  const int bpt = p.tile / BM;
-  const int t = blockIdx.x / bpt;
+  unsigned char* tile = smem + eng::ring_offset() + p.stages * SLICE;
+  unsigned char* stage = tile + eng::tile_bytes(H);
+  float* rowred = reinterpret_cast<float*>(stage + eng::tile_bytes(H));
   const int row0 = blockIdx.x * BM;
-  const int wb = p.gwin ? p.gwin[t] : 0;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = warp * WN;
-
-  if (tid < BM) {
-    strow[tid] = p.apply_prev ? table_row(p, p.code[row0 + tid], wb) : -1;
-    sacc[tid] = p.has_super ? p.acc_code[row0 + tid] : 0;
-  }
-  __syncthreads();
-
-  // dout, one warp per row: sf = f32 dout, sd and global dout = bf16(dout)
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = sage::row_key(p.s0, (uint32_t)(row0 + r));
-    const int trow = strow[r];
-    float dy[NQ][2], yv[NQ][2];
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const __nv_bfloat162 y2 = *reinterpret_cast<const __nv_bfloat162*>(
-          p.y + gh + c);
-      yv[q][0] = __bfloat162float(y2.x);
-      yv[q][1] = __bfloat162float(y2.y);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = dz_eff<H>(p, gh, c + e, trow, rk);
-        dy[q][e] = yv[q][e] > 0.f ? d : 0.f;
-        s += dy[q][e] * yv[q][e];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float iv = p.inv[row0 + r];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const float o0 = (dy[q][0] - yv[q][0] * s) * iv;
-      const float o1 = (dy[q][1] - yv[q][1] * s) * iv;
-      sf[r * LDF + c] = o0;
-      sf[r * LDF + c + 1] = o1;
-      const __nv_bfloat162 oc = __floats2bfloat162_rn(o0, o1);
-      *reinterpret_cast<__nv_bfloat162*>(sd + r * LDA + c) = oc;
-      *reinterpret_cast<__nv_bfloat162*>(p.dout + gh + c) = oc;
-    }
-  }
-  __syncthreads();
-  // db_l partial: column sums of the f32 dout, in row order
-  for (int c = tid; c < H; c += NTHREADS) {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s += sf[r * LDF + c];
-    p.db_part[(size_t)blockIdx.x * H + c] = s;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
-  // dxp = bf16(dout) @ W_r^T (+ dz_eff with the skip)
-  product_wt<H>(acc, sd, LDA, p.w_r, n0);
-  store_acc<H>(acc, sf, LDF, n0);
-  __syncthreads();
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-    const uint32_t rk = sage::row_key(p.s0, (uint32_t)(row0 + r));
-    const int trow = strow[r];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      float v0 = sf[r * LDF + c];
-      float v1 = sf[r * LDF + c + 1];
-      if (p.skip) {
-        v0 += dz_eff<H>(p, gh, c, trow, rk);
-        v1 += dz_eff<H>(p, gh, c + 1, trow, rk);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(p.dxp + gh + c) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  __syncthreads();
-
-  // dagg = bf16(bf16(dout) @ W_l^T); sf keeps the rounded values
-  product_wt<H>(acc, sd, LDA, p.w_l, n0);
-  store_acc<H>(acc, sf, LDF, n0);
-  __syncthreads();
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    const size_t gh = (size_t)(row0 + r) * H;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const __nv_bfloat162 a2 =
-          __floats2bfloat162_rn(sf[r * LDF + c], sf[r * LDF + c + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(p.dagg + gh + c) = a2;
-      sf[r * LDF + c] = __bfloat162float(a2.x);
-      sf[r * LDF + c + 1] = __bfloat162float(a2.y);
-    }
-  }
-  if (!p.has_super) return;
-  __syncthreads();
-  // own star table partial: rows summed by accumulate code, in row order
-  // (a run of equal codes is summed in a register, then added)
+  const bool valid = row0 < p.n;  // the last cluster's second block may be empty
+  const int nvalid = valid ? BM : 0;
+  // an empty block reads the first rows' inputs (and drops them): no
+  // address it forms lies past the end, even for a load the compiler hoists
+  const int rowc = valid ? row0 : 0;
   const int g2 = 2 * p.gw;
-  float* dst = p.t_part + (size_t)blockIdx.x * g2 * H;
-  for (int c = tid; c < H; c += NTHREADS) {
-    for (int s = 0; s < g2; ++s) dst[(size_t)s * H + c] = 0.f;
-    float a = 0.f;
-    int cur = g2;
-    for (int r = 0; r < BM; ++r) {
-      const int code = sacc[r];
-      if (code != cur) {
-        if (cur < g2) dst[(size_t)cur * H + c] += a;
-        a = 0.f;
-        cur = code;
-      }
-      if (code < g2) a += sf[r * LDF + c];
-    }
-    if (cur < g2) dst[(size_t)cur * H + c] += a;
-  }
+  eng::roles(
+      smem, p.stages, SLICE,
+      [&](eng::Producer& pr, uint64_t* abar) {
+        // y into the row tile and dz into the staging tile, then W_r's and
+        // W_l's slices
+        hop::mbar_expect_tx(abar, 2 * eng::tile_bytes(H));
+        for (int q = 0; q < NK; ++q) {
+          hop::tma_load(tile + q * eng::PANEL, &p.y_t, abar, q * BK, row0);
+          hop::tma_load(stage + q * eng::PANEL, &p.dz_t, abar, q * BK, row0);
+        }
+        pr.b<false>(&p.w_r_t, H, 0, 0, NK);
+        pr.b<false>(&p.w_l_t, H, 0, 0, NK);
+      },
+      [&](hop::Ring& ring, uint64_t* abar) {
+        Thr th;
+        if (threadIdx.x < BM) {
+          const int r = rowc + threadIdx.x;
+          const int wb = p.gwin ? p.gwin[r / p.tile] : 0;
+          strow[threadIdx.x] =
+              valid && p.apply_prev ? table_row(p, p.code[r], wb) : -1;
+          sacc[threadIdx.x] = valid && p.has_super ? p.acc_code[r] : g2;
+        }
+        hop::named_sync(eng::BAR_ALL, NCONS);
+        const bf16* tp[2];
+        uint32_t rk[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tr = strow[th.r0 + 8 * h];
+          tp[h] = tr >= 0 ? p.tprev + (size_t)tr * H : nullptr;
+          rk[h] = p.drop.on ? p.drop.key(row0 + th.r0 + 8 * h) : 0u;
+        }
+        // dz_eff of the pair at sum index i, (row r, column c) before the
+        // relu mask: dz from the staging tile, the next layer's table row
+        auto dz_eff = [&](int i, int r, int c) {
+          const int h = (i / 2) % 2;
+          float2 d = eng::ld_pair(stage, r, c);
+          if (tp[h]) {
+            const float2 v = eng::ld2(tp[h] + c);
+            d.x += v.x;
+            d.y += v.y;
+          }
+          if (p.drop.on) {
+            d.x = p.drop.apply(d.x, rk[h], c);
+            d.y = p.drop.apply(d.y, rk[h], c + 1);
+          }
+          return d;
+        };
+        hop::mbar_wait(abar, 0);  // y and dz have landed
+
+        // dy = y > 0 ? dz_eff : 0; s = rowsum(dy * y): the thread's pairs,
+        // its quad, then the warpgroups in a fixed order
+        float acc[NW / 2];
+        float s[2] = {0.f, 0.f};
+        eng::pairs_chunked<NW>(th, [&](int i, int r, int c) {
+          const float2 d = dz_eff(i, r, c);
+          const float2 yv = eng::ld_pair(tile, r, c);
+          acc[i] = yv.x > 0.f ? d.x : 0.f;
+          acc[i + 1] = yv.y > 0.f ? d.y : 0.f;
+          const int h = (i / 2) % 2;
+          s[h] += acc[i] * yv.x;
+          s[h] += acc[i + 1] * yv.y;
+        });
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+          if (th.lane % 4 == 0) rowred[th.wg * BM + th.r0 + 8 * h] = s[h];
+        }
+        hop::named_sync(eng::BAR_ALL, NCONS);
+        float rs[2], iv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = th.r0 + 8 * h;
+          rs[h] = ((rowred[r] + rowred[BM + r]) + rowred[2 * BM + r]) +
+                  rowred[3 * BM + r];
+          const float v = eng::ldf(p.inv + rowc + r);
+          iv[h] = valid ? v : 0.f;
+        }
+        // dout = (dy - y * s) * inv, f32
+        eng::pairs_chunked<NW>(th, [&](int i, int r, int c) {
+          const int h = (i / 2) % 2;
+          const float2 yv = eng::ld_pair(tile, r, c);
+          acc[i] = (acc[i] - yv.x * rs[h]) * iv[h];
+          acc[i + 1] = (acc[i + 1] - yv.y * rs[h]) * iv[h];
+        });
+        // db_l partial: fixed-order column sums of the f32 dout, through
+        // the row tile once every warpgroup has read its y
+        hop::named_sync(eng::BAR_ALL, NCONS);
+        eng::colsum<NW>(acc, th, reinterpret_cast<float*>(tile),
+                        valid ? p.db_part + (size_t)blockIdx.x * H : nullptr);
+        // bf16 dout: the row tile (both products' A) and the weight pass's
+        eng::emit<NW>(acc, tile, p.dout, H, row0, nvalid, th);
+
+        // dxp = bf16(dout @ W_r^T (+ dz_eff with the skip))
+        eng::gemm<NW, false>(acc, ring, hop::smem_u32(tile), NK, false, th);
+        if (p.skip)
+          eng::pairs_chunked<NW>(th, [&](int i, int r, int c) {
+            const float2 d = dz_eff(i, r, c);
+            acc[i] += d.x;
+            acc[i + 1] += d.y;
+          });
+        eng::emit<NW>(acc, stage, p.dxp, H, row0, nvalid, th);
+
+        // dagg = bf16(dout @ W_l^T); the own table from the bf16 dagg
+        eng::gemm<NW, false>(acc, ring, hop::smem_u32(tile), NK, false, th);
+        eng::emit<NW>(acc, tile, p.dagg, H, row0, nvalid, th);
+        if (p.has_super && valid)
+          eng::code_sums<H>(tile, sacc, g2,
+                            p.t_part + (size_t)blockIdx.x * g2 * H);
+      });
 }
 
 template <int H>
-cudaError_t launch_tile(const Params& p, cudaStream_t st) {
-  const int tile_smem = BM * (H + 4) * 4 + BM * (H + 8) * 2 + 2 * BM * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_tile_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tile_smem);
+cudaError_t launch_tile(Params p, cudaStream_t st) {
+  constexpr int SLICE = eng::slice_bytes(H, false);
+  constexpr int FIXED =
+      1024 + eng::ring_offset() + 2 * eng::tile_bytes(H) + NWG * BM * 4;
+  static_assert(NWG * 4 * (H / NWG) * 4 <= eng::tile_bytes(H),
+                "the column sums fit the row tile");
+  p.stages = std::min(MAX_STAGES, (SMEM_MAX - FIXED) / SLICE);
+  const int smem = FIXED + p.stages * SLICE;
+  if (!eng::map_k(&p.w_l_t, p.w_l, H, H, H) ||
+      !eng::map_k(&p.w_r_t, p.w_r, H, H, H) ||
+      !eng::map_a(&p.y_t, p.y, p.n, H, H) ||
+      !eng::map_a(&p.dz_t, p.dz, p.n, H, H))
+    return cudaErrorInvalidValue;
+  cudaError_t e = eng::set_smem(bwd_tile_kernel<H>, smem);
   if (e != cudaSuccess) return e;
-  bwd_tile_kernel<H><<<p.n / BM, NTHREADS, tile_smem, st>>>(p);
+  bwd_tile_kernel<H><<<eng::grid_blocks(p.n), NTHREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -371,7 +344,7 @@ extern "C" int sage_layer_bwd(
     int tg, int apply_prev, int has_super, int skip, int dropout,
     unsigned int thr, unsigned int s0, unsigned int s1, float scale,
     void* stream) {
-  Params p;
+  Params p = {};
   p.dz = static_cast<const bf16*>(dz);
   p.y = static_cast<const bf16*>(y);
   p.inv = static_cast<const float*>(inv);
@@ -399,11 +372,7 @@ extern "C" int sage_layer_bwd(
   p.apply_prev = apply_prev;
   p.has_super = has_super;
   p.skip = skip;
-  p.dropout = dropout;
-  p.thr = thr;
-  p.s0 = s0;
-  p.s1 = s1;
-  p.scale = scale;
+  p.drop = {dropout, thr, s0, s1, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* fl = static_cast<float*>(dwl);
   float* fr = static_cast<float*>(dwr);
@@ -448,11 +417,7 @@ extern "C" int sage_layer_bwd_tile(
   p.apply_prev = 0;
   p.has_super = has_super;
   p.skip = skip;
-  p.dropout = dropout;
-  p.thr = thr;
-  p.s0 = s0;
-  p.s1 = s1;
-  p.scale = scale;
+  p.drop = {dropout, thr, s0, s1, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* fl = static_cast<float*>(dwl);
   float* fr = static_cast<float*>(dwr);

@@ -19,311 +19,365 @@
 // column) < thr and scales it by `scale` (ops/dropout.py), after relu and
 // the skip and before the cast and the table emit, as the TPU kernel does.
 //
-// The int8 band is converted to bf16 in shared memory (counts <= 127 are
-// exact). The star selection is the same one-hot product the TPU kernel
-// runs: its 2*GW one-hot columns are appended to the band's K dimension,
-// and the matching table rows (wb.. and T0+wb.., or the whole table when
-// GW == T0) to the slab's rows, so it lands in the same f32 accumulator
-// before the cast, as on the TPU. The spill term (the TPU's one-hot
-// [T, 256] product with the tile's message window, pallas_sage_layer.py:
-// 313-349) is the same f32 sum taken directly (sage_common.cuh::
-// add_spill_run), which each row's warp adds to the staged accumulator,
-// also before the cast.
+// The star selection is the same one-hot product the TPU kernel runs: its
+// 2*GW one-hot columns are appended to the band's K dimension, and the
+// matching table rows (wb.. and T0+wb.., or the whole table when GW == T0)
+// to the slab's rows, so it lands in the same f32 accumulator before the
+// cast, as on the TPU. The spill term (the TPU's one-hot [T, 256] product
+// with the tile's message window, pallas_sage_layer.py:313-349) is the same
+// f32 sum taken directly: each thread adds its two rows' message runs to
+// its accumulator registers, each run summed on its own first in message
+// order (sage_common.cuh::add_spill_run's order), also before the cast.
 //
 // What bounds it on an H100: at the flagship shape (N = 103,424, T = 256,
-// W = 64, H = 512) a layer does ~149 GFLOP of bf16 products against
+// W = 64, H = 512, 2GW = 32) a layer does 149 GFLOP of bf16 products against
 // ~271 MB of compulsory traffic, so it is compute-bound (0.15 ms at the
 // 989 TFLOP/s dense bf16 peak; 0.08 ms memory bound at 3.35 TB/s).
 //
-// Design, simple first: one block of 8 warps owns 64 rows across the full
-// width H, so the row norm is a block-local reduction and agg never leaves
-// shared memory. Products use wmma 16x16x16 bf16 fragments; each warp owns
-// 64 rows x H/8 columns of the accumulator. The slab and weight operands
-// are read as fragments straight from global memory (the weights, 1 MB,
-// stay in L2); there is no TMA, wgmma or software pipelining yet, so the
-// kernel is latency-bound well below the tensor-core peak. The cross-tile
-// table sum (a sequential-grid accumulator on the TPU) becomes per-block
-// f32 partials plus a second, deterministic reduction kernel.
+// Design: the product engine of engine.cuh. One block of four consumer
+// warpgroups (H/4 columns each) and a producer warp owns 64 rows across the
+// full width, in clusters of two neighbouring blocks:
+//  - phase 1, acc = [band | sel] @ [x slab ; table window], K1 = T+W+2GW:
+//    the consumers convert the block's int8 band rows to bf16 (counts <=
+//    127 are exact) straight into the K-major 64-byte-swizzled A tile that
+//    wgmma reads, with the one-hot selector columns after them. K is cut
+//    into runs (the slab; the table window's one or two row runs), each a
+//    whole number of 32-deep slices; A's columns past a run's rows are
+//    zero, so the extra B rows a slice carries add exact zeros. The slab's
+//    and the table's rows stream by TMA through the weight ring as MN-major
+//    [32 k, 64 n] boxes, the layout of x @ W, multicast to both blocks
+//    when they lie in one node tile (T % 128 == 0), else each block loads
+//    its own;
+//  - agg = bf16(acc) goes from the registers into the row tile (which
+//    aliases the phase-1 A tile: the products that read it are done);
+//  - phase 2, out = [agg | x_t] @ [W_l ; W_r], K = 2H: the producer streams
+//    W_l's slices, then W_r's with x_t's [64, 32] slices beside them; the
+//    weight slices are multicast to both blocks, so each weight byte read
+//    from L2 serves 128 rows;
+//  - the epilogue runs on the registers: + b_l, the row's sum of squares
+//    (a thread's pairs, the quad by shuffles, then the four warpgroups
+//    through shared memory in a fixed order), inv, y, relu, the skip row of
+//    x (read with __ldg before any store), the keep mask, z = bf16 into the
+//    tile, flushed in 16-byte rows. With emit, each block's partials of z
+//    by accumulate code are summed from the tile in row order
+//    (engine.cuh::code_sums); the cross-tile table sum (a sequential-grid
+//    accumulator on the TPU) is then sage_common.cuh::table_reduce_kernel,
+//    a second, deterministic pass.
+//
+// Shared memory at H = 512, of the 227 KB a block may take: 2 KB of
+// alignment slack, barriers and codes; a ring of 4 slices of 36 KB (a
+// [32, 512] B slice and a [64, 32] streamed A slice) = 144 KB; the A tile
+// of ceil(K1 / 32) 4 KB panels (12 at the flagship, 48 KB), aliased by the
+// 64 KB row tile; 1 KB for the row sums: 211 KB. A table window of more
+// rows (the whole table, GW == T0) takes a larger A tile and fewer ring
+// slices (at least 2). Registers: 112 a consumer thread, 64 of them the
+// sums.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include <algorithm>
 
-#include "sage_common.cuh"
-
-using namespace nvcuda;
+#include "engine.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // rows per block
-constexpr int NWARP = 8;
-constexpr int NTHREADS = NWARP * 32;
+using eng::BK;
+using eng::BM;
+using eng::NCONS;
+using eng::NTHREADS;
+using eng::NWG;
+using eng::PANEL;
+using eng::Thr;
+typedef __nv_bfloat16 bf16;
+
+#define SAGE_CLUSTER __cluster_dims__(2, 1, 1)
+static_assert(eng::CLUSTER == 2, "SAGE_CLUSTER names the cluster size");
+// the barriers, then the block's selector and accumulate codes, in the
+// first 1024 bytes
+static_assert(sizeof(eng::Smem) <= 512, "barriers before the codes");
+
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block (H100)
+constexpr int SMEM_FIXED = 1024 + eng::ring_offset() + NWG * BM * 4;
+constexpr int MAX_STAGES = 4;
+
+struct Maps {
+  CUtensorMap x, x_a, table, w_l, w_r;
+};
+
+// one run of phase 1's K: rows [row, row + rows) of x (table 0) or of the
+// star table (table 1), in ceil(rows / 32) slices; a table run's A
+// columns select codes [code0, code0 + rows)
+struct Run {
+  int table, row, rows, code0;
+};
 
 struct Params {
-  const __nv_bfloat16* x;      // [N, H]
+  Maps m;
+  const bf16* x;               // [N, H]
   const int8_t* band;          // [N, T+W] (tile t = rows t*T .. t*T+T)
-  const __nv_bfloat16* w_l;    // [H, H] (in, out)
-  const __nv_bfloat16* w_r;    // [H, H] (in, out)
-  const __nv_bfloat16* b_l;    // [H]
-  const __nv_bfloat16* table;  // [tg, H] star table (has_super)
+  const bf16* b_l;             // [H]
   const int* code;             // [N] selector codes in [0, 2GW], 2GW = none
   const int* gwin;             // [n_tiles] window bases, or null (wb = 0)
   const int* acc_code;         // [N] accumulate codes (emit)
-  const __nv_bfloat16* msgs;   // [Es, H] x at the spill senders (has_spill)
+  const bf16* msgs;            // [Es, H] x at the spill senders (has_spill)
   const int* spill_off;        // [n_tiles + 1] spill offsets (has_spill)
   const int* spill_lo;         // [N] first window column of each row
   const int* spill_hi;         // [N] end window column of each row
-  __nv_bfloat16* z;            // [N, H]
+  bf16* z;                     // [N, H]
   float* partial;              // [N / BM, 2GW, H] (emit)
-  __nv_bfloat16* y_out;        // [N, H] (save_res)
+  bf16* y_out;                 // [N, H] (save_res)
   float* inv_out;              // [N] (save_res)
-  __nv_bfloat16* agg_out;      // [N, H] (save_res)
-  int n, tile, width, gw, t0, has_super, skip, emit, save_res, dropout;
+  bf16* agg_out;               // [N, H] (save_res)
+  float* band_out;             // [N, H] f32 phase-1 sums (band_only)
+  int n, tile, width, gw, t0, has_super, skip, emit, save_res;
   int n_spill, has_spill;      // spill list rows, spill term on
-  uint32_t thr, s0, s1;        // dropout threshold and seed words
-  float scale;
-  int region0;                 // bytes of the f32 / phase-1 shared region
+  int stages, band_only;       // ring slices; phase 1 alone, to band_out
+  eng::Drop drop;
 };
 
-template <int H>
-__global__ void __launch_bounds__(NTHREADS, 1) sage_fwd_kernel(Params p) {
-  constexpr int WN = H / NWARP;  // accumulator columns per warp
-  constexpr int NF = WN / 16;    // column fragments per warp
-  constexpr int MF = BM / 16;    // row fragments
-  constexpr int LDF = H + 4;     // f32 staging stride (floats)
-  constexpr int LDA = H + 8;     // bf16 agg / z stride (elements)
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sf = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // aliases sf
-  __nv_bfloat16* sagg = reinterpret_cast<__nv_bfloat16*>(smem + p.region0);
-  int* scode = reinterpret_cast<int*>(smem + p.region0 + BM * LDA * 2);
-  int* sacc = scode + BM;
+__host__ __device__ constexpr int slices(int rows) { return (rows + BK - 1) / BK; }
 
-  const int S = p.tile + p.width;
-  const int G2 = p.has_super ? 2 * p.gw : 0;
-  const int K1 = S + G2;
-  const int LD1 = K1 + 8;
-  const int bpt = p.tile / BM;
-  const int t = blockIdx.x / bpt;
-  const int row0 = blockIdx.x * BM;  // == t*T + (blockIdx.x % bpt)*BM
-  const int start = max(0, min(t * p.tile - p.width / 2, max(p.n - S, 0)));
-  const int wb = p.gwin ? p.gwin[t] : 0;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = warp * WN;
+// phase 1's K runs of a block in node tile t, star window base wb
+struct Geo {
+  Run run[3];
+  int nrun, nk1;
+  __host__ __device__ Geo(const Params& p, int t, int wb) {
+    const int s = p.tile + p.width;
+    const int hi = p.n - s > 0 ? p.n - s : 0;
+    const int want = t * p.tile - p.width / 2;
+    const int start = want < 0 ? 0 : (want > hi ? hi : want);  // clamped slab
+    run[0] = {0, start, s, 0};
+    nrun = 1;
+    if (p.has_super) {
+      if (p.gwin) {
+        run[1] = {1, wb, p.gw, 0};
+        run[2] = {1, p.t0 + wb, p.gw, p.gw};
+        nrun = 3;
+      } else {  // the whole table, GW == T0: one run of 2GW rows
+        run[1] = {1, 0, 2 * p.gw, 0};
+        nrun = 2;
+      }
+    }
+    nk1 = 0;
+    for (int i = 0; i < nrun; ++i) nk1 += slices(run[i].rows);
+  }
+};
 
-  if (tid < BM) {
-    scode[tid] = p.has_super ? p.code[row0 + tid] : 0;
-    sacc[tid] = p.emit ? p.acc_code[row0 + tid] : 0;
-  }
-  // phase-1 A operand: [band rows (int8 -> bf16) | one-hot star selectors]
-  const int8_t* band = p.band + (size_t)row0 * S;
-  for (int i = tid; i < BM * S; i += NTHREADS) {
-    const int r = i / S;
-    const int k = i - r * S;
-    sA[r * LD1 + k] = __float2bfloat16((float)band[i]);
-  }
-  __syncthreads();
-  for (int i = tid; i < BM * G2; i += NTHREADS) {
-    const int r = i / G2;
-    const int c = i - r * G2;
-    sA[r * LD1 + S + c] = __float2bfloat16(scode[r] == c ? 1.f : 0.f);
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
+// acc += the f32 sums of the thread's two rows' message runs, each run
+// summed on its own first in message order, four column groups at a time
+template <int NW, int H>
+__device__ __forceinline__ void add_spill(float (&acc)[NW / 2],
+                                          const bf16* msgs, int ws,
+                                          const int (&lo)[2],
+                                          const int (&hi)[2], const Thr& t) {
+  constexpr int CQ = 4;
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int q0 = 0; q0 < NW / 8; q0 += CQ) {
+      float s[CQ][2] = {};
+      for (int m = lo[h]; m < hi[h]; ++m) {
+        const bf16* row = msgs + (size_t)(ws + m) * H + t.wg * NW + t.c0;
+#pragma unroll
+        for (int q = 0; q < CQ; ++q) {
+          const float2 v = eng::ld2(row + 8 * (q0 + q));
+          s[q][0] += v.x;
+          s[q][1] += v.y;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CQ; ++q) {
+        acc[4 * (q0 + q) + 2 * h] += s[q][0];
+        acc[4 * (q0 + q) + 2 * h + 1] += s[q][1];
+      }
+    }
+}
 
-  // phase 1: acc = [band | sel] @ [x slab ; table window]
-  for (int k0 = 0; k0 < K1; k0 += 16) {
-    const __nv_bfloat16* brow;
-    if (k0 < S) {
-      brow = p.x + (size_t)(start + k0) * H;
+// the phase-1 A tile [64, 32 nk1]: the band rows as bf16, then one-hot
+// selector columns per table run, zero past each run's rows
+__device__ __forceinline__ void build_a(unsigned char* a, const Params& p,
+                                        const Geo& g, const int* scode,
+                                        int row0, bool valid) {
+  const int s = p.tile + p.width;
+  const int per_row = g.nk1 * BK / 8;  // 8-column chunks of a row
+  const int slab_cols = slices(s) * BK;
+  for (int i = threadIdx.x; i < BM * per_row; i += NCONS) {
+    const int r = i / per_row, k = (i % per_row) * 8;
+    uint4 out;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+    if (k < slab_cols) {
+      if (valid && k < s) {
+        const uint2 b = __ldg(reinterpret_cast<const uint2*>(
+            p.band + (size_t)(row0 + r) * s + k));
+        const int8_t* v = reinterpret_cast<const int8_t*>(&b);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[j] = __floats2bfloat162_rn((float)v[2 * j], (float)v[2 * j + 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = __floats2bfloat162_rn(0.f, 0.f);
+      }
     } else {
-      const int r0 = k0 - S;
-      const int trow = r0 < p.gw ? wb + r0 : p.t0 + wb + (r0 - p.gw);
-      brow = p.table + (size_t)trow * H;
-    }
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a[MF];
+      int col = slab_cols, ri = 1;
+      while (k >= col + slices(g.run[ri].rows) * BK)
+        col += slices(g.run[ri++].rows) * BK;
+      const Run& run = g.run[ri];
+      const int kk = k - col, want = scode[r] - run.code0;
 #pragma unroll
-    for (int i = 0; i < MF; ++i)
-      wmma::load_matrix_sync(a[i], sA + i * 16 * LD1 + k0, LD1);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, brow + n0 + j * 16, H);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-  __syncthreads();  // every warp is done with sA before sf overwrites it
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::store_matrix_sync(sf + i * 16 * LDF + n0 + j * 16, acc[i][j], LDF,
-                              wmma::mem_row_major);
-  __syncthreads();
-  if (p.has_spill) {
-    // spill term: each warp adds its rows' message runs
-    constexpr int NQS = H / 64;
-    const int ws = sage::spill_window_start(p.spill_off[t], p.n_spill);
-    for (int rr = 0; rr < BM / NWARP; ++rr) {
-      const int r = warp * (BM / NWARP) + rr;
-      float v[NQS][2];
-#pragma unroll
-      for (int q = 0; q < NQS; ++q) {
-        v[q][0] = sf[r * LDF + q * 64 + lane * 2];
-        v[q][1] = sf[r * LDF + q * 64 + lane * 2 + 1];
-      }
-      sage::add_spill_run<H>(p.msgs, ws, p.spill_lo[row0 + r],
-                             p.spill_hi[row0 + r], lane, v);
-#pragma unroll
-      for (int q = 0; q < NQS; ++q) {
-        sf[r * LDF + q * 64 + lane * 2] = v[q][0];
-        sf[r * LDF + q * 64 + lane * 2 + 1] = v[q][1];
+      for (int j = 0; j < 4; ++j) {
+        const int c0 = kk + 2 * j;
+        o[j] = __floats2bfloat162_rn(
+            c0 < run.rows && want == c0 ? 1.f : 0.f,
+            c0 + 1 < run.rows && want == c0 + 1 ? 1.f : 0.f);
       }
     }
-    __syncthreads();
+    *reinterpret_cast<uint4*>(a + eng::tile_off(r, k)) = out;
   }
-  for (int i = tid; i < BM * H; i += NTHREADS) {
-    const int r = i / H;
-    const int c = i - r * H;
-    const __nv_bfloat16 a = __float2bfloat16_rn(sf[r * LDF + c]);
-    sagg[r * LDA + c] = a;
-    if (p.save_res) p.agg_out[(size_t)(row0 + r) * H + c] = a;
-  }
-  __syncthreads();
-
-  // phase 2: out = agg @ W_l + x_t @ W_r (bias in the epilogue)
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a[MF];
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-      wmma::load_matrix_sync(a[i], sagg + i * 16 * LDA + k0, LDA);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, p.w_l + (size_t)k0 * H + n0 + j * 16, H);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a[MF];
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-      wmma::load_matrix_sync(a[i], p.x + (size_t)(row0 + i * 16) * H + k0, H);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, p.w_r + (size_t)k0 * H + n0 + j * 16, H);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::store_matrix_sync(sf + i * 16 * LDF + n0 + j * 16, acc[i][j], LDF,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: each warp owns BM/NWARP rows; a lane holds column pairs
-  constexpr int NQ = H / 64;
-  for (int rr = 0; rr < BM / NWARP; ++rr) {
-    const int r = warp * (BM / NWARP) + rr;
-    const size_t grow = (size_t)(row0 + r) * H;
-    float v[NQ][2];
-    float sq = 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float o = sf[r * LDF + c + e] + __bfloat162float(p.b_l[c + e]);
-        v[q][e] = o;
-        sq += o * o;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float inv = rsqrtf(fmaxf(sq, 1e-24f));
-    if (p.save_res && lane == 0) p.inv_out[row0 + r] = inv;
-    const uint32_t rk = sage::row_key(p.s0, (uint32_t)(row0 + r));
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int c = q * 64 + lane * 2;
-      const float y0 = v[q][0] * inv;
-      const float y1 = v[q][1] * inv;
-      if (p.save_res)
-        *reinterpret_cast<__nv_bfloat162*>(p.y_out + grow + c) =
-            __floats2bfloat162_rn(y0, y1);
-      float r0 = fmaxf(y0, 0.f);
-      float r1 = fmaxf(y1, 0.f);
-      if (p.skip) {
-        const __nv_bfloat162 xs =
-            *reinterpret_cast<const __nv_bfloat162*>(p.x + grow + c);
-        r0 += __bfloat162float(xs.x);
-        r1 += __bfloat162float(xs.y);
-      }
-      if (p.dropout) {
-        r0 = sage::dropout_bits(rk, p.s1, c) < p.thr ? r0 * p.scale : 0.f;
-        r1 = sage::dropout_bits(rk, p.s1, c + 1) < p.thr ? r1 * p.scale : 0.f;
-      }
-      const __nv_bfloat162 zz = __floats2bfloat162_rn(r0, r1);
-      *reinterpret_cast<__nv_bfloat162*>(p.z + grow + c) = zz;
-      *reinterpret_cast<__nv_bfloat162*>(sagg + r * LDA + c) = zz;
-    }
-  }
-
-  if (!p.emit) return;
-  __syncthreads();
-  // next layer's star table: per-block partial sums of z by accumulate code
-  const int g2 = 2 * p.gw;
-  float* part = sf;  // [g2][H]
-  float* dst = p.partial + (size_t)blockIdx.x * g2 * H;
-  for (int c = tid; c < H; c += NTHREADS) {
-    for (int s = 0; s < g2; ++s) part[s * H + c] = 0.f;
-    for (int r = 0; r < BM; ++r) {
-      const int code = sacc[r];
-      if (code < g2) part[code * H + c] += __bfloat162float(sagg[r * LDA + c]);
-    }
-    for (int s = 0; s < g2; ++s) dst[s * H + c] = part[s * H + c];
-  }
+  hop::fence_async_smem();
 }
 
 template <int H>
-cudaError_t launch(Params p, int n_blocks, cudaStream_t stream) {
-  const int S = p.tile + p.width;
-  const int k1 = S + (p.has_super ? 2 * p.gw : 0);
-  int region0 = BM * (H + 4) * 4;
-  const int a_bytes = BM * (k1 + 8) * 2;
-  if (a_bytes > region0) region0 = (a_bytes + 255) / 256 * 256;
-  p.region0 = region0;
-  const int smem = region0 + BM * (H + 8) * 2 + 2 * BM * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      sage_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+__global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
+    sage_fwd_kernel(const __grid_constant__ Params p) {
+  constexpr int NW = H / NWG, NK = H / BK;
+  constexpr int SLICE = eng::slice_bytes(H, true);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = eng::align_smem(smem_raw);
+  int* scode = reinterpret_cast<int*>(smem + 512);
+  int* sacc = scode + BM;
+  unsigned char* tile = smem + eng::ring_offset() + p.stages * SLICE;
+  const int row0 = blockIdx.x * BM;
+  const bool valid = row0 < p.n;  // the last cluster's second block may be empty
+  const int nvalid = valid ? BM : 0;
+  // an empty block reads the first rows' inputs (and drops them): no
+  // address it forms lies past the end, even for a load the compiler hoists
+  const int rowc = valid ? row0 : 0;
+  // an empty block walks the last tile's slices, as its cluster peer needs
+  const int t = min((int)blockIdx.x / (p.tile / BM), p.n / p.tile - 1);
+  const Geo g(p, t, p.has_super && p.gwin ? p.gwin[t] : 0);
+  const int g2 = 2 * p.gw;
+  float* red = reinterpret_cast<float*>(
+      tile + max(eng::tile_bytes(H), g.nk1 * PANEL));  // [NWG][BM] row sums
+  eng::roles(
+      smem, p.stages, SLICE,
+      [&](eng::Producer& pr, uint64_t*) {
+        const bool mc = p.tile % (eng::CLUSTER * BM) == 0;  // one node tile
+        for (int i = 0; i < g.nrun; ++i)
+          pr.b<true>(g.run[i].table ? &p.m.table : &p.m.x, H, g.run[i].row, 0,
+                     slices(g.run[i].rows), nullptr, 0, 0, mc);
+        if (p.band_only) return;
+        pr.b<true>(&p.m.w_l, H, 0, 0, NK);
+        pr.b<true>(&p.m.w_r, H, 0, 0, NK, &p.m.x_a, 0, row0);
+      },
+      [&](hop::Ring& ring, uint64_t*) {
+        Thr th;
+        if (threadIdx.x < BM) {
+          const int r = rowc + threadIdx.x;
+          scode[threadIdx.x] = valid && p.has_super ? p.code[r] : g2;
+          sacc[threadIdx.x] = valid && p.emit ? p.acc_code[r] : g2;
+        }
+        hop::named_sync(eng::BAR_ALL, NCONS);
+        build_a(tile, p, g, scode, rowc, valid);
+        hop::named_sync(eng::BAR_ALL, NCONS);
+
+        // phase 1: acc = [band | sel] @ [x slab ; table window] (+ spill)
+        float acc[NW / 2];
+        eng::gemm<NW, true>(acc, ring, hop::smem_u32(tile), g.nk1, false, th);
+        if (p.has_spill && valid) {
+          const int ws = sage::spill_window_start(p.spill_off[t], p.n_spill);
+          const int r = rowc + th.r0;
+          const int lo[2] = {p.spill_lo[r], p.spill_lo[r + 8]};
+          const int hi[2] = {p.spill_hi[r], p.spill_hi[r + 8]};
+          add_spill<NW, H>(acc, p.msgs, ws, lo, hi, th);
+        }
+        if (p.band_only) {
+          eng::pairs<NW>(th, [&](int i, int r, int c) {
+            if (valid)
+              *reinterpret_cast<float2*>(p.band_out + (size_t)(row0 + r) * H +
+                                         c) = make_float2(acc[i], acc[i + 1]);
+          });
+          return;
+        }
+        // agg = bf16(acc): the row tile (over the spent A tile)
+        eng::to_tile<NW>(acc, tile, th);
+        if (p.save_res) eng::flush<H>(tile, p.agg_out, H, 0, row0, nvalid);
+        if (p.skip) eng::prefetch_rows(p.x, H * 2, row0, nvalid);
+
+        // phase 2: out = agg @ W_l + x_t @ W_r (x_t streamed beside W_r)
+        eng::gemm<NW, true>(acc, ring, hop::smem_u32(tile), NK, false, th);
+        eng::gemm<NW, true>(acc, ring, 0, NK, true, th);
+
+        // + b_l; the row norm: the thread's pairs, its quad, then the
+        // warpgroups in a fixed order
+        float sq[2] = {0.f, 0.f};
+        eng::pairs_chunked<NW>(th, [&](int i, int r, int c) {
+          const float2 b = eng::ld2(p.b_l + c);
+          acc[i] += b.x;
+          acc[i + 1] += b.y;
+          const int h = (i / 2) % 2;
+          sq[h] += acc[i] * acc[i];
+          sq[h] += acc[i + 1] * acc[i + 1];
+        });
+        float inv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+          sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+          if (th.lane % 4 == 0) red[th.wg * BM + th.r0 + 8 * h] = sq[h];
+        }
+        hop::named_sync(eng::BAR_ALL, NCONS);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = th.r0 + 8 * h;
+          const float s =
+              ((red[r] + red[BM + r]) + red[2 * BM + r]) + red[3 * BM + r];
+          inv[h] = rsqrtf(fmaxf(s, 1e-24f));
+          if (p.save_res && valid && th.wg == 0 && th.lane % 4 == 0)
+            p.inv_out[row0 + r] = inv[h];
+        }
+        // y = out * inv; z = bf16(dropout(relu(y) (+ x_t)))
+        eng::pairs<NW>(th, [&](int i, int r, int c) {
+          acc[i] *= inv[(i / 2) % 2];
+          acc[i + 1] *= inv[(i / 2) % 2];
+        });
+        if (p.save_res) eng::emit<NW>(acc, tile, p.y_out, H, row0, nvalid, th);
+        eng::relu<NW>(acc);
+        if (p.skip) eng::add_pairs<NW>(acc, p.x, H, row0, nvalid, th);
+        eng::dropout<NW>(acc, p.drop, row0, th);
+        eng::emit<NW>(acc, tile, p.z, H, row0, nvalid, th);
+        // next layer's star table: this block's partials by accumulate code
+        if (p.emit && valid)
+          eng::code_sums<H>(tile, sacc, g2,
+                            p.partial + (size_t)blockIdx.x * g2 * H);
+      });
+}
+
+// dynamic shared memory and ring slices of a launch, 0 slices if the A
+// tile leaves no room for two
+template <int H>
+void plan(Params& p, int nk1, int* smem) {
+  constexpr int SLICE = eng::slice_bytes(H, true);
+  const int region = std::max(eng::tile_bytes(H), nk1 * PANEL);
+  p.stages = std::min(MAX_STAGES, (SMEM_MAX - SMEM_FIXED - region) / SLICE);
+  *smem = SMEM_FIXED + p.stages * SLICE + region;
+}
+
+template <int H>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  int smem;
+  plan<H>(p, Geo(p, 0, 0).nk1, &smem);
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  cudaError_t e = eng::set_smem(sage_fwd_kernel<H>, smem);
   if (e != cudaSuccess) return e;
-  sage_fwd_kernel<H><<<n_blocks, NTHREADS, smem, stream>>>(p);
+  sage_fwd_kernel<H><<<eng::grid_blocks(p.n), NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t launch_h(const Params& p, int h, cudaStream_t st) {
+  switch (h) {
+    case 128: return launch<128>(p, st);
+    case 256: return launch<256>(p, st);
+    case 512: return launch<512>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -338,33 +392,26 @@ extern "C" int sage_layer_fwd(
     int emit, int save_res, int n_spill, int has_spill, int dropout,
     unsigned int thr, unsigned int s0, unsigned int s1, float scale,
     void* stream) {
-  Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
+  Params p = {};
+  p.x = static_cast<const bf16*>(x);
   p.band = static_cast<const int8_t*>(band);
-  p.w_l = static_cast<const __nv_bfloat16*>(w_l);
-  p.w_r = static_cast<const __nv_bfloat16*>(w_r);
-  p.b_l = static_cast<const __nv_bfloat16*>(b_l);
-  p.table = static_cast<const __nv_bfloat16*>(table);
+  p.b_l = static_cast<const bf16*>(b_l);
   p.code = static_cast<const int*>(code);
   p.gwin = static_cast<const int*>(gwin);
   p.acc_code = static_cast<const int*>(acc_code);
-  p.msgs = static_cast<const __nv_bfloat16*>(msgs);
+  p.msgs = static_cast<const bf16*>(msgs);
   p.spill_off = static_cast<const int*>(spill_off);
   p.spill_lo = static_cast<const int*>(spill_lo);
   p.spill_hi = static_cast<const int*>(spill_hi);
   p.n_spill = n_spill;
   p.has_spill = has_spill;
-  p.z = static_cast<__nv_bfloat16*>(z);
+  p.z = static_cast<bf16*>(z);
   p.partial = static_cast<float*>(partial);
-  p.y_out = static_cast<__nv_bfloat16*>(y_out);
+  p.y_out = static_cast<bf16*>(y_out);
   p.inv_out = static_cast<float*>(inv_out);
-  p.agg_out = static_cast<__nv_bfloat16*>(agg_out);
+  p.agg_out = static_cast<bf16*>(agg_out);
   p.save_res = save_res;
-  p.dropout = dropout;
-  p.thr = thr;
-  p.s0 = s0;
-  p.s1 = s1;
-  p.scale = scale;
+  p.drop = {dropout, thr, s0, s1, scale};
   p.n = n;
   p.tile = tile;
   p.width = width;
@@ -373,16 +420,13 @@ extern "C" int sage_layer_fwd(
   p.has_super = has_super;
   p.skip = skip;
   p.emit = emit;
-  p.region0 = 0;
-  const int n_blocks = n / BM;
+  bool ok = eng::map_mn(&p.m.x, x, n, h) && eng::map_a(&p.m.x_a, x, n, h, h) &&
+            eng::map_mn(&p.m.w_l, w_l, h, h) &&
+            eng::map_mn(&p.m.w_r, w_r, h, h);
+  if (has_super) ok = ok && eng::map_mn(&p.m.table, table, tg, h);
+  if (!ok || n % BM != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (h) {
-    case 128: e = launch<128>(p, n_blocks, st); break;
-    case 256: e = launch<256>(p, n_blocks, st); break;
-    case 512: e = launch<512>(p, n_blocks, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t e = launch_h(p, h, st);
   if (e != cudaSuccess) return (int)e;
   if (emit) {
     dim3 grid((h + 255) / 256, tg);
@@ -391,4 +435,22 @@ extern "C" int sage_layer_fwd(
         n / tile, tile / BM, gw, t0, h);
   }
   return (int)cudaGetLastError();
+}
+
+// out [n, h] f32 = band_t @ x[s_t : s_t + T+W] for every tile: phase 1 of
+// the forward alone (no star, no spill), for its card test
+extern "C" int sage_band_product(const void* x, const void* band, void* out,
+                                 int n, int h, int tile, int width,
+                                 void* stream) {
+  Params p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.band = static_cast<const int8_t*>(band);
+  p.band_out = static_cast<float*>(out);
+  p.n = n;
+  p.tile = tile;
+  p.width = width;
+  p.band_only = 1;
+  if (!eng::map_mn(&p.m.x, x, n, h) || n % BM != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_h(p, h, static_cast<cudaStream_t>(stream));
 }

@@ -108,6 +108,41 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+# the passes of each kernel, keys of `pass_flops`: the forward (#1), the
+# merged backward (#2: tile, band and weight passes) and the split
+# backward's tile kernel (#3: tile and weight passes)
+FWD_PASSES = ("fwd",)
+BWD_PASSES = ("bwd_tile", "bwd_band", "bwd_weights")
+TILE_PASSES = ("tile", "tile_weights")
+
+
+def pass_flops(n: int, h: int, tile: int, width: int, gw: int, *,
+               has_super: bool = False, emit: bool = False,
+               apply_prev: bool = False, tg: int = 0) -> dict[str, int]:
+    """Operations (two per multiply-add) of the products each kernel pass
+    runs on ``n`` rows at width ``h``, keyed by `FWD_PASSES`, `BWD_PASSES`
+    and `TILE_PASSES`, counted as the TPU kernels multiply: the band as a
+    dense [T, T+W] operand, the star selections (2*GW one-hot columns;
+    ``has_super``), the emitted and own tables as one-hot products by
+    accumulate code, the split tile kernel's own table over the whole
+    [tg, H] table (``tg`` > 0 with ``has_super``). The spill term is not a
+    product here: its run sums are f32 adds."""
+    hh = h * h
+    star = 2 * n * 2 * gw * h if has_super else 0
+    band = 2 * n * (tile + width) * h
+    return {
+        # [band | sel] @ [slab ; window], [agg | x] @ [W_l ; W_r], emit
+        "fwd": band + star + 4 * n * hh + (star if emit else 0),
+        # dout @ W_r^T, dout @ W_l^T, the own table (and the next layer's
+        # star on dz)
+        "bwd_tile": 4 * n * hh + star + (star if apply_prev else 0),
+        "bwd_band": band,  # band @ dagg slab
+        "bwd_weights": 4 * n * hh,  # agg^T dout, x^T dout
+        "tile": 4 * n * hh + (2 * n * tg * h if has_super else 0),
+        "tile_weights": 4 * n * hh,
+    }
+
+
 def _window_rows(gwin, gw: int, t0: int, n_tiles: int, device):
     """[n_tiles, 2*GW] table rows of each tile's star window: wb.. and
     T0+wb.. (gwin None: the whole table, GW == T0, wb == 0)."""
@@ -147,11 +182,8 @@ def sage_layer_plain(x, w_l, b_l, w_r, band, *, tile: int, width: int,
     n, h = x.shape
     n_tiles = n // tile
     dt = x.dtype
-    starts = slab_starts(n, tile, width, x.device)
-    idx = starts[:, None] + torch.arange(tile + width, device=x.device)
-    xs = x[idx].float()                                   # [n_tiles, S, H]
-    b = band.reshape(n_tiles, tile, tile + width).to(dt).float()
-    acc = torch.bmm(b, xs)                                # [n_tiles, T, H]
+    acc = band_product_plain(x, band, tile=tile, width=width).reshape(
+        n_tiles, tile, h)
     if spill_offsets is not None:
         acc = acc + spill_term_plain(spill_messages, spill_offsets, spill_lo,
                                      spill_hi, n_tiles, tile, dt)
@@ -237,6 +269,7 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
     for t in ints:
         _check(t.dtype == torch.int32, "int32 codes")
     _check(band.dtype == torch.int8, "int8 band")
+    _check(band.data_ptr() % 16 == 0, "16-byte aligned band")
     _check(h in (128, 256, 512), "H in (128, 256, 512)")
     _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
     _check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
@@ -316,6 +349,46 @@ def sage_layer_fwd(x, w_l, b_l, w_r, band, *, tile: int, width: int,
     if x.device.type == "cpu":
         return sage_layer_plain(x, w_l, b_l, w_r, band, **kw)
     raise ValueError(f"sage_layer_fwd: unsupported device {x.device}")
+
+
+def band_product_plain(x, band, *, tile: int, width: int):
+    """[N, H] float32 band_t @ x[s_t : s_t+T+W] of every tile: the forward's
+    phase 1 without star or spill (the band as x.dtype counts)."""
+    n, h = x.shape
+    n_tiles = n // tile
+    starts = slab_starts(n, tile, width, x.device)
+    xs = x[starts[:, None] + torch.arange(tile + width, device=x.device)]
+    b = band.reshape(n_tiles, tile, tile + width).to(x.dtype).float()
+    return torch.bmm(b, xs.float()).reshape(n, h)
+
+
+def band_product(x, band, *, tile: int, width: int):
+    """`band_product_plain` by the forward kernel's phase 1 alone
+    (csrc/sage_layer_fwd.cu::sage_band_product), for its card test. CUDA
+    tensors launch it (or raise); CPU tensors take the plain version. Not
+    counted in ``LAUNCHES``: no main path calls it."""
+    if x.device.type == "cpu":
+        return band_product_plain(x, band, tile=tile, width=width)
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    n, h = x.shape
+    _check(x.dtype == torch.bfloat16 and band.dtype == torch.int8,
+           "bfloat16 x, int8 band")
+    _check(x.is_contiguous() and band.is_contiguous()
+           and band.data_ptr() % 16 == 0, "contiguous, aligned operands")
+    _check(h in (128, 256, 512), "H in (128, 256, 512)")
+    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
+    _check((tile + width) % 16 == 0 and n >= tile + width, "T+W % 16 == 0")
+    out = torch.empty((n, h), dtype=torch.float32, device=x.device)
+    fn = cuda_build.load("sage_layer_fwd").sage_band_product
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    err = fn(_ptr(x), _ptr(band), _ptr(out), n, h, tile, width,
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sage_band_product launch failed: CUDA error {err}")
+    return out
 
 
 def sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,

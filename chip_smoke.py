@@ -22,8 +22,9 @@ Phases, each fatal on failure:
      the plain path on the card. Then train it (dropout 0.1, Adam, lr
      1e-3): a few checked steps, the training benchmark and a profile of
      the step, with the launch counts of that run (6 of each kernel per
-     step); and hold one step's loss and gradients against the plain path
-     on the card, from the same dropout seeds;
+     step) and one line per pass of the SAGE kernels (device ms,
+     operations, TFLOP/s); and hold one step's loss and gradients against
+     the plain path on the card, from the same dropout seeds;
   5. the virtual-edge cell (``config="virtual"``: 128 panels with
      virtual edges, whose out-of-band edges take the spill path): hold
      the forward's spill term (serving and training variants), the split
@@ -35,7 +36,8 @@ Phases, each fatal on failure:
      without their spill term; serve the cell (6 forward launches per
      forward, the forward against the plain path) and train it (6
      forward, 6 tile and 6 banded launches per step and no merged
-     backward; one step's gradients against the plain path);
+     backward; one step's gradients against the plain path; its SAGE
+     passes by line);
   6. the ea-virtual cell (``config="ea-virtual"``: EA_GNN_Shared on 64
      virtual-edge panels, tile 128, width 64): hold the fused EA block's
      forward (zx, ze, e1s, m1s and both dropout masks) and backward
@@ -100,6 +102,7 @@ from buckgnn_tpu_torch.graph.batch import (
 )
 from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
 from buckgnn_tpu_torch.graph.synthetic import generate_dataset
+from buckgnn_tpu_torch.models.buckgnn import star_threading
 from buckgnn_tpu_torch.ops import banded_matmul as bm
 from buckgnn_tpu_torch.ops import csr_segment as cs
 from buckgnn_tpu_torch.ops import ea_block as eb
@@ -401,9 +404,11 @@ def event_ms(fn, reps=20, warmup=3):
 
 
 def library_layer(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin,
-                  gw, t0, acc_code, skip, emit):
+                  gw, t0, acc_code, skip, emit, keep=None):
     """The same layer as one PyTorch composition in bf16 (bmm + matmul +
-    norm), a yardstick only: the port never calls it."""
+    norm), a yardstick only: the port never calls it. ``keep``: the
+    training variant's keep mask, precomputed as a library dropout would
+    store it (the composition keeps y and agg as its residuals)."""
     n, h = x.shape
     nt = n // tile
     starts = bm.slab_starts(n, tile, width, x.device)
@@ -417,6 +422,8 @@ def library_layer(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin,
     y = out * torch.rsqrt((out.float() ** 2).sum(-1, keepdim=True)
                           .clamp_min(1e-24)).to(x.dtype)
     z = torch.relu(y) + x if skip else torch.relu(y)
+    if keep is not None:
+        z = torch.where(keep, z * dropout_scale(RATE), 0.0)
     ftab = None
     if emit:
         sela = (acc_code.reshape(nt, 1, tile)
@@ -470,15 +477,14 @@ def layer_bound(args, kw):
     tensor-core peak."""
     x, w_l, b_l, w_r, band = args
     n, h = x.shape
-    s = kw["tile"] + kw["width"]
-    g2 = 2 * kw.get("gw", 0)
-    flops = 2 * n * s * h + 2 * n * g2 * h + 2 * 2 * n * h * h
+    flops = sl.pass_flops(n, h, kw["tile"], kw["width"], kw.get("gw", 0),
+                          has_super=kw.get("table") is not None,
+                          emit=kw.get("emit", False))["fwd"]
     ins = [x, w_l, b_l, w_r, band] + [kw.get(k) for k in (
         "table", "code", "gwin", "acc_code")]
     nbytes = sum(t.numel() * t.element_size() for t in ins if t is not None)
     nbytes += x.numel() * x.element_size()  # z
     if kw.get("emit"):
-        flops += 2 * n * g2 * h
         nbytes += kw["table"].shape[0] * h * 4  # ftab
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -493,10 +499,10 @@ def bwd_bound(args, kw):
     and each output written once at the HBM rate."""
     dz, y, inv, agg, x, w_l, w_r, band = args
     n, h = x.shape
-    g2 = 2 * kw["gw"]
-    stars = 2 if kw.get("table_prev") is not None else 1
-    flops = (8 * n * h * h + 2 * n * (kw["tile"] + kw["width"]) * h
-             + stars * 2 * n * g2 * h)
+    passes = sl.pass_flops(n, h, kw["tile"], kw["width"], kw["gw"],
+                           has_super=kw["has_super"],
+                           apply_prev=kw.get("table_prev") is not None)
+    flops = sum(passes[k] for k in sl.BWD_PASSES)
     ins = [dz, y, inv, agg, x, w_l, w_r, band, kw.get("table_prev"),
            kw["code"], kw["gwin"], kw["acc_code"]]
     nbytes = sum(t.numel() * t.element_size() for t in ins if t is not None)
@@ -843,11 +849,12 @@ def tile_bound(args, kw):
     once."""
     dz, y, inv, agg, x, w_l, w_r = args
     n, h = x.shape
-    flops = 8 * n * h * h
+    passes = sl.pass_flops(n, h, kw["tile"], 0, 0, tg=kw["tg"],
+                           has_super=kw["acc_code"] is not None)
+    flops = sum(passes[k] for k in sl.TILE_PASSES)
     nbytes = nbytes_of(dz, y, inv, agg, x, w_l, w_r, kw["acc_code"])
     nbytes += 2 * x.numel() * x.element_size() + (2 * h * h + h) * 4
     if kw["acc_code"] is not None:
-        flops += 2 * n * kw["tg"] * h
         nbytes += kw["tg"] * h * 4
     return bound(flops, 0, nbytes)
 
@@ -1348,26 +1355,70 @@ EA_PASS_KERNELS = {
     "bwd_weights": ("atb_kernel", "atb_reduce_kernel", "bias_reduce_kernel")}
 
 
+def pass_lines(kind, rows, kernels, flops, card, calls=None, **tags):
+    """One line per pass from a train step's profile rows (name, device ms
+    per step, calls per step): device ms per step and per call (``calls``
+    a step, else the pass's launches), the launches per step of the
+    pass's first kernel, its operations per step (``flops`` by pass; none
+    for a reduction) and its achieved TFLOP/s."""
+    for name, pats in kernels.items():
+        hits = [r for r in rows if any(p in r[0] for p in pats)]
+        ms = sum(r[1] for r in hits)
+        launches = sum(r[2] for r in hits if pats[0] in r[0])
+        per = calls or launches
+        f = flops.get(name, 0)
+        print(json.dumps({
+            kind: name, **tags, "card": card, "device_ms_per_step": ms,
+            "ms_per_call": ms / per if per else None,
+            "launches_per_step": launches, "flops_per_step": f,
+            "tflop_per_s": f / ms / 1e9 if ms and f else None}))
+
+
 def ea_pass_lines(rows, batch, card, layers=6):
-    """One line per pass of #5 and #6 from an ea-virtual train step's
-    profile rows (name, device ms per step, calls per step): device ms per
-    step and per block call (``layers`` calls of each kernel per step), the
-    pass's kernel launches, its operations per step (layer 0 in encoder
-    mode, the others not) and its achieved TFLOP/s."""
+    """`pass_lines` of #5 and #6 from an ea-virtual train step: ``layers``
+    block calls a step, layer 0 in encoder mode, the others not."""
     ctx = eb.make_ea_context(batch)
     n, ev = batch.n_node_cap, int((ctx.recv >= 0).sum())
     h = 512
     plain, enc = (eb.pass_flops(n, ev, h, enc=m) for m in (False, True))
-    for name, pats in EA_PASS_KERNELS.items():
-        hits = [r for r in rows if any(p in r[0] for p in pats)]
-        ms = sum(r[1] for r in hits)
-        launches = sum(r[2] for r in hits if pats[0] in r[0])
-        flops = (layers - 1) * plain[name] + enc[name]
-        print(json.dumps({
-            "ea_pass": name, "card": card, "device_ms_per_step": ms,
-            "ms_per_call": ms / layers, "launches_per_step": launches,
-            "flops_per_step": flops,
-            "tflop_per_s": flops / ms / 1e9 if ms else None}))
+    pass_lines("ea_pass", rows, EA_PASS_KERNELS,
+               {k: (layers - 1) * plain[k] + enc[k] for k in EA_PASS_KERNELS},
+               card, calls=layers)
+
+
+# the kernel names of each pass of the fused SAGE kernels in a profile: #1
+# and the star tables' reduction (forward emit and backward own table);
+# the backward's tile pass (#2's, or #3 on a spill batch), its band pass
+# (#2's, or #4 on a spill batch), the split-K weight pass and its
+# reductions
+SAGE_PASS_KERNELS = {
+    "fwd": ("sage_fwd_kernel",), "table_reduce": ("table_reduce_kernel",),
+    "bwd_tile": ("bwd_tile_kernel",), "bwd_band": ("banded_kernel",),
+    "bwd_weights": ("atb_kernel",),
+    "bwd_reduce": ("atb_reduce_kernel", "bias_reduce_kernel")}
+
+
+def sage_pass_lines(label, rows, batch, card, layers=6, h=512):
+    """`pass_lines` of the fused SAGE kernels from a train step, operations
+    by `sl.pass_flops` of each layer: on a star-threaded batch layers 0 to
+    L-2 emit the next layer's table and take its star on dz; on a spill
+    batch the tile pass is #3's and the band pass #4's."""
+    n, tile, width = batch.n_node_cap, batch.band_tile, batch.band_width
+    sup = batch.has_supernode_edges
+    gw = sl.star_codes(batch)[2] if sup else 0
+    _, tg = star_table_geometry(batch.n_graph_cap)
+    thread, tables = star_threading(batch)
+    split = batch.has_spill_edges
+    per = [sl.pass_flops(n, h, tile, width, gw, has_super=sup,
+                         emit=tables and i < layers - 1,
+                         apply_prev=thread and i < layers - 1, tg=tg)
+           for i in range(layers)]
+    keys = {"fwd": "fwd", "bwd_tile": "tile" if split else "bwd_tile",
+            "bwd_band": "bwd_band",
+            "bwd_weights": "tile_weights" if split else "bwd_weights"}
+    pass_lines("sage_pass", rows, SAGE_PASS_KERNELS,
+               {k: sum(f[v] for f in per) for k, v in keys.items()}, card,
+               cell=label)
 
 
 # ---- general graphs: the CSR segment sum and the epilogue ---------------
@@ -1782,11 +1833,13 @@ def main():
     bench, losses, train_launches = train_path(
         "flagship", train, {"sage_layer_fwd": 1, "sage_layer_bwd": 1})
     train_vs_plain(train)
+    frows = []
     print(json.dumps(step_profile(
         "flagship train step",
         lambda: train["train_step"](train["batch"], train["lr"],
                                     train["generator"]),
-        bench["train_step_ms"], card)))
+        bench["train_step_ms"], card, rows_out=frows)))
+    sage_pass_lines("flagship", frows, train["batch"], card)
     flagship_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # ---- 5. the virtual-edge cell: the spill path -------------------------
@@ -1878,11 +1931,13 @@ def main():
         "virtual", vtrain,
         {"sage_layer_fwd": 1, "sage_layer_bwd_tile": 1, "banded_matmul": 1})
     vgrad_err = train_vs_plain(vtrain, "virtual", gen_seeds=(11, 12, 13, 14))
+    vrows = []
     print(json.dumps(step_profile(
         "virtual train step",
         lambda: vtrain["train_step"](vtrain["batch"], vtrain["lr"],
                                      vtrain["generator"]),
-        vbench["train_step_ms"], card)))
+        vbench["train_step_ms"], card, rows_out=vrows)))
+    sage_pass_lines("virtual", vrows, vtrain["batch"], card)
     virtual_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # ---- 6. the EA family: the ea-virtual cell ---------------------------
@@ -1964,6 +2019,8 @@ def main():
     train_plain_ms = event_ms(lambda: sl.sage_layer_plain(*args, **tkw),
                               reps=5)
     n, h = x0.shape
+    fkeep = keep_mask(SEED, n, h, RATE, dev)
+    train_lib_ms = event_ms(lambda: library_layer(*args, keep=fkeep, **kw))
     res_bytes = 2 * n * h * x0.element_size() + n * 4
     train_bound_ms = max(flops / PEAK_BF16,
                          (nbytes + res_bytes) / PEAK_BYTES) * 1e3
@@ -2091,7 +2148,8 @@ def main():
     print(json.dumps({
         "kernel": "sage_layer_fwd, training variant (save_res, dropout 0.1)",
         "card": card, "ms": train_ms, "plain_ms": train_plain_ms,
-        "bound_ms": train_bound_ms, "serving_ms": ms}))
+        "bound_ms": train_bound_ms, "library_ms": train_lib_ms,
+        "serving_ms": ms}))
     spill_variant = {
         "shape": "virtual-edge cell, skip on", "ms": sp_ms,
         "training_variant_ms": sp_train_ms, "plain_ms": sp_plain_ms,

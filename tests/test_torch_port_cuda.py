@@ -64,15 +64,33 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-def _batch(dev, supernode=True):
+# band geometries besides (TILE, WIDTH): (tile, width, N / 64 odd). At tile
+# 64 the two 64-row blocks of a kernel cluster lie in two node tiles (their
+# slabs differ); with N / 64 odd the last cluster's second block is empty;
+# T + W = 112 leaves phase 1's last slab slice half full (K1 % 32 = 16)
+GEOMETRIES = {"t64": (64, 48, False), "t64_odd": (64, 48, True)}
+
+
+def _cap(n, tile, odd):
+    """n rounded up to whole tiles, and by one more tile when N / 64 must
+    change parity (``odd`` None: as it falls)."""
+    ncap = ((n + tile - 1) // tile) * tile
+    if odd is not None and (ncap // 64) % 2 != odd:
+        ncap += tile
+    return ncap
+
+
+def _batch(dev, supernode=True, geo=(TILE, WIDTH, None)):
+    tile, width, odd = geo
     ds = generate_dataset(12, seed=4, min_side=5, max_side=9,
                           use_super_node=supernode, use_virtual_edges=False)
     n = sum(g.n_node for g in ds) + 1
-    ncap = ((n + TILE - 1) // TILE) * TILE
+    ncap = _cap(n, tile, odd)
     ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
-    b = tb.pack_graphs(ds, ncap, ecap, 13, band_width=WIDTH, band_tile=TILE,
+    b = tb.pack_graphs(ds, ncap, ecap, 13, band_width=width, band_tile=tile,
                        device="cpu")
     assert not b.has_spill_edges and b.has_supernode_edges == supernode
+    assert odd is None or (ncap // 64) % 2 == odd
     return b.to(dev)
 
 
@@ -87,10 +105,10 @@ def _inputs(n, h, dev, seed):
             for a in (x, w_l, b_l, w_r)]
 
 
-def _layer(dev, h, star, seed):
+def _layer(dev, h, star, seed, geo=(TILE, WIDTH, None)):
     """(batch, x, W_l, b_l, W_r, band, star kwargs) for one case; star is
     "local", "local_emit", "full" (the whole table) or "none"."""
-    b = _batch(dev, supernode=star != "none")
+    b = _batch(dev, supernode=star != "none", geo=geo)
     if star == "full":
         b = b.replace(gwin=None, lcode=None, lacc=None)
     x, w_l, b_l, w_r = _inputs(b.n_node_cap, h, dev, seed=seed)
@@ -156,18 +174,20 @@ def test_training_forward_matches_plain_on_cuda(h, star):
     assert bool((z[kept_big] != 0).all())
 
 
-def _bwd_case(dev, h, star, apply_prev, skip, rate, seed=7):
+def _bwd_case(dev, h, star, apply_prev, skip, rate, seed=7,
+              geo=(TILE, WIDTH, None)):
     """Inputs of one backward call: residuals from the kernel's own
     training forward, a random dz and (apply_prev) a random bf16
     next-layer table."""
-    b, x, w_l, b_l, w_r, band, kw = _layer(dev, h, star, seed=seed)
-    fwd = dict(kw, tile=TILE, width=WIDTH, skip=skip, save_res=True,
+    b, x, w_l, b_l, w_r, band, kw = _layer(dev, h, star, seed=seed, geo=geo)
+    tile, width = b.band_tile, b.band_width
+    fwd = dict(kw, tile=tile, width=width, skip=skip, save_res=True,
                rate=rate, seed=SEED if rate else None)
     _, _, y, inv, agg = sl.sage_layer_fwd(x, w_l, b_l, w_r, band, **fwd)
     rng = np.random.default_rng(seed + 1)
     dz = torch.from_numpy(rng.normal(size=(b.n_node_cap, h)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    bwd = dict(tile=TILE, width=WIDTH, skip=skip, rate=rate,
+    bwd = dict(tile=tile, width=width, skip=skip, rate=rate,
                seed=SEED if rate else None, has_super=star != "none")
     if star != "none":
         code, gwin, gw, acc = sl.star_codes(b)
@@ -238,10 +258,11 @@ def test_kernel_rejects_what_it_does_not_take():
         sl.sage_layer_bwd(*args, **dict(kw, rate=0.1))
 
 
-def _spill_batch(dev, kind):
+def _spill_batch(dev, kind, geo=(TILE, WIDTH, None)):
     """A small batch with spill edges: "virtual" (virtual edges, no
     supernodes) or "super" (supernode panels with their node order
     scrambled inside each graph, tests/test_fused_layer.py:213-236)."""
+    tile, width, odd = geo
     if kind == "virtual":
         ds = generate_dataset(12, seed=2, min_side=5, max_side=9,
                               use_super_node=False, use_virtual_edges=True)
@@ -259,11 +280,12 @@ def _spill_batch(dev, kind):
                 receivers=inv[g.receivers].astype(np.int32),
                 supernode=int(inv[g.supernode])))
     n = sum(g.n_node for g in ds) + 1
-    ncap = ((max(n, TILE + WIDTH) + TILE - 1) // TILE) * TILE
+    ncap = _cap(max(n, tile + width), tile, odd)
     ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
-    b = tb.pack_graphs(ds, ncap, ecap, len(ds) + 1, band_width=WIDTH,
-                       band_tile=TILE, device="cpu")
+    b = tb.pack_graphs(ds, ncap, ecap, len(ds) + 1, band_width=width,
+                       band_tile=tile, device="cpu")
     assert b.has_spill_edges and not b.has_spill2_edges
+    assert odd is None or (ncap // 64) % 2 == odd
     assert b.has_supernode_edges == (kind == "super")
     return b.to(dev)
 
@@ -274,11 +296,11 @@ def _spill_kw(b, rows):
                 spill_messages=rows[b.spill_senders.long()].contiguous())
 
 
-def _spill_layer(dev, h, kind, seed):
+def _spill_layer(dev, h, kind, seed, geo=(TILE, WIDTH, None)):
     """(batch, layer args, kwargs) of one forward with the spill term."""
-    b = _spill_batch(dev, kind)
+    b = _spill_batch(dev, kind, geo)
     x, w_l, b_l, w_r = _inputs(b.n_node_cap, h, dev, seed=seed)
-    kw = dict(tile=TILE, width=WIDTH, **_spill_kw(b, x))
+    kw = dict(tile=b.band_tile, width=b.band_width, **_spill_kw(b, x))
     if kind == "super":
         code, gwin, gw, _ = sl.star_codes(b)
         t0, tg = tb.star_table_geometry(b.n_graph_cap)
@@ -327,10 +349,10 @@ def test_spill_gate_catches_a_forward_without_spill():
     assert bool((err > Z_ATOL + Z_RTOL * zp[m].float().abs()).any())
 
 
-def _tile_case(dev, h, kind, skip, rate, seed=11):
+def _tile_case(dev, h, kind, skip, rate, seed=11, geo=(TILE, WIDTH, None)):
     """Inputs of one split tile call: residuals of the kernel's own spill
     forward, a random dz, and (supernode batch) the global codes."""
-    b, args, kw = _spill_layer(dev, h, kind, seed=seed)
+    b, args, kw = _spill_layer(dev, h, kind, seed=seed, geo=geo)
     _, _, y, inv, agg = sl.sage_layer_fwd(
         *args, **dict(kw, skip=skip, save_res=True, rate=rate,
                       seed=SEED if rate else None))
@@ -339,7 +361,8 @@ def _tile_case(dev, h, kind, skip, rate, seed=11):
         np.float32)).to(dev, torch.bfloat16)
     x, w_l, _, w_r, _ = args
     _, tg = tb.star_table_geometry(b.n_graph_cap)
-    tkw = dict(tile=TILE, skip=skip, rate=rate, seed=SEED if rate else None,
+    tkw = dict(tile=b.band_tile, skip=skip, rate=rate,
+               seed=SEED if rate else None,
                acc_code=b.gacc if kind == "super" else None, tg=tg)
     return b, (dz, y, inv, agg, x, w_l, w_r), tkw
 
@@ -472,6 +495,130 @@ def test_split_kernels_reject_what_they_do_not_take():
         sl.sage_layer_bwd_tile(*args, **dict(kw, rate=0.1))
     with pytest.raises(ValueError, match="bfloat16"):
         sl.sage_layer_bwd_tile(args[0].float(), *args[1:], **kw)
+
+
+# ---- the fused SAGE kernels on the product engine: band and clusters -------
+
+@pytest.mark.parametrize("h", [128, 256, 512])
+@pytest.mark.parametrize("tile,width", [(128, 64), (64, 48), (128, 48)])
+def test_band_product_matches_dense_on_cuda(h, tile, width):
+    """The forward's phase 1 alone (sl.band_product: the int8 band converted
+    into the swizzled A tile, the slab streamed through the ring) against
+    torch.matmul of the dense bf16 band [N, N] with x, at every width: T + W
+    = 112 and 176 leave the last slab slice half empty (K1 % 32 = 16), and
+    the first and last tiles' slabs are clamped; at tile 64, N / 64 = 9 is
+    odd, so the last cluster has an empty block. Both sides sum exact
+    products of small counts and bf16 values in float32 in another order
+    (differences ~1e-6 at unit scale); a wrong swizzle offset or slice
+    moves entries by O(1)."""
+    dev = _card()
+    rng = np.random.default_rng(h + tile + width)
+    n, s = 9 * tile, tile + width
+    band = torch.from_numpy(rng.integers(0, 4, size=(n // tile, tile, s))
+                            .astype(np.int8))
+    x = torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    starts = bm.slab_starts(n, tile, width, "cpu").tolist()
+    assert starts[0] == 0 and starts[-1] == n - s
+    dense = torch.zeros((n, n))
+    for t, st in enumerate(starts):
+        dense[t * tile:(t + 1) * tile, st:st + s] = band[t].float()
+    got = sl.band_product(x, band.to(dev), tile=tile, width=width)
+    ref = dense.to(dev) @ x.float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("geo", sorted(GEOMETRIES))
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("star", ["local_emit", "full"])
+def test_forward_on_cluster_geometries_on_cuda(geo, h, star):
+    """#1's training variant (skip, dropout 0.1; the emitted table with the
+    local windows) where a cluster's two blocks lie in two node tiles and
+    where the last cluster's second block is empty (GEOMETRIES), in both
+    star modes: every output within its gate, the dropped positions
+    exact."""
+    dev = _card()
+    b, x, w_l, b_l, w_r, band, kw = _layer(dev, h, star, seed=h + 3,
+                                           geo=GEOMETRIES[geo])
+    emit = star == "local_emit"
+    kw.update(tile=b.band_tile, width=b.band_width, skip=True, emit=emit,
+              save_res=True, rate=0.1, seed=SEED)
+    z, tab, y, inv, agg = sl.sage_layer_fwd(x, w_l, b_l, w_r, band, **kw)
+    torch.cuda.synchronize()
+    zp, _, yp, invp, aggp = sl.sage_layer_plain(x, w_l, b_l, w_r, band, **kw)
+    m = b.node_mask
+    for got, ref, tol in ((z, zp, sl.KERNEL_Z_TOL), (y, yp, sl.KERNEL_Z_TOL),
+                          (agg, aggp, sl.KERNEL_Z_TOL),
+                          (inv, invp, sl.KERNEL_INV_TOL)):
+        torch.testing.assert_close(got[m].float(), ref[m].float(),
+                                   atol=tol[0], rtol=tol[1])
+    dropped = ~keep_mask(SEED, b.n_node_cap, h, 0.1, dev)
+    assert bool((z[dropped] == 0).all())
+    assert (tab is None) == (not emit)
+    if emit:
+        tabp = sl.emit_table_plain(z, kw["acc_code"], kw["gwin"], kw["gw"],
+                                   kw["t0"], b.band_tile)
+        torch.testing.assert_close(tab, tabp, atol=TAB_ATOL, rtol=TAB_RTOL)
+
+
+@pytest.mark.parametrize("geo", sorted(GEOMETRIES))
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("star", ["local", "full"])
+def test_bwd_on_cluster_geometries_on_cuda(geo, h, star):
+    """#2 (the next layer's star on dz, skip, dropout 0.1) on the
+    GEOMETRIES batches, in both star modes: every output within its
+    gate."""
+    dev = _card()
+    b, args, kw = _bwd_case(dev, h, star, True, True, 0.1,
+                            geo=GEOMETRIES[geo])
+    got = sl.sage_layer_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    ref = sl.sage_layer_bwd_plain(*args, **kw)
+    m = b.node_mask
+    for name, g, r in zip(("dx", "dw_l", "dw_r", "db_l", "town"), got, ref):
+        if name == "dx":
+            g, r = g[m], r[m]
+        atol, rtol = sl.gate_tol(r, sl.KERNEL_BWD_TOL[name])
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=lambda s: f"{name}: {s}")
+
+
+@pytest.mark.parametrize("geo", sorted(GEOMETRIES))
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("kind", ["virtual", "super"])
+def test_bwd_tile_on_cluster_geometries_on_cuda(geo, h, kind):
+    """#3 (skip, dropout 0.1) on spill batches at the GEOMETRIES: every
+    output within its gate."""
+    dev = _card()
+    b, args, kw = _tile_case(dev, h, kind, True, 0.1, geo=GEOMETRIES[geo])
+    got = sl.sage_layer_bwd_tile(*args, **kw)
+    torch.cuda.synchronize()
+    ref = sl.sage_layer_bwd_tile_plain(*args, **kw)
+    m = b.node_mask
+    for name, g, r in zip(TILE_NAMES, got, ref):
+        if name == "tbwd" and kind == "virtual":
+            assert g is None and r is None
+            continue
+        if name in ("dagg", "dxp"):
+            g, r = g[m], r[m]
+        atol, rtol = sl.gate_tol(r, sl.KERNEL_BWD_TOL[name])
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=lambda s: f"{name}: {s}")
+
+
+def test_forward_is_deterministic():
+    """No float atomics: two calls of #1 on the same inputs give the same
+    z, emitted table, y, inv and agg, bit for bit."""
+    dev = _card()
+    b, x, w_l, b_l, w_r, band, kw = _layer(dev, 512, "local_emit", seed=9)
+    kw.update(tile=TILE, width=WIDTH, skip=True, emit=True, save_res=True,
+              rate=0.1, seed=SEED)
+    first = sl.sage_layer_fwd(x, w_l, b_l, w_r, band, **kw)
+    second = sl.sage_layer_fwd(x, w_l, b_l, w_r, band, **kw)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 # ---- the fused EA block (kernels #5 and #6) --------------------------------

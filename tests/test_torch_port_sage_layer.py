@@ -172,3 +172,120 @@ def test_wrapper_takes_plain_version_on_cpu():
     zp, tabp = sl.sage_layer_plain(x, w_l, b_l, w_r, ctx.band, **kw)
     assert sl.LAUNCHES["sage_layer_fwd"] == before
     assert torch.equal(z, zp) and torch.equal(tab, tabp)
+
+
+def _flop_case(n=256, h=32, tile=64, width=16, gw=8, t0=16, seed=7):
+    """Random operands of one layer at a small shape (T + W = 80, so K1 %
+    32 = 16 as the kernel's phase 1 pads it): the counter reads shapes."""
+    rng = np.random.default_rng(seed)
+    nt = n // tile
+    f32 = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    i32 = lambda hi, *s: torch.from_numpy(
+        rng.integers(0, hi, size=s).astype(np.int32))
+    band = torch.from_numpy(rng.integers(0, 3, size=(nt, tile, tile + width))
+                            .astype(np.int8))
+    x, w_l, b_l, w_r = f32(n, h), f32(h, h), f32(h), f32(h, h)
+    star = dict(table=f32(2 * t0, h), code=i32(2 * gw + 1, nt, tile),
+                gwin=i32(t0 - gw + 1, nt), gw=gw, t0=t0,
+                acc_code=i32(2 * gw + 1, nt, tile))
+    return (x, w_l, b_l, w_r, band), star
+
+
+def _count(fn, *args, **kw):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args, **kw)
+    return fc.get_total_flops(), out
+
+
+@pytest.mark.parametrize("case", ["plain", "super", "super_emit", "spill"])
+def test_forward_pass_flops_match_the_flop_counter(case):
+    """`sl.pass_flops` (the per-pass operation counts behind chip_smoke.py's
+    bounds and its sage_pass lines) against
+    torch.utils.flop_counter.FlopCounterMode over the plain forward: the
+    band and star selection as dense one-hot products, both weights, the
+    emitted table by accumulate code. The spill case adds the plain
+    version's one-hot [T, SPILL_CHUNK] product with the message window by
+    formula: the kernels take those sums as f32 adds, not a product."""
+    args, star = _flop_case()
+    x = args[0]
+    n, h = x.shape
+    kw = dict(tile=64, width=16)
+    extra = 0
+    if case.startswith("super"):
+        kw.update(star, emit=case == "super_emit")
+    if case == "spill":
+        rng = np.random.default_rng(8)
+        nt = n // 64
+        lo = rng.integers(0, 4, size=n).astype(np.int32)
+        kw.update(spill_offsets=torch.arange(0, 64 * (nt + 1), 64,
+                                             dtype=torch.int32),
+                  spill_lo=torch.from_numpy(lo),
+                  spill_hi=torch.from_numpy(lo + 2),
+                  spill_messages=torch.from_numpy(rng.normal(
+                      size=(tb.SPILL_CHUNK + 64, h)).astype(np.float32)))
+        extra = 2 * n * tb.SPILL_CHUNK * h
+    got, _ = _count(sl.sage_layer_plain, *args, **kw)
+    want = sl.pass_flops(n, h, 64, 16, star["gw"],
+                         has_super=case.startswith("super"),
+                         emit=case == "super_emit")
+    assert got == sum(want[k] for k in sl.FWD_PASSES) + extra
+
+
+@pytest.mark.parametrize("case", ["plain", "super", "super_prev"])
+def test_backward_pass_flops_match_the_flop_counter(case):
+    """The merged backward's passes (tile, band, weights) summed against
+    the counter over `sage_layer_bwd_plain`: dout @ W_l^T and W_r^T, the
+    band product of dagg, both weight products, the own table and (with
+    the next layer's star) the selection on dz."""
+    args, star = _flop_case(seed=9)
+    x, w_l, _, w_r, band = args
+    n, h = x.shape
+    sup = case != "plain"
+    kw = dict(tile=64, width=16, has_super=sup)
+    if sup:
+        kw.update({k: star[k] for k in ("code", "gwin", "gw", "t0",
+                                        "acc_code")})
+    if case == "super_prev":
+        kw["table_prev"] = star["table"]
+    rng = np.random.default_rng(10)
+    dz, y, agg = (torch.from_numpy(rng.normal(size=(n, h)).astype(
+        np.float32)) for _ in range(3))
+    inv = torch.ones(n)
+    got, _ = _count(sl.sage_layer_bwd_plain, dz, y, inv, agg, x, w_l, w_r,
+                    band, **kw)
+    want = sl.pass_flops(n, h, 64, 16, star["gw"], has_super=sup,
+                         apply_prev=case == "super_prev")
+    assert got == sum(want[k] for k in sl.BWD_PASSES)
+
+
+@pytest.mark.parametrize("sup", [False, True])
+def test_tile_pass_flops_match_the_flop_counter(sup):
+    """The split backward's tile kernel (#3): its tile and weight passes
+    against the counter over `sage_layer_bwd_tile_plain`, the own table of
+    a supernode batch over the whole [tg, H] table."""
+    args, star = _flop_case(seed=11)
+    x, w_l, _, w_r, _ = args
+    n, h = x.shape
+    tg = 2 * star["t0"]
+    rng = np.random.default_rng(12)
+    dz, y, agg = (torch.from_numpy(rng.normal(size=(n, h)).astype(
+        np.float32)) for _ in range(3))
+    acc = (torch.from_numpy(rng.integers(0, tg + 1, size=(n // 64, 1, 64))
+                            .astype(np.int32)) if sup else None)
+    got, _ = _count(sl.sage_layer_bwd_tile_plain, dz, y, torch.ones(n), agg,
+                    x, w_l, w_r, tile=64, acc_code=acc, tg=tg)
+    want = sl.pass_flops(n, h, 64, 0, 0, has_super=sup, tg=tg)
+    assert got == sum(want[k] for k in sl.TILE_PASSES)
+
+
+def test_pass_flops_at_the_flagship_shape():
+    """The flagship's counts behind chip_smoke.py's bounds: #1 149.1 GFLOP
+    (star selection and emit, N = 103,424, T + W = 320, 2GW = 32, H = 512)
+    and #2 257.6 GFLOP (with the next layer's star)."""
+    pf = sl.pass_flops(103424, 512, 256, 64, 16, has_super=True, emit=True)
+    assert round(sum(pf[k] for k in sl.FWD_PASSES) / 1e9, 1) == 149.1
+    pb = sl.pass_flops(103424, 512, 256, 64, 16, has_super=True,
+                       apply_prev=True)
+    assert round(sum(pb[k] for k in sl.BWD_PASSES) / 1e9, 1) == 257.6
