@@ -2,23 +2,14 @@
 // accumulator add, for Hopper (sm_90a): bf16 in, f32 accumulate.
 //
 // Replaces the TPU kernel buckgnn_tpu/ops/pallas_banded.py::_kernel
-// (launched by pallas_banded_matmul). The kernel is banded.cuh::
-// banded_kernel, which also serves as the merged backward's band pass
-// (sage_layer_bwd.cu); this file is its C entry point.
-//
-// The TPU kernel applies the spill window and the table as one-hot
-// selection products ([T, 256] @ window, [T, tg] @ table). Each row of the
-// spill one-hot selects one contiguous run [lo, hi) of window rows (the
-// spill list is receiver-sorted) and each row of the table one-hot at most
-// one table row, so here a warp adds the selected rows directly: the same
-// f32 sum without the zero products. The spill run is summed on its own
-// and then added, as the TPU adds its spill product to the band product.
-//
-// What bounds it on an H100: at the virtual-edge shape (N = 103,424,
-// T = 256, W = 64, H = 512, Es = 34,176) the band product is 34 GFLOP of
-// bf16 products (0.034 ms at 989 TFLOP/s) against ~0.39 GB of compulsory
-// traffic (x, acc and out 106 MB each, the band 33 MB, the messages
-// 35 MB): 0.12 ms at 3.35 TB/s, so it is bound by bytes.
+// (launched by pallas_banded_matmul). This file is the C entry point of the
+// band kernel of banded.cuh, which also runs the merged backward's band
+// pass (sage_layer_bwd.cu); that header says what the kernel computes, what
+// bounds it on an H100 (bytes: ~0.39 GB of compulsory traffic at the
+// virtual-edge shape, 0.115 ms at 3.35 TB/s, against 0.034 ms of bf16
+// products) and how its design keeps HBM busy (#1's phase 1 on the product
+// engine, persistent clusters that walk 128-row tile pairs, the next
+// pair's slab slices in flight during each epilogue).
 
 #include "banded.cuh"
 
@@ -28,7 +19,7 @@ extern "C" int banded_matmul(
     const void* acc, void* out, int n, int h, int tile, int width,
     int n_spill, int tg, int has_spill, int has_table, int has_acc,
     int out_f32, void* stream) {
-  sage::BandParams p;
+  banded::Params p = {};
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.band = static_cast<const int8_t*>(band);
   p.msgs = static_cast<const __nv_bfloat16*>(msgs);
@@ -50,9 +41,9 @@ extern "C" int banded_matmul(
   p.out_f32 = out_f32;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (h) {
-    case 128: return (int)sage::launch_banded<128>(p, st);
-    case 256: return (int)sage::launch_banded<256>(p, st);
-    case 512: return (int)sage::launch_banded<512>(p, st);
+    case 128: return (int)banded::launch<128>(p, st);
+    case 256: return (int)banded::launch<256>(p, st);
+    case 512: return (int)banded::launch<512>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

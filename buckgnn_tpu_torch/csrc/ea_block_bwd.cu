@@ -176,9 +176,11 @@ __global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
         [&](hop::Ring& ring, uint64_t*) {
           Thr t;
           const uint32_t a = hop::smem_u32(tile);
-          if (threadIdx.x < BM)
-            scnt[threadIdx.x] =
-                (int)threadIdx.x < nvalid ? p.cnt[row0 + threadIdx.x] : 0.f;
+          if (threadIdx.x < BM) {
+            const int r = threadIdx.x;
+            const float v = p.cnt[ea::row_or0(row0, r, nvalid)];
+            scnt[r] = r < nvalid ? v : 0.f;
+          }
           float acc[NW / 2];
           uint32_t g1m[(NW / 2 + 31) / 32], b1m[(NW / 2 + 31) / 32];
           ea::stage_bias(sb, p.bias, 3, 4, H);
@@ -289,9 +291,11 @@ __global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
         [&](hop::Ring& ring, uint64_t* abar) {
           Thr t;
           const uint32_t a = hop::smem_u32(tile);
-          if (threadIdx.x < BM)
-            srecv[threadIdx.x] =
-                (int)threadIdx.x < nvalid ? p.recv[f0 + threadIdx.x] : -1;
+          if (threadIdx.x < BM) {
+            const int r = threadIdx.x;
+            const int rv = p.recv[ea::row_or0(f0, r, nvalid)];
+            srecv[r] = r < nvalid ? rv : -1;
+          }
           hop::named_sync(ea::BAR_ALL, NCONS);
           float acc[NW / 2];
           uint32_t e1m[(NW / 2 + 31) / 32];
@@ -338,8 +342,9 @@ __global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
           hop::cp_wait_all();
           hop::named_sync(ea::BAR_ALL, NCONS);
           ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
-            float2 m = make_float2(0.f, 0.f);
-            if (r < nvalid) m = ea::ld2(p.m1s + (size_t)(f0 + r) * H + c);
+            float2 m = ea::ld2(p.m1s +
+                               (size_t)ea::row_or0(f0, r, nvalid) * H + c);
+            if (r >= nvalid) m = make_float2(0.f, 0.f);
             const float2 d = ea::ld_pair(stage, r, c);
             acc[i] = m.x > 0.f ? d.x : 0.f;
             acc[i + 1] = m.y > 0.f ? d.y : 0.f;

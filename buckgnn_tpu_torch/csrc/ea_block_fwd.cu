@@ -179,9 +179,11 @@ __global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
           Thr t;
           const uint32_t a = hop::smem_u32(tile);
           if (threadIdx.x < BM) {
-            const bool ok = (int)threadIdx.x < nvalid;
-            ssend[threadIdx.x] = ok ? p.send[f0 + threadIdx.x] : -1;
-            srecv[threadIdx.x] = ok ? p.recv[f0 + threadIdx.x] : -1;
+            const int r = threadIdx.x;
+            const int f = ea::row_or0(f0, r, nvalid);
+            const int sd = p.send[f], rv = p.recv[f];
+            ssend[r] = r < nvalid ? sd : -1;
+            srecv[r] = r < nvalid ? rv : -1;
           }
           hop::named_sync(ea::BAR_ALL, NCONS);
           ea::gather_rows<H>(stage, p.proj, 3 * H, 0, ssend);  // p_s[send]
@@ -290,9 +292,13 @@ __global__ void EA_CLUSTER __launch_bounds__(NTHREADS, 1)
           // agg = bf16((sm @ W_p1 + cnt * b_p1) / max(cnt, 1))
           ea::gemm<NW, true>(acc, ring, a, NK, false, t);
           const float* b3 = sb;
-          const float cnt[2] = {
-              t.r0 < nvalid ? ea::ldf(p.cnt + row0 + t.r0) : 0.f,
-              t.r0 + 8 < nvalid ? ea::ldf(p.cnt + row0 + t.r0 + 8) : 0.f};
+          float cnt[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = t.r0 + 8 * h;
+            const float v = ea::ldf(p.cnt + ea::row_or0(row0, r, nvalid));
+            cnt[h] = r < nvalid ? v : 0.f;
+          }
           ea::pairs_chunked<NW>(t, [&](int i, int r, int c) {
             const float cn = cnt[(i / 2) % 2];
             const float2 b = *reinterpret_cast<const float2*>(b3 + c);

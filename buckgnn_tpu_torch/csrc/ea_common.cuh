@@ -32,8 +32,10 @@ __device__ __forceinline__ void run_sums(unsigned char* tile, bf16* g, int ld,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int NC = H / 8;
   for (int r = warp; r < BM; r += NCONS / 32) {
-    const int a = r < nvalid ? lo[row0 + r] : 0;
-    const int b = r < nvalid ? hi[row0 + r] : 0;
+    const int rr = row_or0(row0, r, nvalid);
+    const int lo_r = lo[rr], hi_r = hi[rr];
+    const int a = r < nvalid ? lo_r : 0;
+    const int b = r < nvalid ? hi_r : 0;
 #pragma unroll
     for (int u = 0; u < (NC + 31) / 32; ++u) {
       const int ch = lane + 32 * u;

@@ -1,7 +1,8 @@
 // The product engine of the port's Hopper kernels (the fused EA block's
 // forward and backward, ea_block_fwd.cu and ea_block_bwd.cu; the fused SAGE
 // layer's forward and the backward's tile pass, sage_layer_fwd.cu and
-// sage_layer_bwd.cu), and the epilogue pieces they share.
+// sage_layer_bwd.cu; the band kernel of banded.cuh, which runs on
+// persistent clusters), and the epilogue pieces they share.
 //
 // A block owns BM = 64 rows and the whole output width N of every product
 // in its chain (N = H, or the EA encoder's 128). It has four consumer
@@ -352,22 +353,41 @@ __device__ __forceinline__ void prefetch_rows(const void* g, size_t row_bytes,
                      row_bytes * nvalid, threadIdx.x, NCONS);
 }
 
-// the thread's two rows of a global bf16 [., ld] input (rows row0 + r0
-// and row0 + r0 + 8, column base col0) and whether each is below nvalid:
-// an invalid row reads row 0 and is zeroed, so that every load of an
+// row row0 + r of a per-row input when r < nvalid, else row 0 (whose value
+// the caller drops): an empty or partial block forms no address past the
+// input's end, even for a load the compiler hoists above its condition
+__device__ __forceinline__ int row_or0(int row0, int r, int nvalid) {
+  return r < nvalid ? row0 + r : 0;
+}
+
+// the thread's two rows of a global bf16 [., ld] input and whether each is
+// used: an unused row reads row 0 and is zeroed, so that every load of an
 // epilogue is issued unconditionally, at a constant offset from one of two
-// pointers
+// pointers. Rows row0 + r0 and row0 + r0 + 8 below nvalid, or two given
+// rows (a row gathered by code)
 struct Rows {
   const bf16* base[2];
   bool ok[2];
   int col0;
   __device__ __forceinline__ Rows(const bf16* g, int ld, int row0, int nvalid,
                                   int nw, const Thr& t) {
+    const int row[2] = {row0 + t.r0, row0 + t.r0 + 8};
+    const bool use[2] = {t.r0 < nvalid, t.r0 + 8 < nvalid};
+    init(g, ld, row, use, nw, t);
+  }
+  __device__ __forceinline__ Rows(const bf16* g, int ld, const int (&row)[2],
+                                  const bool (&use)[2], int nw, const Thr& t) {
+    init(g, ld, row, use, nw, t);
+  }
+  __device__ __forceinline__ void init(const bf16* g, int ld,
+                                       const int (&row)[2],
+                                       const bool (&use)[2], int nw,
+                                       const Thr& t) {
     col0 = t.wg * nw + t.c0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      ok[h] = t.r0 + 8 * h < nvalid;
-      base[h] = g + (size_t)(ok[h] ? row0 + t.r0 + 8 * h : 0) * ld + col0;
+      ok[h] = use[h];
+      base[h] = g + (size_t)(ok[h] ? row[h] : 0) * ld + col0;
     }
   }
   // the pair of sum index i (column c)
@@ -378,18 +398,24 @@ struct Rows {
   }
 };
 
+// acc += the pairs of the thread's two rows of ``rows``
+template <int NW>
+__device__ __forceinline__ void add_rows(float (&acc)[NW / 2],
+                                         const Rows& rows, const Thr& t) {
+  pairs_chunked<NW>(t, [&](int i, int r, int c) {
+    const float2 d = rows.at(i, c);
+    acc[i] += d.x;
+    acc[i + 1] += d.y;
+  });
+}
+
 // acc += the pairs of rows row0 + r (r < nvalid) of a global bf16 [., ld]
 // input
 template <int NW>
 __device__ __forceinline__ void add_pairs(float (&acc)[NW / 2], const bf16* g,
                                           int ld, int row0, int nvalid,
                                           const Thr& t) {
-  const Rows rows(g, ld, row0, nvalid, NW, t);
-  pairs_chunked<NW>(t, [&](int i, int r, int c) {
-    const float2 d = rows.at(i, c);
-    acc[i] += d.x;
-    acc[i + 1] += d.y;
-  });
+  add_rows<NW>(acc, Rows(g, ld, row0, nvalid, NW, t), t);
 }
 
 // relu masks of the sums (of their bf16 values, as the plain version

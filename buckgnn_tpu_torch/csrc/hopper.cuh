@@ -424,4 +424,22 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a 2-D byte tensor map (int8 rows of ``inner`` bytes, ``outer`` rows, the
+// row stride ``inner``), boxes of [box_outer, box_inner] without a swizzle
+// (a box lands as box_outer rows of box_inner bytes); reads past the end
+// fill zeros. False on failure.
+inline bool make_map_bytes(CUtensorMap* map, const void* ptr, int inner,
+                           int outer, int box_inner, int box_outer) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace hop

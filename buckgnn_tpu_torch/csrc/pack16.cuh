@@ -1,6 +1,7 @@
 // 16 bytes of a row as floats: the vector loads and stores of the
 // elementwise and gather kernels (csr_segment.cu, epilogue.cu). N values
-// of T per 16 bytes; `round` is the rounding of an f32 value to T.
+// of T per 16 bytes; `round` is the rounding of an f32 value to T (as a
+// float), `one` that value as a T.
 
 #pragma once
 
@@ -34,6 +35,9 @@ struct Pack<__nv_bfloat16> {
   __device__ __forceinline__ static float round(float a) {
     return __bfloat162float(__float2bfloat16_rn(a));
   }
+  __device__ __forceinline__ static __nv_bfloat16 one(float a) {
+    return __float2bfloat16_rn(a);
+  }
 };
 
 template <>
@@ -50,6 +54,7 @@ struct Pack<float> {
                       __float_as_uint(a[2]), __float_as_uint(a[3]));
   }
   __device__ __forceinline__ static float round(float a) { return a; }
+  __device__ __forceinline__ static float one(float a) { return a; }
 };
 
 }  // namespace pack16

@@ -12,15 +12,12 @@
 // over their sequential grid; here every 64-row block writes f32 partials
 // [2GW, H] and this kernel adds them in block order for each table row.
 //
-// spill_window_start / add_spill_run: the spill term of the banded SpMM
-// (the forward, sage_layer_fwd.cu::add_spill, sums the same runs in the same
-// order on its accumulator registers). Tile t's messages are SPILL_CHUNK
-// rows of the receiver-sorted spill list from w_t = clip(off[t] /
-// SPILL_ALIGN * SPILL_ALIGN, 0, Es - SPILL_CHUNK) (graph/batch.py::
-// _host_spill_ranges), and each row's messages are one contiguous run
-// [lo, hi) of that window. The TPU kernels take the run's sum as a one-hot
-// [T, SPILL_CHUNK] product with the window; here the run's rows are added
-// directly: the same f32 sum without the zero products.
+// spill_window_start: the spill window of a node tile, for the spill term
+// of the band product (banded.cuh::add_spill, in the banded SpMM and the
+// forward). Tile t's messages are SPILL_CHUNK rows of the receiver-sorted
+// spill list from w_t = clip(off[t] / SPILL_ALIGN * SPILL_ALIGN, 0, Es -
+// SPILL_CHUNK) (graph/batch.py::_host_spill_ranges), and each row's
+// messages are one contiguous run [lo, hi) of that window.
 
 #pragma once
 
@@ -34,34 +31,6 @@ constexpr int SPILL_ALIGN = 16;   // window start alignment
 
 __device__ __forceinline__ int spill_window_start(int off_t, int n_spill) {
   return max(0, min(off_t / SPILL_ALIGN * SPILL_ALIGN, n_spill - SPILL_CHUNK));
-}
-
-// v += the f32 sum of msgs[ws + lo .. ws + hi), summed on its own first, as
-// the TPU adds its spill product to the rest of the accumulator; a lane
-// holds the column pairs q * 64 + 2 * lane of the row
-template <int H>
-__device__ __forceinline__ void add_spill_run(const __nv_bfloat16* msgs,
-                                              int ws, int lo, int hi,
-                                              int lane, float (&v)[H / 64][2]) {
-  constexpr int NQ = H / 64;
-  float s[NQ][2];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) s[q][0] = s[q][1] = 0.f;
-  for (int m = lo; m < hi; ++m) {
-    const __nv_bfloat16* mrow = msgs + (size_t)(ws + m) * H;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const __nv_bfloat162 m2 = *reinterpret_cast<const __nv_bfloat162*>(
-          mrow + q * 64 + lane * 2);
-      s[q][0] += __bfloat162float(m2.x);
-      s[q][1] += __bfloat162float(m2.y);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    v[q][0] += s[q][0];
-    v[q][1] += s[q][1];
-  }
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {

@@ -33,8 +33,9 @@
 //   1. tile pass, one block per 64 rows: dout, dagg and dxp to device
 //      memory in bf16, plus per-block f32 partials of db_l and of the star
 //      table;
-//   2. band pass, one block per 64 rows: dx = dxp + band @ dagg slab,
-//      banded.cuh::banded_kernel with its acc add (the banded SpMM's kernel);
+//   2. band pass: dx = bf16(band @ dagg slab + dxp), the band kernel of
+//      banded.cuh with its acc add (the banded SpMM's kernel: #1's phase 1
+//      alone, from the shared phase-1 header, on persistent clusters);
 //   3. weight pass: agg^T @ dout and x^T @ dout, each split over a fixed
 //      number of row chunks (split-K), f32 partials per chunk
 //      (atb.cuh::atb, the EA backward's weight pass too);
@@ -311,7 +312,7 @@ cudaError_t launch(Params p, float* dwl, float* dwr, float* db, float* town,
                    int tg, cudaStream_t st) {
   cudaError_t e = launch_tile<H>(p, st);
   if (e != cudaSuccess) return e;
-  sage::BandParams bp = {};  // pass 2: dx = bf16(band @ dagg slab + dxp)
+  banded::Params bp = {};  // pass 2: dx = bf16(band @ dagg slab + dxp)
   bp.x = p.dagg;
   bp.band = p.band;
   bp.acc = p.dxp;
@@ -320,7 +321,7 @@ cudaError_t launch(Params p, float* dwl, float* dwr, float* db, float* town,
   bp.tile = p.tile;
   bp.width = p.width;
   bp.has_acc = 1;
-  if ((e = sage::launch_banded<H>(bp, st)) != cudaSuccess) return e;
+  if ((e = banded::launch<H>(bp, st)) != cudaSuccess) return e;
   return launch_weights<H>(p, dwl, dwr, db, town, tg, st);
 }
 

@@ -27,7 +27,7 @@
 // with the tile's message window, pallas_sage_layer.py:313-349) is the same
 // f32 sum taken directly: each thread adds its two rows' message runs to
 // its accumulator registers, each run summed on its own first in message
-// order (sage_common.cuh::add_spill_run's order), also before the cast.
+// order (banded.cuh::add_spill), also before the cast.
 //
 // What bounds it on an H100: at the flagship shape (N = 103,424, T = 256,
 // W = 64, H = 512, 2GW = 32) a layer does 149 GFLOP of bf16 products against
@@ -37,7 +37,9 @@
 // Design: the product engine of engine.cuh. One block of four consumer
 // warpgroups (H/4 columns each) and a producer warp owns 64 rows across the
 // full width, in clusters of two neighbouring blocks:
-//  - phase 1, acc = [band | sel] @ [x slab ; table window], K1 = T+W+2GW:
+//  - phase 1, acc = [band | sel] @ [x slab ; table window], K1 = T+W+2GW,
+//    with the pieces of banded.cuh, the header of the band kernel that runs
+//    the same product alone (#4 and the backward's band pass):
 //    the consumers convert the block's int8 band rows to bf16 (counts <=
 //    127 are exact) straight into the K-major 64-byte-swizzled A tile that
 //    wgmma reads, with the one-hot selector columns after them. K is cut
@@ -75,6 +77,7 @@
 
 #include <algorithm>
 
+#include "banded.cuh"
 #include "engine.cuh"
 
 namespace {
@@ -102,13 +105,6 @@ struct Maps {
   CUtensorMap x, x_a, table, w_l, w_r;
 };
 
-// one run of phase 1's K: rows [row, row + rows) of x (table 0) or of the
-// star table (table 1), in ceil(rows / 32) slices; a table run's A
-// columns select codes [code0, code0 + rows)
-struct Run {
-  int table, row, rows, code0;
-};
-
 struct Params {
   Maps m;
   const bf16* x;               // [N, H]
@@ -126,112 +122,20 @@ struct Params {
   bf16* y_out;                 // [N, H] (save_res)
   float* inv_out;              // [N] (save_res)
   bf16* agg_out;               // [N, H] (save_res)
-  float* band_out;             // [N, H] f32 phase-1 sums (band_only)
   int n, tile, width, gw, t0, has_super, skip, emit, save_res;
   int n_spill, has_spill;      // spill list rows, spill term on
-  int stages, band_only;       // ring slices; phase 1 alone, to band_out
+  int stages;                  // ring slices
   eng::Drop drop;
 };
 
-__host__ __device__ constexpr int slices(int rows) { return (rows + BK - 1) / BK; }
+using banded::Geo;
+using banded::slices;
 
 // phase 1's K runs of a block in node tile t, star window base wb
-struct Geo {
-  Run run[3];
-  int nrun, nk1;
-  __host__ __device__ Geo(const Params& p, int t, int wb) {
-    const int s = p.tile + p.width;
-    const int hi = p.n - s > 0 ? p.n - s : 0;
-    const int want = t * p.tile - p.width / 2;
-    const int start = want < 0 ? 0 : (want > hi ? hi : want);  // clamped slab
-    run[0] = {0, start, s, 0};
-    nrun = 1;
-    if (p.has_super) {
-      if (p.gwin) {
-        run[1] = {1, wb, p.gw, 0};
-        run[2] = {1, p.t0 + wb, p.gw, p.gw};
-        nrun = 3;
-      } else {  // the whole table, GW == T0: one run of 2GW rows
-        run[1] = {1, 0, 2 * p.gw, 0};
-        nrun = 2;
-      }
-    }
-    nk1 = 0;
-    for (int i = 0; i < nrun; ++i) nk1 += slices(run[i].rows);
-  }
-};
-
-// acc += the f32 sums of the thread's two rows' message runs, each run
-// summed on its own first in message order, four column groups at a time
-template <int NW, int H>
-__device__ __forceinline__ void add_spill(float (&acc)[NW / 2],
-                                          const bf16* msgs, int ws,
-                                          const int (&lo)[2],
-                                          const int (&hi)[2], const Thr& t) {
-  constexpr int CQ = 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int q0 = 0; q0 < NW / 8; q0 += CQ) {
-      float s[CQ][2] = {};
-      for (int m = lo[h]; m < hi[h]; ++m) {
-        const bf16* row = msgs + (size_t)(ws + m) * H + t.wg * NW + t.c0;
-#pragma unroll
-        for (int q = 0; q < CQ; ++q) {
-          const float2 v = eng::ld2(row + 8 * (q0 + q));
-          s[q][0] += v.x;
-          s[q][1] += v.y;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < CQ; ++q) {
-        acc[4 * (q0 + q) + 2 * h] += s[q][0];
-        acc[4 * (q0 + q) + 2 * h + 1] += s[q][1];
-      }
-    }
-}
-
-// the phase-1 A tile [64, 32 nk1]: the band rows as bf16, then one-hot
-// selector columns per table run, zero past each run's rows
-__device__ __forceinline__ void build_a(unsigned char* a, const Params& p,
-                                        const Geo& g, const int* scode,
-                                        int row0, bool valid) {
-  const int s = p.tile + p.width;
-  const int per_row = g.nk1 * BK / 8;  // 8-column chunks of a row
-  const int slab_cols = slices(s) * BK;
-  for (int i = threadIdx.x; i < BM * per_row; i += NCONS) {
-    const int r = i / per_row, k = (i % per_row) * 8;
-    uint4 out;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-    if (k < slab_cols) {
-      if (valid && k < s) {
-        const uint2 b = __ldg(reinterpret_cast<const uint2*>(
-            p.band + (size_t)(row0 + r) * s + k));
-        const int8_t* v = reinterpret_cast<const int8_t*>(&b);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          o[j] = __floats2bfloat162_rn((float)v[2 * j], (float)v[2 * j + 1]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = __floats2bfloat162_rn(0.f, 0.f);
-      }
-    } else {
-      int col = slab_cols, ri = 1;
-      while (k >= col + slices(g.run[ri].rows) * BK)
-        col += slices(g.run[ri++].rows) * BK;
-      const Run& run = g.run[ri];
-      const int kk = k - col, want = scode[r] - run.code0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c0 = kk + 2 * j;
-        o[j] = __floats2bfloat162_rn(
-            c0 < run.rows && want == c0 ? 1.f : 0.f,
-            c0 + 1 < run.rows && want == c0 + 1 ? 1.f : 0.f);
-      }
-    }
-    *reinterpret_cast<uint4*>(a + eng::tile_off(r, k)) = out;
-  }
-  hop::fence_async_smem();
+__host__ __device__ inline Geo geo(const Params& p, int t, int wb) {
+  Geo g(p.n, p.tile, p.width, t);
+  if (p.has_super) g.add_table(p.gw, p.t0, wb, p.gwin == nullptr);
+  return g;
 }
 
 template <int H>
@@ -252,7 +156,7 @@ __global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
   const int rowc = valid ? row0 : 0;
   // an empty block walks the last tile's slices, as its cluster peer needs
   const int t = min((int)blockIdx.x / (p.tile / BM), p.n / p.tile - 1);
-  const Geo g(p, t, p.has_super && p.gwin ? p.gwin[t] : 0);
+  const Geo g = geo(p, t, p.has_super && p.gwin ? p.gwin[t] : 0);
   const int g2 = 2 * p.gw;
   float* red = reinterpret_cast<float*>(
       tile + max(eng::tile_bytes(H), g.nk1 * PANEL));  // [NWG][BM] row sums
@@ -261,9 +165,9 @@ __global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
       [&](eng::Producer& pr, uint64_t*) {
         const bool mc = p.tile % (eng::CLUSTER * BM) == 0;  // one node tile
         for (int i = 0; i < g.nrun; ++i)
-          pr.b<true>(g.run[i].table ? &p.m.table : &p.m.x, H, g.run[i].row, 0,
-                     slices(g.run[i].rows), nullptr, 0, 0, mc);
-        if (p.band_only) return;
+          pr.b<true>(g.run[i].src == banded::TABLE ? &p.m.table : &p.m.x, H,
+                     g.run[i].row, 0, slices(g.run[i].rows), nullptr, 0, 0,
+                     mc);
         pr.b<true>(&p.m.w_l, H, 0, 0, NK);
         pr.b<true>(&p.m.w_r, H, 0, 0, NK, &p.m.x_a, 0, row0);
       },
@@ -275,7 +179,14 @@ __global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
           sacc[threadIdx.x] = valid && p.emit ? p.acc_code[r] : g2;
         }
         hop::named_sync(eng::BAR_ALL, NCONS);
-        build_a(tile, p, g, scode, rowc, valid);
+        const int s = p.tile + p.width;
+        banded::build_a(tile, s, g, scode, nullptr, nullptr,
+                        [&](int r, int k) {
+                          return valid ? __ldg(reinterpret_cast<const uint2*>(
+                                             p.band + (size_t)(rowc + r) * s +
+                                             k))
+                                       : make_uint2(0u, 0u);
+                        });
         hop::named_sync(eng::BAR_ALL, NCONS);
 
         // phase 1: acc = [band | sel] @ [x slab ; table window] (+ spill)
@@ -286,15 +197,7 @@ __global__ void SAGE_CLUSTER __launch_bounds__(NTHREADS, 1)
           const int r = rowc + th.r0;
           const int lo[2] = {p.spill_lo[r], p.spill_lo[r + 8]};
           const int hi[2] = {p.spill_hi[r], p.spill_hi[r + 8]};
-          add_spill<NW, H>(acc, p.msgs, ws, lo, hi, th);
-        }
-        if (p.band_only) {
-          eng::pairs<NW>(th, [&](int i, int r, int c) {
-            if (valid)
-              *reinterpret_cast<float2*>(p.band_out + (size_t)(row0 + r) * H +
-                                         c) = make_float2(acc[i], acc[i + 1]);
-          });
-          return;
+          banded::add_spill<NW, H>(acc, p.msgs, ws, lo, hi, th);
         }
         // agg = bf16(acc): the row tile (over the spent A tile)
         eng::to_tile<NW>(acc, tile, th);
@@ -363,7 +266,7 @@ void plan(Params& p, int nk1, int* smem) {
 template <int H>
 cudaError_t launch(Params p, cudaStream_t stream) {
   int smem;
-  plan<H>(p, Geo(p, 0, 0).nk1, &smem);
+  plan<H>(p, geo(p, 0, 0).nk1, &smem);
   if (p.stages < 2) return cudaErrorInvalidValue;
   cudaError_t e = eng::set_smem(sage_fwd_kernel<H>, smem);
   if (e != cudaSuccess) return e;
@@ -435,22 +338,4 @@ extern "C" int sage_layer_fwd(
         n / tile, tile / BM, gw, t0, h);
   }
   return (int)cudaGetLastError();
-}
-
-// out [n, h] f32 = band_t @ x[s_t : s_t + T+W] for every tile: phase 1 of
-// the forward alone (no star, no spill), for its card test
-extern "C" int sage_band_product(const void* x, const void* band, void* out,
-                                 int n, int h, int tile, int width,
-                                 void* stream) {
-  Params p = {};
-  p.x = static_cast<const bf16*>(x);
-  p.band = static_cast<const int8_t*>(band);
-  p.band_out = static_cast<float*>(out);
-  p.n = n;
-  p.tile = tile;
-  p.width = width;
-  p.band_only = 1;
-  if (!eng::map_mn(&p.m.x, x, n, h) || n % BM != 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_h(p, h, static_cast<cudaStream_t>(stream));
 }

@@ -16,8 +16,8 @@ takes the run [lo[r], hi[r]) of it (graph/batch.py::_host_spill_ranges
 packs off, lo and hi).
 
 `banded_matmul` is the wrapper: on CUDA tensors it launches the hand-written
-kernel ``csrc/banded_matmul.cu`` (``csrc/banded.cuh::banded_kernel``, bf16
-only) and counts the launch in
+kernel ``csrc/banded_matmul.cu`` (``csrc/banded.cuh::band_kernel``, bf16
+only, on persistent clusters of the product engine) and counts the launch in
 ``ops/sage_layer.py::LAUNCHES["banded_matmul"]``; on CPU tensors it runs
 `banded_matmul_plain`, the plain PyTorch version with the TPU kernel's
 casts.
@@ -31,7 +31,7 @@ import torch
 
 from buckgnn_tpu_torch.graph.batch import SPILL_ALIGN, SPILL_CHUNK
 
-_BM = 64  # rows per kernel block (csrc/banded.cuh)
+_BM = 64  # rows per kernel block (csrc/engine.cuh)
 
 # The kernel against `banded_matmul_plain` on the same bf16 inputs, as
 # (atol as a fraction of rms(ref), rtol): |got - ref| <= atol * rms(ref) +
@@ -134,6 +134,7 @@ def _launch(band, x, *, tile, width, out_dtype, spill_offsets, spill_lo,
     for t in ints:
         _check(t.dtype == torch.int32, "int32 offsets and codes")
     _check(band.dtype == torch.int8, "int8 band")
+    _check(band.data_ptr() % 16 == 0, "16-byte aligned band")
     _check(out_dtype in (torch.bfloat16, torch.float32),
            "out_dtype bfloat16 or float32")
     _check(h in (128, 256, 512), "H in (128, 256, 512)")

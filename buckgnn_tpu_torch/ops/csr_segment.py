@@ -22,7 +22,10 @@ the hand-written kernel ``csrc/csr_segment.cu``: on CUDA tensors it
 launches it (bf16 or float32, any row count, H % 8 == 0 up to 1024) and
 counts the launch in ``LAUNCHES``, and raises on anything else; on CPU
 tensors it runs `csr_segment_sum_plain`. It does not take the TPU kernel's
-shape fallbacks (H % 128, N % 256), which exist for the TPU's tiles.
+shape fallbacks (H % 128, N % 256), which exist for the TPU's tiles. The
+kernel sums a run of at most SPLIT edges in one warp and cuts a longer
+run into SPLIT-edge chunks, summed by separate warps and added in chunk
+order; `csr_segment_sum_split_plain` is that order in plain PyTorch.
 
 The JAX package has no VJP for this kernel (``jax.grad`` through it
 raises). The port's backward is the same CSR sum over the transposed CSR,
@@ -59,6 +62,10 @@ LAUNCHES = {"csr_segment": 0}
 # 30% of the outputs), so they take the ulp gate alone.
 KERNEL_TOL = (4e-3, 8e-3)
 KERNEL_FLIP_SHARE = 1e-3
+
+# edges one warp of the kernel sums at once (csrc/csr_segment.cu::kSplit):
+# a longer run is cut into chunks of SPLIT edges
+SPLIT = 32
 
 
 def reset_launch_counts() -> None:
@@ -110,6 +117,35 @@ def csr_segment_sum_plain(x: torch.Tensor, idx: torch.Tensor,
     rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts,
                                    output_size=idx.numel())
     out = segment.segment_sum(x[idx.long()], rows, n)
+    if mean:
+        return out.float() / counts.float().clamp_min(1.0)[:, None]
+    return out
+
+
+def csr_segment_sum_split_plain(x: torch.Tensor, idx: torch.Tensor,
+                                off: torch.Tensor, mean: bool = False):
+    """`csr_segment_sum_plain` in the kernel's order: a run of at most SPLIT
+    edges summed in float32 in edge order; a longer run cut into chunks of
+    SPLIT edges, each summed on its own, the chunk sums added in chunk
+    order; one rounding to x.dtype (``mean``: float32 of that, over
+    max(count, 1))."""
+    n, h = off.numel() - 1, x.shape[1]
+    counts = (off[1:] - off[:-1]).long()
+    nch = (counts + SPLIT - 1) // SPLIT
+    coff = torch.zeros(n + 1, dtype=torch.long, device=x.device)
+    coff[1:] = torch.cumsum(nch, 0)
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts,
+                                   output_size=idx.numel())
+    k = torch.arange(idx.numel(), device=x.device)
+    chunk = coff[rows] + (k - off[rows].long()) // SPLIT
+    part = torch.zeros((int(coff[-1]), h), dtype=torch.float32,
+                       device=x.device).index_add_(0, chunk,
+                                                   x[idx.long()].float())
+    total = torch.zeros((n, h), dtype=torch.float32, device=x.device)
+    for j in range(int(nch.max()) if n else 0):
+        has = nch > j
+        total[has] = total[has] + part[coff[:-1][has] + j]
+    out = total.to(x.dtype)
     if mean:
         return out.float() / counts.float().clamp_min(1.0)[:, None]
     return out

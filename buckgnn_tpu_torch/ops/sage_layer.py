@@ -362,35 +362,6 @@ def band_product_plain(x, band, *, tile: int, width: int):
     return torch.bmm(b, xs.float()).reshape(n, h)
 
 
-def band_product(x, band, *, tile: int, width: int):
-    """`band_product_plain` by the forward kernel's phase 1 alone
-    (csrc/sage_layer_fwd.cu::sage_band_product), for its card test. CUDA
-    tensors launch it (or raise); CPU tensors take the plain version. Not
-    counted in ``LAUNCHES``: no main path calls it."""
-    if x.device.type == "cpu":
-        return band_product_plain(x, band, tile=tile, width=width)
-    from buckgnn_tpu_torch.utils import cuda_build
-
-    n, h = x.shape
-    _check(x.dtype == torch.bfloat16 and band.dtype == torch.int8,
-           "bfloat16 x, int8 band")
-    _check(x.is_contiguous() and band.is_contiguous()
-           and band.data_ptr() % 16 == 0, "contiguous, aligned operands")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
-    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
-    _check((tile + width) % 16 == 0 and n >= tile + width, "T+W % 16 == 0")
-    out = torch.empty((n, h), dtype=torch.float32, device=x.device)
-    fn = cuda_build.load("sage_layer_fwd").sage_band_product
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    err = fn(_ptr(x), _ptr(band), _ptr(out), n, h, tile, width,
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"sage_band_product launch failed: CUDA error {err}")
-    return out
-
-
 def sage_layer_bwd_plain(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
                          width: int, table_prev=None, code=None, gwin=None,
                          gw: int = 0, t0: int = 0, acc_code=None,

@@ -75,8 +75,9 @@ Phases, each fatal on failure:
      train it (6 + 6 CSR launches, 6 epilogue forwards and 6 backwards per
      step, no SAGE or EA kernel; one step's gradients against the plain
      path at two generator seeds), serve and train the xla twin (no CSR
-     launch, the epilogue kernels in training), and time the three new
-     kernels.
+     launch, the epilogue kernels in training), time the three kernels
+     and print #7's tail (its time beside the batch's longest runs, and
+     on the 800-degree hub).
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -1393,7 +1394,7 @@ def ea_pass_lines(rows, batch, card, layers=6):
 # reductions
 SAGE_PASS_KERNELS = {
     "fwd": ("sage_fwd_kernel",), "table_reduce": ("table_reduce_kernel",),
-    "bwd_tile": ("bwd_tile_kernel",), "bwd_band": ("banded_kernel",),
+    "bwd_tile": ("bwd_tile_kernel",), "bwd_band": ("band_kernel",),
     "bwd_weights": ("atb_kernel",),
     "bwd_reduce": ("atb_reduce_kernel", "bias_reduce_kernel")}
 
@@ -1654,6 +1655,24 @@ def general_graphs(dev, card):
                                                     cctx.row_off, True))
     c_bwd_ms = event_ms(lambda: cs.csr_segment_sum(g_e, cctx.t_idx,
                                                    cctx.t_off))
+    # the long runs' tail: #7 on the cell's batch beside its longest runs,
+    # and on the 800-degree hub graph (one long row, forward and backward)
+    xh = torch.randn((hub.num_segments, h), generator=gc, device=dev).to(
+        torch.bfloat16)
+    t_runs = cctx.t_off[1:] - cctx.t_off[:-1]
+    print(json.dumps({
+        "csr_tail": "csr_segment on csr-virtual and on the hub graph",
+        "card": card, "csr_virtual_fwd_ms": c_ms,
+        "csr_virtual_bwd_ms": c_bwd_ms, "longest_run": int(indeg.max()),
+        "dead_row_run": int(indeg[-1]),
+        "longest_real_run": int(indeg[:-1].max()),
+        "longest_transposed_run": int(t_runs.max()),
+        "hub_rows": hub.num_segments, "hub_run": int(
+            (hub.row_off[1:] - hub.row_off[:-1]).max()),
+        "hub_fwd_ms": event_ms(lambda: cs.csr_segment_sum(
+            xh, hub.senders, hub.row_off)),
+        "hub_bwd_ms": event_ms(lambda: cs.csr_segment_sum(
+            xh, hub.t_idx, hub.t_off))}))
     idx_bytes = nbytes_of(cctx.senders, cctx.row_off)
     c_bound_ms, c_bound_by = bound(0, e_n * h, 2 * nbytes_of(xc0)
                                    + idx_bytes)

@@ -327,3 +327,66 @@ def test_cpu_wrappers_take_the_plain_versions():
     np.testing.assert_array_equal(ctx.t_idx.numpy(), r[order])
     np.testing.assert_array_equal(
         ctx.t_off.numpy(), np.searchsorted(s[order], np.arange(n + 1)))
+
+
+def _padded_batch():
+    """The CSR of 8 virtual-edge panels packed at suggest_capacities' caps:
+    the dead row (the last) owns every pad edge, more than SPLIT of them."""
+    from buckgnn_tpu_torch.graph import batch as tb
+    from buckgnn_tpu_torch.graph.normalizer import normalize_dataset
+    from buckgnn_tpu_torch.graph.synthetic import generate_dataset
+
+    ds = normalize_dataset(generate_dataset(
+        8, seed=7, min_side=6, max_side=9, use_super_node=False,
+        use_virtual_edges=True))[0]
+    ncap, ecap = tb.suggest_capacities(ds, 8)
+    b = next(tb.batch_iterator(ds, 8, ncap, ecap, device="cpu"))
+    assert int((b.receivers == ncap - 1).sum()) > cs.SPLIT
+    return b.senders.numpy(), b.receivers.numpy(), ncap
+
+
+def _csr_case(which):
+    """(senders, receivers, n): the 800-degree hub graph or the padded
+    batch."""
+    if which == "hub":
+        s, r = _graph(512)
+        return s, r, 512
+    return _padded_batch()
+
+
+@pytest.mark.parametrize("which", ["hub", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mean", [False, True])
+def test_split_order_matches_plain_and_jax(which, dtype, mean):
+    """`csr_segment_sum_split_plain` (runs of more than SPLIT edges summed
+    chunk by chunk, the chunk sums added in chunk order, one rounding),
+    forward and over the transposed CSR: within the kernel's gate of
+    `csr_segment_sum_plain`; in float32 against JAX `gather_segment_reduce`
+    (interpret mode; its XLA fallback at the padded batch's N) within
+    F32_TOL; in bf16 against the exact float64 sums within one ulp of the
+    largest entry (the XLA fallback's bf16 scatter-add rounds after every
+    add, which drifts far on the dead row's pads; see BF16_XLA_TOL)."""
+    s, r, n = _csr_case(which)
+    ctx = cs.make_csr_context(torch.from_numpy(s), torch.from_numpy(r), n)
+    assert int(np.bincount(r, minlength=n).max()) > cs.SPLIT
+    xn = _x(n, 128, seed=3)
+    x = torch.from_numpy(xn).to(dtype)
+    for idx, off in ((ctx.senders, ctx.row_off), (ctx.t_idx, ctx.t_off)):
+        got = cs.csr_segment_sum_split_plain(x, idx, off, mean)
+        ref = cs.csr_segment_sum_plain(x, idx, off, mean)
+        assert got.dtype == ref.dtype
+        ok, err, share = cs.gate(got, ref, dtype)
+        assert ok, (err, share)
+    got = cs.csr_segment_sum_split_plain(x, ctx.senders, ctx.row_off, mean)
+    if dtype == torch.float32:
+        want = np.asarray(j_gsr(jnp.asarray(xn), jnp.asarray(s),
+                                jnp.asarray(r), n,
+                                aggr="mean" if mean else "add",
+                                interpret=True))
+        _close(got, want, F32_TOL)
+    else:
+        exact = np.zeros((n, 128))
+        np.add.at(exact, r, x.double().numpy()[s])
+        if mean:
+            exact /= np.maximum(np.bincount(r, minlength=n), 1)[:, None]
+        _close(got, exact, BF16_ULP_TOL)

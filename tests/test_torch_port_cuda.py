@@ -394,10 +394,10 @@ def test_bwd_tile_kernel_matches_plain_on_cuda(h, kind, skip, rate):
                                    rtol=rtol, msg=lambda s: f"{name}: {s}")
 
 
-def _banded_case(dev, h, seed=13):
+def _banded_case(dev, h, seed=13, geo=(TILE, WIDTH, None)):
     """(batch, band, x, options) on the supernode + spill batch: x and the
     table random bf16, the batch's own spill ranges and global codes."""
-    b = _spill_batch(dev, "super")
+    b = _spill_batch(dev, "super", geo)
     rng = np.random.default_rng(seed)
     n = b.n_node_cap
     _, tg = tb.star_table_geometry(b.n_graph_cap)
@@ -502,15 +502,16 @@ def test_split_kernels_reject_what_they_do_not_take():
 @pytest.mark.parametrize("h", [128, 256, 512])
 @pytest.mark.parametrize("tile,width", [(128, 64), (64, 48), (128, 48)])
 def test_band_product_matches_dense_on_cuda(h, tile, width):
-    """The forward's phase 1 alone (sl.band_product: the int8 band converted
-    into the swizzled A tile, the slab streamed through the ring) against
-    torch.matmul of the dense bf16 band [N, N] with x, at every width: T + W
-    = 112 and 176 leave the last slab slice half empty (K1 % 32 = 16), and
-    the first and last tiles' slabs are clamped; at tile 64, N / 64 = 9 is
-    odd, so the last cluster has an empty block. Both sides sum exact
-    products of small counts and bf16 values in float32 in another order
-    (differences ~1e-6 at unit scale); a wrong swizzle offset or slice
-    moves entries by O(1)."""
+    """The band product alone (the band kernel, csrc/banded.cuh, through
+    bm.banded_matmul with no spill, table or acc and a float32 output: the
+    int8 band converted into the swizzled A tile by #1's phase-1 code, the
+    slab streamed through the ring) against torch.matmul of the dense bf16
+    band [N, N] with x, at every width: T + W = 112 and 176 leave the last
+    slab slice half empty (K1 % 32 = 16), and the first and last tiles'
+    slabs are clamped; at tile 64, N / 64 = 9 is odd, so the last cluster
+    has an empty block. Both sides sum exact products of small counts and
+    bf16 values in float32 in another order (differences ~1e-6 at unit
+    scale); a wrong swizzle offset or slice moves entries by O(1)."""
     dev = _card()
     rng = np.random.default_rng(h + tile + width)
     n, s = 9 * tile, tile + width
@@ -523,10 +524,68 @@ def test_band_product_matches_dense_on_cuda(h, tile, width):
     dense = torch.zeros((n, n))
     for t, st in enumerate(starts):
         dense[t * tile:(t + 1) * tile, st:st + s] = band[t].float()
-    got = sl.band_product(x, band.to(dev), tile=tile, width=width)
+    got = bm.banded_matmul(band.to(dev), x, tile=tile, width=width,
+                           out_dtype=torch.float32)
     ref = dense.to(dev) @ x.float()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("geo", sorted(GEOMETRIES))
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("spill,table,acc", [
+    (True, True, True), (False, False, True), (True, False, False)])
+def test_banded_kernel_on_cluster_geometries_on_cuda(geo, h, spill, table,
+                                                     acc):
+    """The band kernel at tile 64, width 48 (T + W = 112: the last slab
+    slice half empty; a tile pair's two blocks in two node tiles, so each
+    loads its own slab) with N / 64 even and odd (the last pair's second
+    block empty), the first and last slabs clamped: within
+    KERNEL_BANDED_TOL, and the same bits twice."""
+    dev = _card()
+    b, band, x, opts = _banded_case(dev, h, seed=h + 17, geo=GEOMETRIES[geo])
+    assert b.band_tile + b.band_width == 112
+    kw = dict(tile=b.band_tile, width=b.band_width, out_dtype=torch.bfloat16,
+              **_options(opts, spill, table, acc))
+    got = bm.banded_matmul(band, x, **kw)
+    again = bm.banded_matmul(band, x, **kw)
+    torch.cuda.synchronize()
+    ref = bm.banded_matmul_plain(band, x, **kw)
+    atol, rtol = sl.gate_tol(ref, bm.KERNEL_BANDED_TOL)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_banded_kernel_walks_many_tile_pairs_on_cuda(out_dtype):
+    """A batch with more 128-row tile pairs than twice the card's SMs, so
+    every persistent cluster (at most one per SM pair) walks at least two
+    pairs: every row within its gate (bf16: KERNEL_BANDED_TOL; float32: the
+    f32 sums up to their order, 1e-5 of the output's rms), the same bits
+    twice."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile, width, h = 256, 64, 128
+    n = tile * ((2 * sms + 2) * 128 // tile + 1)
+    assert n // 128 > 2 * (sms // 2)
+    rng = np.random.default_rng(23)
+    band = torch.from_numpy(rng.integers(0, 3, size=(n, tile + width))
+                            .astype(np.int8)).to(dev)
+    x, acc = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+              .to(dev, torch.bfloat16) for _ in range(2))
+    kw = dict(tile=tile, width=width, out_dtype=out_dtype, acc=acc)
+    got = bm.banded_matmul(band, x, **kw)
+    again = bm.banded_matmul(band, x, **kw)
+    torch.cuda.synchronize()
+    ref = bm.banded_matmul_plain(band, x, **kw)
+    if out_dtype == torch.bfloat16:
+        atol, rtol = sl.gate_tol(ref, bm.KERNEL_BANDED_TOL)
+    else:
+        atol, rtol = 1e-5 * float(ref.pow(2).mean().sqrt()), 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("geo", sorted(GEOMETRIES))
@@ -629,7 +688,7 @@ EA_MODES = [(128, False), (256, False), (256, True), (512, False),
 
 # (panels, W floor, band tile, node-cap multiple, E % 64)
 EA_BATCHES = {"full": (16, 0, 128, 256, 0), "partial": (12, 552, 128, 256, 16),
-              "tile64": (8, 0, 64, 64, 48)}
+              "tile64": (8, 0, 64, 64, 48), "odd": (5, 0, 64, 64, 48)}
 
 
 def _ea_batch(dev, which="full"):
@@ -639,7 +698,9 @@ def _ea_batch(dev, which="full"):
     kernels' 64-slot blocks; "partial" is 12 panels with W = 552, 10 tiles
     and E % 64 = 16, so the last block is partial; "tile64" is 8 panels at
     tile 64, N = 704 (N % 128 = 64: the last cluster of two 64-row blocks
-    has one empty block) and E % 64 = 48. All have far senders."""
+    has one empty block) and E % 64 = 48; "odd" is 5 panels at tile 64, N =
+    448 (N / 64 = 7, the last cluster's second block empty) and E % 64 =
+    48. All have far senders."""
     n_graphs, w_floor, tile, mult, e_rem = EA_BATCHES[which]
     ds = generate_dataset(n_graphs, seed=2, min_side=8, max_side=11,
                           use_super_node=False, use_virtual_edges=True)
@@ -653,7 +714,7 @@ def _ea_batch(dev, which="full"):
     t, wc = b.win_sidx.shape
     assert t >= 4 and wc % 64 != 0
     assert (t * wc) % 64 == e_rem
-    assert which != "tile64" or b.n_node_cap % 128 == 64
+    assert tile == 128 or b.n_node_cap % 128 == 64
     return b, eb.make_ea_context(b)
 
 
@@ -773,6 +834,34 @@ def test_ea_backward_matches_plain_on_cuda(h, enc, skip, rate, which):
     assert enc or {"de_win", "de_win_row"} <= set(errs)
     for k, err in errs.items():
         assert err <= eb.bwd_tol(k), (k, err)
+
+
+@pytest.mark.parametrize("which", ["odd", "tile64"])
+@pytest.mark.parametrize("h", [128, 512])
+def test_ea_kernels_with_an_empty_last_block_on_cuda(which, h):
+    """#5 and #6 on batches with N / 64 odd: the node passes' last cluster
+    of two 64-row blocks has an empty second block, whose per-row loads
+    (cnt, the receiver runs) must form no address past the end (they read
+    row 0 and drop it). The forward and the backward (skip, dropout 0.1)
+    within their gates, and the backward's same bits twice."""
+    dev = _card()
+    b, ctx, args, kw = _ea_bwd(dev, h, False, True, 0.1, seed=h + 7,
+                               which=which)
+    assert (b.n_node_cap // 64) % 2 == 1
+    x, e, w, bias = args[4:8]
+    got = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, save_res=True, **kw)
+    first = eb.ea_block_bwd(*args, **kw)
+    second = eb.ea_block_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    _ea_fwd_close(got, ref, ctx, h)
+    errs = eb.bwd_errors(first, eb.ea_block_bwd_plain(*args, **kw), ctx)
+    for k, err in errs.items():
+        assert err <= eb.bwd_tol(k), (k, err)
+    (dx, de, dw, dbias), (dx2, de2, dw2, dbias2) = first, second
+    assert torch.equal(dx, dx2) and torch.equal(de, de2)
+    assert torch.equal(dbias, dbias2)
+    assert all(torch.equal(dw[k], dw2[k]) for k in dw)
 
 
 def test_ea_kernels_are_deterministic():
@@ -895,6 +984,31 @@ def test_csr_kernel_matches_plain_on_cuda(which, h, dtype, mean):
         ref = cs.csr_segment_sum_plain(x, idx, off, mean)
         ok, err, share = cs.gate(got, ref, dtype)
         assert ok, (err, share)
+
+
+@pytest.mark.parametrize("which", ["hub", "padded"])
+@pytest.mark.parametrize("h", [128, 512])
+def test_csr_split_path_on_cuda(which, h):
+    """The runs longer than cs.SPLIT edges (the 800-degree hub; the dead
+    row's pads, forward and transposed) through the kernel's split blocks:
+    add and mean within cs.gate of both plain versions
+    (`csr_segment_sum_plain`, `csr_segment_sum_split_plain`), the same bits
+    twice."""
+    dev = _card()
+    ctx, n = _csr(dev, which)
+    assert int((ctx.row_off[1:] - ctx.row_off[:-1]).max()) > cs.SPLIT
+    g = torch.Generator(device=dev).manual_seed(h + 1)
+    x = torch.randn((n, h), generator=g, device=dev).to(torch.bfloat16)
+    for idx, off in ((ctx.senders, ctx.row_off), (ctx.t_idx, ctx.t_off)):
+        for mean in (False, True):
+            got = cs.csr_segment_sum(x, idx, off, mean)
+            again = cs.csr_segment_sum(x, idx, off, mean)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            for ref in (cs.csr_segment_sum_plain(x, idx, off, mean),
+                        cs.csr_segment_sum_split_plain(x, idx, off, mean)):
+                ok, err, share = cs.gate(got, ref, x.dtype)
+                assert ok, (err, share)
 
 
 @pytest.mark.parametrize("mean", [False, True])
