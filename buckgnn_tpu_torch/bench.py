@@ -2,8 +2,9 @@
 one batch.
 
 The port of the repo-root bench.py (build_bench_setup and run_bench) for
-the three cells of benchmarks/bench_configs.py:20-27 and two of
-``build_bench_setup``'s unbanded impls, named in ``CELLS``:
+the three cells of benchmarks/bench_configs.py:20-27, two of
+``build_bench_setup``'s unbanded impls and unfused variants of those
+cells, named in ``CELLS``:
 
 - ``flagship``: ``GraphSage_addAggr_Shared`` on 128 synthetic panels
   (24-32 nodes a side) with a supernode each, on the band that
@@ -21,7 +22,20 @@ the three cells of benchmarks/bench_configs.py:20-27 and two of
   (ops/epilogue.py);
 - ``csr-virtual-xla``: the same batch and model with the JAX package's
   default ``segment_impl="xla"``, whose layers aggregate by the segment
-  reductions.
+  reductions;
+- ``virtual-remat`` and ``flagship-remat``: the virtual and flagship
+  cells with ``remat=True``, whose layers take the unfused banded path
+  (ops/banded.py: kernel #4 for the band product in the forward, the
+  recompute and the backward; the epilogue kernels) under
+  ``torch.utils.checkpoint``;
+- ``virtual-bandless``: the virtual cell packed with
+  ``materialize_band=False``, whose band is built on the device;
+- ``virtual-meanaggr``: ``GraphSage_meanAggr`` (per-layer weights,
+  MaskedBatchNorm, mean by degree) on the virtual cell's batch, the
+  unfused banded path without remat;
+- ``ea-windowed``: ``EA_GNN`` with ``remat=True`` on the ea-virtual
+  batch, the JAX package's escape hatch onto the unfused windowed blocks
+  (ops/ea_windowed.py, no kernel).
 
 Each is normalized and packed into one batch with exact capacities (RCM
 order and 4-tile node alignment for the banded cells; for the unbanded
@@ -47,11 +61,12 @@ from buckgnn_tpu_torch.utils.device import resolve_device
 
 
 def pack_exact(normed, batch_size: int, band_width: int | None,
-               band_tile: int, device):
+               band_tile: int, device, materialize_band: bool = True):
     """One batch holding the whole dataset, with exact capacities, as the
     JAX bench packs (bench.py:87-100): with a band, nodes aligned to 4 tiles
     in RCM order; without (``band_width`` None), the node count itself in
-    the dataset's order."""
+    the dataset's order. ``materialize_band`` False leaves the band to the
+    device build (ops/banded.py::build_band_matrix)."""
     from buckgnn_tpu_torch.graph.batch import batch_iterator
 
     n_real = sum(g.n_node for g in normed) + 1  # + dead node
@@ -66,6 +81,7 @@ def pack_exact(normed, batch_size: int, band_width: int | None,
                                     band_width=band_width,
                                     band_tile=band_tile,
                                     rcm=band_width is not None,
+                                    materialize_band=materialize_band,
                                     device=device)))
 
 
@@ -75,34 +91,33 @@ TRAIN_LR = 1e-3  # the learning rate of the JAX bench's train steps
 # the cells' build_bench_setup arguments (bench_configs.py:20-27): panels
 # in the batch, supernodes (else virtual edges), model, segment impl, band
 # tile and width (None: select_band_geometry's pick; unused by the
-# unbanded impls, whose batches carry no band)
+# unbanded impls, whose batches carry no band), remat and the pack-time
+# band
+_BASE = dict(batch_size=128, use_super_node=False,
+             model_name="GraphSage_addAggr_Shared",
+             segment_impl="banded_pallas", band_tile=256, band_width=None,
+             remat=None, materialize_band=True)
+_EA = dict(_BASE, batch_size=64, model_name="EA_GNN_Shared", band_tile=128,
+           band_width=64)
 CELLS = {
-    "flagship": dict(batch_size=128, use_super_node=True,
-                     model_name="GraphSage_addAggr_Shared",
-                     segment_impl="banded_pallas", band_tile=256,
-                     band_width=None),
-    "virtual": dict(batch_size=128, use_super_node=False,
-                    model_name="GraphSage_addAggr_Shared",
-                    segment_impl="banded_pallas", band_tile=256,
-                    band_width=None),
-    "ea-virtual": dict(batch_size=64, use_super_node=False,
-                       model_name="EA_GNN_Shared",
-                       segment_impl="banded_pallas", band_tile=128,
-                       band_width=64),
-    "csr-virtual": dict(batch_size=128, use_super_node=False,
-                        model_name="GraphSage_addAggr_Shared",
-                        segment_impl="pallas", band_tile=256,
-                        band_width=None),
-    "csr-virtual-xla": dict(batch_size=128, use_super_node=False,
-                            model_name="GraphSage_addAggr_Shared",
-                            segment_impl="xla", band_tile=256,
-                            band_width=None),
+    "flagship": dict(_BASE, use_super_node=True),
+    "virtual": dict(_BASE),
+    "ea-virtual": dict(_EA),
+    "csr-virtual": dict(_BASE, segment_impl="pallas"),
+    "csr-virtual-xla": dict(_BASE, segment_impl="xla"),
+    "virtual-remat": dict(_BASE, remat=True),
+    "flagship-remat": dict(_BASE, use_super_node=True, remat=True),
+    "virtual-bandless": dict(_BASE, materialize_band=False),
+    "virtual-meanaggr": dict(_BASE, model_name="GraphSage_meanAggr"),
+    "ea-windowed": dict(_EA, model_name="EA_GNN", remat=True),
 }
 
 
-def _cell(device, config: str):
+def _cell(device, config: str, data=None):
     """(cfg, normalized dataset, normalizer, packed batch, model) of the
-    cell ``config`` on ``device``."""
+    cell ``config`` on ``device``; ``data``, the (normalized dataset,
+    normalizer) of another cell with the same panels, is packed instead of
+    generating them again."""
     if config not in CELLS:
         raise ValueError(f"unknown cell {config!r}: one of {sorted(CELLS)}")
     from buckgnn_tpu_torch.graph.batch import select_band_geometry
@@ -112,34 +127,46 @@ def _cell(device, config: str):
 
     c = CELLS[config]
     batch_size = c["batch_size"]
-    dataset = generate_dataset(batch_size, seed=0, min_side=24, max_side=32,
-                               use_super_node=c["use_super_node"],
-                               use_virtual_edges=not c["use_super_node"])
-    normed, nz = normalize_dataset(dataset)
+    if data is None:
+        dataset = generate_dataset(batch_size, seed=0, min_side=24,
+                                   max_side=32,
+                                   use_super_node=c["use_super_node"],
+                                   use_virtual_edges=not c["use_super_node"])
+        normed, nz = normalize_dataset(dataset)
+    else:
+        normed, nz = data
+        if (len(normed) != batch_size or any(g.supernode >= 0 for g in
+                                             normed) != c["use_super_node"]):
+            raise ValueError(f"the data given are not cell {config!r}'s "
+                             "panels")
     cfg = TrainConfig(hidden_channels=512, num_layers=6,
                       compute_dtype="bfloat16", seed=0,
                       model_name=c["model_name"],
-                      segment_impl=c["segment_impl"])
+                      segment_impl=c["segment_impl"], remat=c["remat"],
+                      materialize_band=c["materialize_band"])
     band_tile, band_width = c["band_tile"], None
     if cfg.segment_impl.startswith("banded"):
         band_width = c["band_width"]
         if band_width is None:
             band_tile, band_width = select_band_geometry(normed,
                                                          tile=band_tile)
-    batch = pack_exact(normed, batch_size, band_width, band_tile, device)
+    batch = pack_exact(normed, batch_size, band_width, band_tile, device,
+                       cfg.materialize_band)
     model = build_model(cfg, normed[0].x.shape[1],
                         normed[0].edge_attr.shape[1], device=device)
     return cfg, normed, nz, batch, model
 
 
-def build_serve_setup(device=None, config: str = "flagship"):
+def build_serve_setup(device=None, config: str = "flagship", data=None):
     """The cell ``config`` (a key of ``CELLS``) served. Returns
     dict(model, batch, eval_step, normalizer, dataset, cfg, n_edges,
-    n_graphs) on ``device`` (the CUDA card unless "cpu")."""
+    n_graphs) on ``device`` (the CUDA card unless "cpu"); ``data`` as
+    `_cell`'s."""
     from buckgnn_tpu_torch.train.losses import get_loss_function
     from buckgnn_tpu_torch.train.trainer import make_eval_step
 
-    cfg, normed, nz, batch, model = _cell(resolve_device(device), config)
+    cfg, normed, nz, batch, model = _cell(resolve_device(device), config,
+                                          data)
     eval_step = make_eval_step(model, get_loss_function(cfg.loss_function),
                                cfg, nz)
     return dict(model=model, batch=batch, eval_step=eval_step,
@@ -148,17 +175,19 @@ def build_serve_setup(device=None, config: str = "flagship"):
                 n_graphs=int(batch.graph_mask.sum()))
 
 
-def build_train_setup(device=None, config: str = "flagship"):
+def build_train_setup(device=None, config: str = "flagship", data=None):
     """The cell ``config`` (a key of ``CELLS``) trained. Returns
     dict(state, batch, train_step, eval_step, lr, generator, normalizer,
-    dataset, cfg, n_edges, n_graphs) on ``device`` (the CUDA card unless "cpu"); ``generator`` (seed 0)
-    draws the layers' dropout seeds."""
+    dataset, cfg, n_edges, n_graphs) on ``device`` (the CUDA card unless
+    "cpu"); ``generator`` (seed 0) draws the layers' dropout seeds;
+    ``data`` as `_cell`'s."""
     from buckgnn_tpu_torch.train.losses import get_loss_function
     from buckgnn_tpu_torch.train.trainer import (
         init_state, make_optimizer, make_train_step,
     )
 
-    cfg, normed, nz, batch, model = _cell(resolve_device(device), config)
+    cfg, normed, nz, batch, model = _cell(resolve_device(device), config,
+                                          data)
     optimizer = make_optimizer(cfg, model)
     train_step, eval_step = make_train_step(
         model, optimizer, get_loss_function(cfg.loss_function), cfg, nz)

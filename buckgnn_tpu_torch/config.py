@@ -2,8 +2,10 @@
 
 A subset of buckgnn_tpu/config.py::TrainConfig with the same names and
 defaults: the model fields (``segment_impl`` "xla", the unfused SAGE path,
-and ``remat``), and the optimizer and learning-rate schedule fields of the
-train step. The data-pipeline fields come with later slices.
+``remat``, the node-level heads' ``use_z_coord`` and ``use_rotations``),
+the optimizer and learning-rate schedule fields of the train step, and
+``materialize_band`` (False: the band is built on the device each step).
+The rest of the data-pipeline fields come with later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ class TrainConfig:
     weight_decay: float = 1e-8
     loss_function: str = "relative_error"
     pooling_layer: str = "mean"
+    use_z_coord: bool = False
+    use_rotations: bool = False
     dropout_rate: float = 0.1
     model_name: str = "GraphSage_addAggr_Shared"
     prediction_type: str = "buckling"
@@ -35,7 +39,9 @@ class TrainConfig:
     seed: int = 0
     compute_dtype: str = "float32"          # 'float32' | 'bfloat16'
     segment_impl: str = "xla"               # models/buckgnn.py::IMPLS
-    remat: bool | None = None               # True: remat paths, not ported
+    remat: bool | None = None               # checkpoint conv layers;
+                                            # None = auto (EA_GNN at h>=256)
+    materialize_band: bool = True           # pack-time int8 band
 
     @property
     def eta_min(self) -> float:

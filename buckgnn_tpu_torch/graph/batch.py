@@ -130,6 +130,11 @@ class GraphBatch:
     has_supernode_edges: bool = False
     has_spill_edges: bool = True
     has_spill2_edges: bool = True
+    # the multi-device partitions of the JAX package (parallel/
+    # partitioned.py, ea_shard.py): ROADMAP queue 1, item 9. The port's
+    # packing never sets them; a batch that carries one is refused.
+    part: object | None = None
+    ea_part: object | None = None
 
     @property
     def n_node_cap(self) -> int:

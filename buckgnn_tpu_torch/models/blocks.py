@@ -114,20 +114,28 @@ def decoder_widths(hidden_channels: int, output_dim: int) -> tuple[int, ...]:
 
 
 class SAGEConv(nn.Module):
-    """Shared GraphSAGE convolution (PyG semantics, aggr='add',
-    normalize=True): out_i = W_l · sum_{j in N(i)} x_j + b_l + W_r · x_i,
-    then L2 norm. `forward` runs it as the fused layer with relu, the
-    optional skip and dropout (ops/sage_layer.py); `unfused` as the
-    aggregation, the two Dense layers and `l2_normalize` (models/blocks.py:
-    152-166 of the JAX package), whose caller adds the epilogue."""
+    """GraphSAGE convolution, PyG semantics (Models/BuckGNN.py:113-180):
+    out_i = W_l · aggr_{j in N(i)} x_j + b_l + W_r · x_i (lin_r bias-free),
+    then the L2 norm when ``normalize``. `forward` runs the weight-tied
+    flagship layer (aggr 'add', normalized) as the fused layer with relu,
+    the optional skip and dropout (ops/sage_layer.py); `unfused` runs any
+    ``aggr`` and ``normalize`` as the aggregation, the two Dense layers and
+    `l2_normalize` (models/blocks.py:152-166 of the JAX package), whose
+    caller adds the epilogue. ``in_features`` defaults to ``features``
+    (the SAG score conv maps h features to 1)."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+    def __init__(self, features: int, aggr: str = "add",
+                 normalize: bool = True, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None,
+                 in_features: int | None = None):
         super().__init__()
+        self.aggr = aggr
+        self.normalize = normalize
         self.dtype = dtype
-        self.lin_l = Dense(features, features, bias=True, dtype=dtype,
+        fin = features if in_features is None else in_features
+        self.lin_l = Dense(fin, features, bias=True, dtype=dtype,
                            generator=generator)
-        self.lin_r = Dense(features, features, bias=False, dtype=dtype,
+        self.lin_r = Dense(fin, features, bias=False, dtype=dtype,
                            generator=generator)
 
     def fused_weights(self, dtype: torch.dtype):
@@ -137,15 +145,26 @@ class SAGEConv(nn.Module):
                 self.lin_l.bias.to(dtype).contiguous(),
                 self.lin_r.weight.t().to(dtype).contiguous())
 
-    def unfused(self, x, senders, receivers, impl: str, csr=None):
-        """l2_normalize(lin_l(agg) + lin_r(x)) in the block's dtype, agg by
-        ops/sage.py::sage_aggregate with ``impl`` ('xla', 'sorted' or
-        'pallas'; ``csr`` the forward's CSR context for 'pallas')."""
-        from buckgnn_tpu_torch.ops.sage import sage_aggregate
+    def unfused(self, x, senders, receivers, impl: str, csr=None,
+                agg_ctx=None):
+        """lin_l(agg) + lin_r(x) in the block's dtype (then l2-normalized
+        when ``normalize``). agg: with a banded ``impl`` and an
+        ``agg_ctx`` (a banded batch), ops/banded.py::banded_sage_aggregate;
+        otherwise ops/sage.py::sage_aggregate with ``impl`` ('xla' for a
+        banded impl; ``csr`` the forward's CSR context for 'pallas')."""
+        if agg_ctx is not None and impl.startswith("banded"):
+            from buckgnn_tpu_torch.ops.banded import banded_sage_aggregate
 
-        agg = sage_aggregate(x, senders, receivers, x.shape[0], aggr="add",
-                             impl=impl, csr=csr)
-        return l2_normalize(self.lin_l(agg) + self.lin_r(x))
+            agg = banded_sage_aggregate(x, agg_ctx, aggr=self.aggr,
+                                        dtype=self.dtype)
+        else:
+            from buckgnn_tpu_torch.ops.sage import sage_aggregate
+
+            agg = sage_aggregate(
+                x, senders, receivers, x.shape[0], aggr=self.aggr,
+                impl="xla" if impl.startswith("banded") else impl, csr=csr)
+        out = self.lin_l(agg) + self.lin_r(x)
+        return l2_normalize(out) if self.normalize else out
 
     def forward(self, x, agg_ctx, *, skip: bool, weights=None,
                 rate: float = 0.0, seed=None, deterministic: bool = True,
@@ -167,6 +186,68 @@ class SAGEConv(nn.Module):
                                 emit_table=emit_table)
 
 
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d with padding-aware statistics (models/blocks.py:169-216
+    of the JAX package; Models/BuckGNN.py:133, 184). Training normalizes by
+    the masked batch mean and biased variance and moves the running
+    statistics with the unbiased variance (n - 1 clamped at 1; momentum
+    0.1, eps 1e-5); ``use_running_average`` normalizes by the running
+    statistics. The caller says which (the model's ``deterministic``), not
+    ``nn.Module.training``. Parameters ``scale`` and ``bias``; the running
+    ``mean`` and ``var`` are float32 buffers. Padding rows are normalized
+    like any row but never enter the statistics. The arithmetic promotes
+    as the JAX module's: a bf16 x meets float32 statistics, so the result
+    is float32."""
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                use_running_average: bool = False) -> torch.Tensor:
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            w = mask.float()[:, None]
+            n = w.sum().clamp_min(1.0)
+            mean = (x * w).sum(0) / n
+            var = ((x - mean).square() * w).sum(0) / n
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp_min(1.0)
+                m = self.momentum
+                self.mean.copy_((1.0 - m) * self.mean + m * mean)
+                self.var.copy_((1.0 - m) * self.var + m * unbiased)
+        inv = torch.reciprocal(torch.sqrt(var + self.epsilon))
+        return (x - mean) * inv * self.scale + self.bias
+
+
+def split_first_mlp(mlp: MLP, parts, posts) -> torch.Tensor:
+    """A two-layer `MLP` whose first Dense (kernel over the concatenation
+    of ``parts``) runs part by part: each part times its slice of the
+    weight, then ``posts[i]`` (a gather, or None) on that product, summed
+    in order with the bias, then relu and the second Dense (the JAX
+    package's ``_SplitDense`` / ``SplitFirstMLP``, models/blocks.py:219-273:
+    the gather after the product)."""
+    lin0 = mlp.lin_0
+    dt = lin0.compute_dtype
+    w = lin0.weight.to(dt)
+    out, off = None, 0
+    for p, post in zip(parts, posts):
+        d = p.shape[-1]
+        t = F.linear(p.to(dt), w[:, off:off + d])
+        off += d
+        if post is not None:
+            t = post(t)
+        out = t if out is None else out + t
+    return mlp.lin_1(torch.relu(out + lin0.bias.to(dt)))
+
+
 class GraphNetBlock(nn.Module):
     """Edge-augmented message-passing block (Models/BuckGNN.py:528-566),
     run as the fused block (ops/ea_block.py):
@@ -176,7 +257,10 @@ class GraphNetBlock(nn.Module):
     GraphNetBlock, whose first Dense of edge_mlp / phi / gamma is one
     [sum(in), h] kernel over the concatenation (``_SplitDense``): here an
     `MLP` of the same widths. The edge input is h wide on the fused path
-    (the encoded window, or the encoder output in encoder mode)."""
+    (the encoded window, or the encoder output in encoder mode).
+    `unfused` runs the same block as plain tensor ops, flat over the edge
+    list or over the windows (models/blocks.py:356-392 of the JAX
+    package)."""
 
     def __init__(self, hidden_channels: int,
                  dtype: torch.dtype = torch.float32,
@@ -200,3 +284,37 @@ class GraphNetBlock(nn.Module):
         return fused_ea_block(x, e_win, self, ea_ctx, skip=skip, rate=rate,
                               seed=seed, deterministic=deterministic,
                               encoder=encoder)
+
+    def unfused(self, x, e, senders, receivers, windows=None):
+        """``(x', e')`` of the block without the stack's skip and dropout.
+        ``windows`` None: ``e`` [E, h] over the flat edge list (gathers by
+        index, the scatter-mean over receivers); else ``(geom, sidx, ridx,
+        far_pos, far_send, degree)`` and ``e`` in window layout [n_tiles,
+        W, h] (ops/ea_windowed.py's one-hot products)."""
+        if windows is None:
+            def g_recv(p):
+                return p[receivers.long()]
+
+            def g_send(p):
+                return p[senders.long()]
+        else:
+            from buckgnn_tpu_torch.ops import ea_windowed as eaw
+
+            geom, sidx, ridx, far_pos, far_send, degree = windows
+
+            def g_recv(p):
+                return eaw.gather_receivers(p, ridx, geom)
+
+            def g_send(p):
+                return eaw.gather_senders(p, sidx, far_pos, far_send, geom)
+
+        e = split_first_mlp(self.edge_mlp, [x, x, e], [g_recv, g_send, None])
+        msg = split_first_mlp(self.node_mlp_phi, [x, e], [g_send, None])
+        if windows is None:
+            from buckgnn_tpu_torch.ops import segment
+
+            agg = segment.segment_mean(msg, receivers, x.shape[0])
+        else:
+            agg = eaw.scatter_mean_messages(msg, ridx, degree, geom)
+        x = split_first_mlp(self.node_mlp_gamma, [x, agg], [None, None])
+        return x + self.node_mlp_beta(x), e

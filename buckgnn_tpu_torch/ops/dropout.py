@@ -82,3 +82,23 @@ def apply_dropout(r: torch.Tensor, seed, rate: float,
     keep = keep_mask(seed, r.shape[0], r.shape[1], rate, r.device, row0)
     scale = torch.tensor(dropout_scale(rate), dtype=torch.float32)
     return torch.where(keep, r * scale.to(r.device), torch.zeros((), device=r.device))
+
+
+def xla_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Inverted dropout outside the epilogue (the JAX package's
+    ``ops/dropout.py::dropout``): zero with probability ``rate``, the
+    survivors scaled in float32 by the exact inverse of the quantized keep
+    probability and rounded once to x's dtype. The keep mask is the port's
+    keyed hash over x seen as [rows, last dim] under ``seed`` (two words
+    the caller draws from its generator), so it matches the JAX package
+    only at rate 0."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    h = x.shape[-1]
+    keep = keep_mask(seed, x.numel() // h, h, rate, x.device).reshape(
+        x.shape)
+    scaled = (x.float() * dropout_scale(rate)).to(x.dtype)
+    return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))

@@ -619,8 +619,9 @@ def sage_layer_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile: int,
 
 
 def supports_fused_layer(ctx, x, aggr: str, normalize: bool) -> bool:
-    """Static eligibility of the fused layer for this batch/config."""
-    if ctx is None or ctx.band is None:
+    """Static eligibility of the fused layer for this batch/config (a
+    banded_pallas context)."""
+    if ctx is None or ctx.band is None or not ctx.use_pallas:
         return False
     return (
         aggr in ("add", "sum")

@@ -1,25 +1,30 @@
 """Model construction, the optimizer, loss/metric assembly and the steps.
 
-The port of buckgnn_tpu/train/trainer.py:43-76, 96-208. `TrainState` holds
-the model (its parameters), the optimizer (its moments) and the epoch: the
-JAX ``TrainState``'s role. `make_train_step` gives one eager optimization
-step, `train_step(batch, lr, generator)`: a forward with dropout seeds
-drawn from ``generator``, the loss on denormalized targets, the backward
-through the fused layers' kernels, and an Adam step at ``lr``.
+The port of buckgnn_tpu/train/trainer.py:43-235. `TrainState` holds the
+model (its parameters, and the batch norms' running statistics as
+buffers), the optimizer (its moments, over the parameters only) and the
+epoch: the JAX ``TrainState``'s role. `make_train_step` gives one eager
+optimization step, `train_step(batch, lr, generator)`: a forward with
+dropout seeds drawn from ``generator`` (the batch norms normalize by the
+batch and move their running statistics), the loss on denormalized
+targets, the backward, and an Adam step at ``lr``; `eval_step` normalizes
+by the running statistics.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from buckgnn_tpu_torch.config import TrainConfig
-from buckgnn_tpu_torch.graph.batch import GraphBatch
+from buckgnn_tpu_torch.graph.batch import GraphBatch, GraphData
 from buckgnn_tpu_torch.graph.normalizer import DatasetNormalizer
 from buckgnn_tpu_torch.models.buckgnn import BuckGNN
-from buckgnn_tpu_torch.train.metrics import MAPE_error
+from buckgnn_tpu_torch.train.losses import GRAPH_FAMILY
+from buckgnn_tpu_torch.train.metrics import MAPE_error, stress_errors
 from buckgnn_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,6 +43,8 @@ def build_model(cfg: TrainConfig, num_node_features: int,
         num_layers=cfg.num_layers,
         pooling_layer=cfg.pooling_layer,
         prediction_type=cfg.prediction_type,
+        use_z_coord=cfg.use_z_coord,
+        use_rotations=cfg.use_rotations,
         dropout_rate=cfg.dropout_rate,
         model_name=cfg.model_name,
         dtype=_DTYPES[cfg.compute_dtype],
@@ -72,28 +79,73 @@ def init_state(model: BuckGNN,
     return TrainState(model=model, optimizer=optimizer)
 
 
-def make_loss_and_metrics(criterion, cfg: TrainConfig,
-                          normalizer: DatasetNormalizer | None):
-    """Shared per-batch loss/metric assembly (buckling): loss on
-    denormalized eigenvalues, MAPE with the scaler stats."""
-    if cfg.prediction_type != "buckling":
-        raise NotImplementedError(
-            "only the buckling head is ported (ROADMAP queue 1, item 8)")
+def _denorm_fns(normalizer: DatasetNormalizer | None, prediction_type: str):
+    """``(denorm, (scale, center))`` of the prediction type's targets: the
+    eigenvalue (floats), displacement or stress scaler stats (float32,
+    moved to each tensor's device on first use); mode shapes stay
+    normalized."""
     stats = normalizer.device_stats() if normalizer is not None else {}
-    ev_scale = float(stats.get("eigenvalue_scale", np.float32(1.0)))
-    ev_center = float(stats.get("eigenvalue_center", np.float32(0.0)))
+    if prediction_type == "buckling":
+        scale = float(stats.get("eigenvalue_scale", np.float32(1.0)))
+        center = float(stats.get("eigenvalue_center", np.float32(0.0)))
+        return (lambda v: v.float() * scale + center), (scale, center)
+    if prediction_type not in ("static_disp", "static_stress"):
+        return (lambda v: v), (1.0, 0.0)
+    key, n = (("displacement", 2) if prediction_type == "static_disp"
+              else ("gp_stress", 3))
+    scale = stats.get(f"{key}_scale", np.ones(n, np.float32))
+    center = stats.get(f"{key}_center", np.zeros(n, np.float32))
+    on_device = {}
 
     def denorm(v):
-        return v.float() * ev_scale + ev_center
+        if v.device not in on_device:
+            on_device[v.device] = (torch.as_tensor(scale, device=v.device),
+                                   torch.as_tensor(center, device=v.device))
+        s, c = on_device[v.device]
+        return v.float() * s + c
+
+    return denorm, (scale, center)
+
+
+def make_loss_and_metrics(criterion, cfg: TrainConfig,
+                          normalizer: DatasetNormalizer | None):
+    """``(compute_loss, compute_metrics)`` of (pred, aux, batch), one
+    source for the train and eval steps (trainer.py:96-146 of the JAX
+    package). buckling: the loss on denormalized eigenvalues, MAPE with
+    the scaler stats; static types: the loss on denormalized node targets
+    over aux['real_node_mask'] (graph-family losses per graph) and the
+    ``static/`` aggregates of `stress_errors`; mode_shape: the loss on
+    normalized values, no metric."""
+    prediction_type = cfg.prediction_type
+    is_graph_loss = cfg.loss_function in GRAPH_FAMILY
+    denorm, (ev_scale, ev_center) = _denorm_fns(normalizer, prediction_type)
 
     def compute_loss(pred, aux, batch: GraphBatch):
-        y = batch.y[:, 0]
-        return criterion(denorm(pred), denorm(y), batch.graph_mask)
+        if prediction_type == "buckling":
+            y = batch.y[:, 0]
+            return criterion(denorm(pred), denorm(y), batch.graph_mask)
+        mask = aux["real_node_mask"]
+        if "static" in prediction_type:
+            p, y = denorm(pred), denorm(batch.y)
+        else:  # mode_shape (TRAIN_FINAL.py:293-294)
+            p, y = pred.float(), batch.y
+        if is_graph_loss:
+            return criterion(p, y, batch.node_graph, mask, batch.graph_mask,
+                             batch.nodes)
+        return criterion(p, y, mask)
 
     def compute_metrics(pred, aux, batch: GraphBatch):
-        return {"mape": MAPE_error(pred.float(), batch.y[:, 0],
-                                   batch.graph_mask, "buckling",
-                                   ev_scale, ev_center)}
+        if prediction_type == "buckling":
+            return {"mape": MAPE_error(pred.float(), batch.y[:, 0],
+                                       batch.graph_mask, "buckling",
+                                       ev_scale, ev_center)}
+        if "static" in prediction_type:
+            threshold = 0.0001 if prediction_type == "static_disp" else 0.2
+            d = stress_errors(denorm(pred), denorm(batch.y),
+                              batch.node_graph, aux["real_node_mask"],
+                              batch.graph_mask, prediction_type, threshold)
+            return {f"static/{k}": v for k, v in d.items()}
+        return {}
 
     return compute_loss, compute_metrics
 
@@ -102,9 +154,10 @@ def make_train_step(model: BuckGNN, optimizer: torch.optim.Optimizer,
                     criterion, cfg: TrainConfig,
                     normalizer: DatasetNormalizer | None):
     """``(train_step, eval_step)``. ``train_step(batch, lr, generator)``
-    runs one optimization step in place on the model and the optimizer and
-    returns the metrics (``loss``, ``mape``) as detached device scalars,
-    without waiting for the device."""
+    runs one optimization step in place on the model (its parameters and
+    its batch norms' running statistics) and the optimizer and returns the
+    metrics (``loss`` and those of `make_loss_and_metrics`) as detached
+    device scalars, without waiting for the device."""
     compute_loss, compute_metrics = make_loss_and_metrics(criterion, cfg,
                                                           normalizer)
 
@@ -128,7 +181,8 @@ def make_train_step(model: BuckGNN, optimizer: torch.optim.Optimizer,
 def make_eval_step(model: BuckGNN, criterion, cfg: TrainConfig,
                    normalizer: DatasetNormalizer | None):
     """``eval_step(batch) -> (metrics, (pred, aux))``: one deterministic
-    forward with its loss and metrics (the JAX eval_step)."""
+    forward with its loss and metrics (the JAX eval_step); batch norms
+    take their running statistics."""
     compute_loss, compute_metrics = make_loss_and_metrics(criterion, cfg,
                                                           normalizer)
 
@@ -140,3 +194,19 @@ def make_eval_step(model: BuckGNN, criterion, cfg: TrainConfig,
         return metrics, (pred, aux)
 
     return eval_step
+
+
+def slice_static_targets(dataset: Sequence[GraphData],
+                         prediction_type: str) -> list[GraphData]:
+    """Target slicing for static runs (TRAIN_FINAL.py:1268-1279): the
+    graph builder emits [disp | stress] node targets; static_disp keeps the
+    first block, static_stress the last 3 columns."""
+    if "static" not in prediction_type:
+        return list(dataset)
+    disp_dim = dataset[0].y.shape[1] - 3
+    out = []
+    for d in dataset:
+        y = (d.y[:, disp_dim:] if prediction_type == "static_stress"
+             else d.y[:, :disp_dim])
+        out.append(dataclasses.replace(d, y=y))
+    return out

@@ -266,21 +266,32 @@ def test_banded_impl_on_an_unbanded_batch_takes_the_xla_route(monkeypatch):
 
 
 def test_routes_the_port_refuses():
-    """Paths of later items raise and name them: another banded impl on a
-    banded batch and remat (item 2), the EA family off its fused path
-    (item 7c); an unknown impl is an error."""
+    """'banded' and 'banded_partitioned' on a banded batch run the unfused
+    banded path (the slab product; banded_partitioned without a partition
+    is 'banded', as in the JAX model) and match the JAX model with the same
+    impl: pred and every gradient. Only an unknown impl and a batch that
+    carries a partition (item 9) still raise."""
     ds = generate_dataset(4, seed=1, min_side=6, max_side=8,
                           use_super_node=False, use_virtual_edges=False)
-    banded = tb.pack_graphs(ds, 512, 2048, 5, band_width=64, band_tile=128,
-                            device="cpu")
+    pack = dict(band_width=64, band_tile=128)
+    banded = tb.pack_graphs(ds, 512, 2048, 5, device="cpu", **pack)
+    ref = jb.pack_graphs(ds, 512, 2048, 5, **pack)
     kw = _kw(ds)
+    params = _jax_params(ds, ref)
     for impl in ("banded", "banded_partitioned"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            BuckGNN(impl=impl, **kw)(banded)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        BuckGNN(impl="xla", **dict(kw, model_name="EA_GNN_Shared"))(banded)
-    with pytest.raises(NotImplementedError, match="remat"):
-        BuckGNN(remat=True, **kw)
+        jpred, jgrads = _grads_jax(JBuckGNN(impl=impl, **kw), params, ref)
+        port = BuckGNN(impl=impl, **kw)
+        port.load_state_dict(params_from_flax(jax.tree.map(np.asarray,
+                                                           params)))
+        pred, grads = _grads_port(port, banded)
+        gm = banded.graph_mask.numpy()
+        np.testing.assert_allclose(pred[gm], jpred[gm], rtol=PRED_RTOL,
+                                   atol=PRED_ATOL, err_msg=impl)
+        for k in jgrads:
+            _rel_close(grads[k], jgrads[k], f"{impl}/{k}")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        BuckGNN(impl="banded_partitioned", **kw)(
+            banded.replace(part=object()))
     with pytest.raises(ValueError, match="impl"):
         BuckGNN(impl="csr", **kw)
 

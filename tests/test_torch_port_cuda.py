@@ -21,6 +21,10 @@ owns thousands of pad edges, within its gate, twice the same bits, and
 refusing what it does not take; the epilogue kernels (epilogue.cu) bit for
 bit against their plain versions with and without the skip; the gates
 failing their faults; and the unfused model's launches per train step.
+The unfused layers' banded aggregation (ops/banded.py: kernel #4 in its
+forward and its symmetric backward, with star terms, the spill window and
+spill2) against the same aggregation on the plain band product, and its
+refusal of float32 rows and H = 384 on the card.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -1108,3 +1112,73 @@ def test_unfused_model_launches_per_train_step_on_cuda(impl):
     assert ep.LAUNCHES == {"epilogue_fwd": 3, "epilogue_bwd": 3}
     assert set(sl.LAUNCHES.values()) == {0}
     assert set(eb.LAUNCHES.values()) == {0}
+
+
+def _hub_batch(dev):
+    """One graph whose hub's out-of-band edges overflow its tile's spill
+    window into spill2 (tests/test_torch_port_banded_path.py::_hub)."""
+    rng = np.random.default_rng(0)
+    far = rng.integers(450, 700, size=320)
+    s_und = np.concatenate([far, np.arange(1, 640, 2)])
+    r_und = np.concatenate([np.zeros(len(far), np.int64),
+                            np.arange(2, 641, 2)])
+    senders = np.concatenate([s_und, r_und]).astype(np.int32)
+    receivers = np.concatenate([r_und, s_und]).astype(np.int32)
+    g = tb.GraphData(x=rng.normal(size=(700, 15)).astype(np.float32),
+                     senders=senders, receivers=receivers,
+                     edge_attr=rng.normal(size=(len(senders), 5)).astype(
+                         np.float32), y=np.ones((1,), np.float32))
+    b = tb.pack_graphs([g], 1024, ((len(senders) + 127) // 128) * 128, 2,
+                       band_width=128, band_tile=256, device="cpu")
+    assert b.has_spill2_edges
+    return b.to(dev)
+
+
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("kind", ["super", "virtual", "spill2"])
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+def test_unfused_banded_aggregate_on_cuda(h, kind, aggr, monkeypatch):
+    """The unfused layers' banded aggregation (ops/banded.py): kernel #4
+    once in the forward and once in the symmetric backward, with the star
+    terms (super), the spill window (virtual) and spill2 (the hub batch),
+    against the same aggregation on the plain band product, within #4's
+    gate."""
+    from buckgnn_tpu_torch.ops.banded import banded_sage_aggregate
+
+    dev = _card()
+    b = {"super": lambda: _batch(dev),
+         "virtual": lambda: _spill_batch(dev, "virtual"),
+         "spill2": lambda: _hub_batch(dev)}[kind]()
+    ctx = make_agg_context(b, use_pallas=True, need_degree=aggr == "mean")
+    x, g = (_inputs(b.n_node_cap, h, dev, seed=s)[0] for s in (h, h + 1))
+
+    def run():
+        xr = x.clone().requires_grad_()
+        out = banded_sage_aggregate(xr, ctx, aggr)
+        out.backward(g.to(out.dtype))
+        return out.detach(), xr.grad
+
+    sl.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["banded_matmul"] == 2
+    monkeypatch.setattr(bm, "_launch", bm.banded_matmul_plain)
+    ref = run()
+    for gv, rv in zip(got, ref):
+        atol, rtol = sl.gate_tol(rv, bm.KERNEL_BANDED_TOL)
+        torch.testing.assert_close(gv.float(), rv.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_unfused_banded_route_refuses_what_the_kernel_does_not_take():
+    """On the card the banded_pallas route raises for float32 rows and
+    for H = 384 (the JAX route would take Pallas there)."""
+    from buckgnn_tpu_torch.ops.banded import banded_sage_aggregate
+
+    dev = _card()
+    b = _batch(dev)
+    ctx = make_agg_context(b, use_pallas=True)
+    for dtype, h in ((torch.float32, 128), (torch.bfloat16, 384)):
+        x = torch.zeros((b.n_node_cap, h), dtype=dtype, device=dev)
+        with pytest.raises(NotImplementedError, match="kernel #4"):
+            banded_sage_aggregate(x, ctx)

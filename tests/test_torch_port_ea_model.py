@@ -256,15 +256,51 @@ def test_training_at_rate_0_1_reproduces_from_the_generator():
         assert not all(torch.equal(a[k], c[k]) for k in a)
 
 
-def test_batches_the_fused_block_does_not_take_raise():
-    graphs, _, ours, _ = _data(n_graphs=8)
+def test_batches_the_fused_block_does_not_take_raise(monkeypatch):
+    """The batches and widths the fused block does not take now run the
+    unfused EA blocks and match the JAX model with the same config: H = 64
+    (the windowed blocks), a batch without edge windows (the flat blocks),
+    remat=True (the windowed escape hatch, under checkpoint) and
+    EAGNN_SAG (flat blocks and the SAG score conv): pred and every
+    gradient. Only the tile-sharded path still raises, naming item 9."""
+    from buckgnn_tpu_torch.ops import ea_block as eb
+
+    graphs, _, ours, ref = _data(n_graphs=8)
     kw = dict(num_node_features=graphs[0].x.shape[1], num_edge_features=5,
-              num_layers=2, model_name="EA_GNN_Shared")
-    with pytest.raises(NotImplementedError, match="remat"):
-        BuckGNN(hidden_channels=128, remat=True, **kw)
-    with pytest.raises(NotImplementedError, match="fused EA block"):
-        BuckGNN(hidden_channels=64, **kw)(ours)
-    with pytest.raises(NotImplementedError, match="fused EA block"):
-        BuckGNN(hidden_channels=128, **kw)(ours.replace(win_edges=None))
-    with pytest.raises(NotImplementedError, match="only"):
-        BuckGNN(hidden_channels=128, **dict(kw, model_name="EAGNN_SAG"))
+              num_layers=2, pooling_layer="mean", dropout_rate=0.0,
+              model_name="EA_GNN_Shared")
+    calls = []
+    real = eb.fused_ea_block
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(eb, "fused_ea_block", counted)
+    cases = [(dict(hidden_channels=64), "banded_pallas", ours, ref),
+             (dict(hidden_channels=128), "banded_pallas",
+              ours.replace(win_edges=None), ref.replace(win_edges=None)),
+             (dict(hidden_channels=128, remat=True), "banded_pallas",
+              ours, ref),
+             (dict(hidden_channels=128, model_name="EAGNN_SAG"), "xla",
+              ours, ref)]
+    for extra, impl, b, r in cases:
+        mkw = dict(kw, **extra)
+        jmodel = JBuckGNN(impl=impl, **mkw)
+        params = _nonzero_biases(jmodel.init(
+            jax.random.key(1), r, deterministic=True)["params"])
+        jpred, jgrads = _grads_jax(jmodel, params, r)
+        port = BuckGNN(impl=impl, **mkw)
+        port.load_state_dict(params_from_flax(jax.tree.map(np.asarray,
+                                                           params)))
+        pred, grads = _grads_port(port, b)
+        gm = b.graph_mask.numpy()
+        np.testing.assert_allclose(pred[gm], jpred[gm], rtol=PRED_RTOL,
+                                   atol=PRED_ATOL, err_msg=str(extra))
+        assert grads.keys() == jgrads.keys()
+        for k in jgrads:
+            _rel_close(grads[k], jgrads[k], f"{extra}/{k}")
+    assert calls == []
+    with pytest.raises(NotImplementedError, match="item 9"):
+        BuckGNN(hidden_channels=128, impl="banded_partitioned", **kw)(
+            ours.replace(ea_part=object()))

@@ -428,8 +428,10 @@ def test_star_threading_follows_the_jax_model(monkeypatch):
 
 def test_spill_scope_guards():
     """Star threading on a spill batch raises, as in the JAX package; a
-    batch with per-tile overflow edges (spill2) raises in the model,
-    naming the unfused path's ROADMAP item."""
+    batch with per-tile overflow edges (spill2), which the fused layer
+    refuses, runs the unfused banded path (the spill list in kernel #4's
+    window, spill2 scatter-added) and matches the JAX model, whose layers
+    take the same path: pred and every gradient."""
     ours = _scrambled()[0]
     x = torch.zeros((ours.n_node_cap, H), requires_grad=True)
     w = [torch.zeros(s) for s in ((H, H), (H,), (H, H))]
@@ -452,7 +454,28 @@ def test_spill_scope_guards():
                       np.float32), y=np.zeros((1,), np.float32))
     batch = tb.pack_graphs([g], 1024, ((len(senders) + 127) // 128) * 128,
                            2, band_width=128, band_tile=256, device="cpu")
+    ref = jb.pack_graphs([g], 1024, ((len(senders) + 127) // 128) * 128,
+                         2, band_width=128, band_tile=256)
     assert batch.has_spill2_edges
-    model = BuckGNN(15, 5, hidden_channels=H, num_layers=2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        model(batch)
+    assert not sl.supports_fused_layer(make_agg_context(
+        batch, use_pallas=True), x, "add", True)
+    kw = dict(num_node_features=15, num_edge_features=5, hidden_channels=H,
+              num_layers=2, dropout_rate=0.0)
+    jmodel = JBuckGNN(impl="banded", **kw)
+    params = jmodel.init(jax.random.key(2), ref,
+                         deterministic=True)["params"]
+
+    def f(p):
+        pred, _ = jmodel.apply({"params": p}, ref, deterministic=True)
+        return jnp.sum(jnp.where(ref.graph_mask, pred, 0.0) ** 2), pred
+
+    (_, jpred), jgrads = jax.value_and_grad(f, has_aux=True)(params)
+    model = BuckGNN(**kw)
+    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray,
+                                                        params)))
+    pred, _ = model(batch)
+    (torch.where(batch.graph_mask, pred, 0.0) ** 2).sum().backward()
+    gm = batch.graph_mask.numpy()
+    _close(pred.detach().numpy()[gm], np.asarray(jpred)[gm], "pred")
+    for k, v in params_from_flax(jax.tree.map(np.asarray, jgrads)).items():
+        _close(model.get_parameter(k).grad.numpy(), v.numpy(), k)
