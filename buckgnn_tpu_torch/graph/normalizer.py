@@ -2,8 +2,9 @@
 
 Re-implements Dataset_Preparation/Normalizer.py (DatasetNormalizer) and the
 feature-slice walk of GraphCreate.dataset_normalizer (GraphCreate.py:675-789)
-in plain NumPy. A copy of buckgnn_tpu/graph/normalizer.py without its .npz
-serialization (checkpoint loading comes with a later slice of the port).
+in plain NumPy. A copy of buckgnn_tpu/graph/normalizer.py: statistics
+serialize to arrays (``normalizer.npz`` with the same keys, so a normalizer
+saved by either package loads in the other; no pickled sklearn objects).
 
 Scaler math matches sklearn exactly (validated against sklearn in tests):
 - RobustScaler: center = median, scale = IQR(25, 75), zero-scales -> 1
@@ -279,6 +280,64 @@ class DatasetNormalizer:
             out["gp_stress_scale"] = self.gp_stress_scaler.scale_.astype(np.float32)
             out["gp_stress_center"] = self.gp_stress_scaler.center_.astype(np.float32)
         return out
+
+    # -------------------------- serialization -------------------------- #
+
+    def to_arrays(self) -> dict:
+        d = {}
+        for name, sc in self._scalers():
+            if sc.__class__ is RobustScaler and sc.center_ is not None:
+                d[f"{name}_center"] = sc.center_
+                d[f"{name}_scale"] = sc.scale_
+            elif sc.__class__ is StandardScaler and sc.mean_ is not None:
+                d[f"{name}_mean"] = sc.mean_
+                d[f"{name}_scale"] = sc.scale_
+        for attr in (
+            "coord_min", "coord_max", "force_min", "force_max",
+            "eigenvalue_min", "eigenvalue_max", "axial_stress_absmax",
+        ):
+            v = getattr(self, attr)
+            if v is not None:
+                d[attr] = np.asarray(v)
+        return d
+
+    @classmethod
+    def from_arrays(cls, d: dict) -> "DatasetNormalizer":
+        self = cls()
+        for name, sc in self._scalers():
+            if f"{name}_center" in d:
+                sc.center_ = np.asarray(d[f"{name}_center"])
+                sc.scale_ = np.asarray(d[f"{name}_scale"])
+            elif f"{name}_mean" in d:
+                sc.mean_ = np.asarray(d[f"{name}_mean"])
+                sc.scale_ = np.asarray(d[f"{name}_scale"])
+        for attr in (
+            "coord_min", "coord_max", "force_min", "force_max",
+            "eigenvalue_min", "eigenvalue_max", "axial_stress_absmax",
+        ):
+            if attr in d:
+                setattr(self, attr, np.asarray(d[attr]))
+        return self
+
+    def _scalers(self):
+        return [
+            ("eigenvalue", self.eigenvalue_scaler),
+            ("displacement", self.displacement_scaler),
+            ("gp_stress", self.gp_stress_scaler),
+            ("rotation", self.rotation_scaler),
+            ("force", self.force_scaler),
+            ("mode_shape_disp", self.mode_shape_disp_scaler),
+            ("mode_shape_rot", self.mode_shape_rot_scaler),
+            ("gp_force", self.gp_force_scaler),
+        ]
+
+    def save(self, path: str) -> None:
+        np.savez(path, **self.to_arrays())
+
+    @classmethod
+    def load(cls, path: str) -> "DatasetNormalizer":
+        with np.load(path) as z:
+            return cls.from_arrays(dict(z))
 
 
 def normalize_dataset(

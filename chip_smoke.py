@@ -96,7 +96,18 @@ Phases, each fatal on failure:
      step memory beside ea-virtual's; and the family: every model_name
      under every pooling (buckling, banded_pallas) and every node-level
      head (impl pallas) at H 128, 3 layers, its pred and one train step's
-     loss against the plain path.
+     loss against the plain path;
+ 10. the training run (``run``): train_gnn for 3 epochs at the flagship
+     cell's config (bench.py::cell_config: dropout 0.1, lr 1e-3, batch 128)
+     on 256 train and 64 val supernode panels it packs itself (band
+     geometry, RCM, 4-tile alignment), with its launch counts (6 #1 per
+     train step and val batch, 6 #2 per train step), finite epochs and its
+     last and best checkpoints; the resume check at dropout 0 (2 epochs
+     resumed to 3 against 3, the third epoch's losses and the parameters,
+     and whether they are bit-equal); run_inference on weights/best (6 #1
+     per batch, its MAPE the best epoch's val MAPE); the epoch loop's step
+     time beside the flagship bench's (``run/loop_overhead``) and the line
+     of ``python -m buckgnn_tpu_torch.bench``.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2082,6 +2093,240 @@ def unfused_paths(dev, card, setup, vsetup, vtrain, etrain):
     return paths, spill2_err
 
 
+# ---- the training run and the checkpoint it serves from ---------------------
+
+# The resume check: at dropout 0 a run of 2 epochs resumed to 3 (B) against
+# 3 uninterrupted epochs (C), both on the card. #1 and #2 sum in a fixed
+# order, but PyTorch's atomics on the card need not, so B and C may part
+# in the last bits: each parameter's difference is held in norm to 2% of
+# C's own third-epoch update (GRAD_TOL's reasoning: a bf16 rounding flip
+# moves a few entries, an Adam step that lost its moments or weights that
+# were not loaded move every entry by O(1) of the update), and the third
+# epoch's losses and MAPEs within PRED_TOL, the forward's. On an H100 the
+# two runs came out bit-equal; the check prints whether they do.
+RESUME_TOL = GRAD_TOL
+RUN_EPOCHS = 3
+RUN_TRAIN, RUN_VAL = 256, 64  # the flagship's panels: 2 batches and 1
+
+
+class RecordingWriter:
+    """Stands in for the trainer's MetricsWriter: makes its log directory
+    and keeps each scalar train_gnn writes (Perf/train_step_ms among
+    them) instead of writing it."""
+
+    made = []
+
+    def __init__(self, log_dir):
+        import os
+
+        os.makedirs(log_dir, exist_ok=True)
+        self.scalars = {}
+        RecordingWriter.made.append(self)
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.setdefault(tag, []).append(float(value))
+
+    def close(self):
+        pass
+
+
+def recorded_run(*args, **kw):
+    """train_gnn with its scalars and packs recorded: (result, scalars, the
+    batches of each pack: the train set's, then the val set's)."""
+    from unittest import mock
+
+    from buckgnn_tpu_torch.train import trainer
+
+    packs = []
+
+    def packing(*a, **k):
+        packs.append(list(batch_iterator(*a, **k)))
+        return iter(packs[-1])
+
+    with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+            mock.patch.object(trainer, "batch_iterator", packing):
+        res = trainer.train_gnn(*args, **kw)
+    return res, RecordingWriter.made[-1].scalars, packs
+
+
+def loop_cost(cfg, batch, nz, features, dev, steps, reps=5):
+    """The run's first train batch (the trainer's capacities) trained by a
+    fresh model outside the loop: the bench's steady step on it, and the
+    step of ``steps`` steps that start on an idle card, as each epoch's do
+    (ms each, ``reps`` times)."""
+    from buckgnn_tpu_torch.train.losses import get_loss_function
+    from buckgnn_tpu_torch.train.trainer import (
+        build_model, make_optimizer, make_train_step,
+    )
+
+    model = build_model(cfg, *features, device=dev)
+    step, _ = make_train_step(model, make_optimizer(cfg, model),
+                              get_loss_function(cfg.loss_function), cfg, nz)
+    gen = torch.Generator().manual_seed(0)
+    steady = run_train_bench(dict(
+        batch=batch, train_step=step, lr=cfg.lr, generator=gen,
+        n_edges=int(batch.edge_mask.sum()),
+        n_graphs=int(batch.graph_mask.sum())))["train_step_ms"]
+    cold = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch, cfg.lr, gen)
+        torch.cuda.synchronize()
+        cold.append((time.perf_counter() - t0) / steps * 1e3)
+    return steady, cold
+
+
+def check_run(label, res, epochs):
+    for h in res.history:
+        if not all(math.isfinite(float(v)) for v in h.values()):
+            fail(f"{label}: non-finite epoch {h}")
+    if len(res.history) != epochs:
+        fail(f"{label}: {len(res.history)} epochs, expected {epochs}")
+
+
+def training_run(dev, card, bench_step_ms, bench_n_node_cap):
+    """Phase 10: train_gnn on the flagship's config and panels, its resume
+    at dropout 0, run_inference on the weights/best it wrote, and the epoch
+    loop's own cost per step over the bench's. Returns the launches of the
+    run's two paths."""
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    from buckgnn_tpu_torch import bench as port_bench
+    from buckgnn_tpu_torch.eval.inference import run_inference
+
+    t0 = time.perf_counter()
+    panels = generate_dataset(RUN_TRAIN + RUN_VAL, seed=0, min_side=24,
+                              max_side=32, use_super_node=True,
+                              use_virtual_edges=False)
+    train, nz = normalize_dataset(panels[:RUN_TRAIN])
+    val, _ = normalize_dataset(panels[RUN_TRAIN:], nz)
+    data_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(port_bench.cell_config("flagship"),
+                              num_epochs=RUN_EPOCHS)
+    layers = cfg.num_layers
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        res, scalars, (packed, val_packed) = recorded_run(
+            cfg, train, val, nz, out, trial_id="run", verbose=False,
+            device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        train_launches = launch_counts()
+        steps, val_batches = len(packed), len(val_packed)
+        n_cap = packed[0].n_node_cap
+        del val_packed
+        # batches of 128 panels: 2 train steps and 1 val batch an epoch
+        if (steps, val_batches) != (-(-RUN_TRAIN // cfg.batch_size),
+                                    -(-RUN_VAL // cfg.batch_size)):
+            fail(f"run/train packed {steps} train and {val_batches} val "
+                 "batches")
+        expect_launches(
+            f"run/train ({RUN_EPOCHS} epochs of {steps} train steps and "
+            f"{val_batches} val batch)", train_launches,
+            {"sage_layer_fwd": layers * RUN_EPOCHS * (steps + val_batches),
+             "sage_layer_bwd": layers * RUN_EPOCHS * steps})
+        check_run("run/train", res, RUN_EPOCHS)
+        wdir = os.path.join(res.log_dir, "weights")
+        for d in ("last", "best"):
+            if not os.path.exists(os.path.join(wdir, d, "state.pt")):
+                fail(f"run/train wrote no weights/{d}/state.pt")
+
+        # ---- resume at dropout 0 ----
+        t0 = time.perf_counter()
+        cfg0 = dataclasses.replace(cfg, dropout_rate=0.0)
+        first = recorded_run(dataclasses.replace(cfg0, num_epochs=2),
+                             train, val, nz, os.path.join(out, "a"),
+                             trial_id="a", verbose=False, device=dev)[0]
+        resumed = recorded_run(cfg0, train, val, nz, os.path.join(out, "b"),
+                               trial_id="b", resume_from=os.path.join(
+                                   first.log_dir, "weights", "last"),
+                               verbose=False, device=dev)[0]
+        whole = recorded_run(cfg0, train, val, nz, os.path.join(out, "c"),
+                             trial_id="c", verbose=False, device=dev)[0]
+        resume_s = time.perf_counter() - t0
+        check_run("run/resume", resumed, 1)
+        check_run("run/whole", whole, RUN_EPOCHS)
+        if resumed.history[0]["epoch"] != RUN_EPOCHS - 1:
+            fail(f"run/resume started at epoch {resumed.history[0]}")
+        b, c = resumed.history[0], whole.history[-1]
+        keys = ("train_loss", "val_loss", "train_mape", "val_mape")
+        for k in keys:
+            check_close(f"run/resume/{k}", torch.tensor(b[k]),
+                        torch.tensor(c[k]), PRED_TOL)
+        pa = first.state.model.state_dict()
+        pb = resumed.state.model.state_dict()
+        rel = {}
+        bit_equal = all(b[k] == c[k] for k in keys)
+        for k, p in whole.state.model.state_dict().items():
+            upd = float((p - pa[k]).float().norm())
+            diff = float((pb[k] - p).float().norm())
+            rel[k] = diff / upd if upd else (0.0 if diff == 0 else math.inf)
+            bit_equal &= torch.equal(pb[k], p)
+        worst = max(rel, key=rel.get)
+        print(json.dumps({
+            "check": "run/resume: 2 epochs + resume to 3 vs 3, dropout 0",
+            "card": card, "third_epoch": {"resumed": b, "whole": c},
+            "worst_param": worst, "param_rel_diff": rel[worst],
+            "tol": RESUME_TOL, "bit_equal": bit_equal,
+            "ok": rel[worst] <= RESUME_TOL}))
+        if rel[worst] > RESUME_TOL:
+            fail(f"run/resume: {worst} differs by {rel[worst]} of its "
+                 "third-epoch update from the uninterrupted run")
+
+        # ---- serve weights/best ----
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        served = run_inference(os.path.join(wdir, "best"), val,
+                               os.path.join(out, "serve"),
+                               batch_size=cfg.batch_size, device=dev)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_launches = launch_counts()
+        expect_launches(f"run/serve ({val_batches} batch)", serve_launches,
+                        {"sage_layer_fwd": layers * val_batches})
+        check_close("run/serve/mape vs the best epoch's val MAPE",
+                    torch.tensor(served["MAPE"]),
+                    torch.tensor(res.best_val_mape), PRED_TOL)
+
+    # the loop's own cost: Perf/train_step_ms spans an epoch's steps and
+    # its one fetch, not the packing; beside it, the run's first batch
+    # trained outside the loop (steady, and in epochs of cold steps)
+    step_ms = scalars["Perf/train_step_ms"]
+    features = (train[0].x.shape[1], train[0].edge_attr.shape[1])
+    padded_ms, cold_ms = loop_cost(cfg, packed[0], nz, features, dev, steps)
+    del packed
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_bench.main()
+    bench_line = buf.getvalue().strip().splitlines()[-1]
+    print(bench_line)
+    print(json.dumps({
+        "run": "flagship train_gnn: 6L h512 bf16 banded_pallas, 256 train "
+               "and 64 val supernode panels, batch 128, dropout 0.1, lr "
+               "1e-3, 3 epochs", "card": card,
+        "history": res.history, "best_val_mape": res.best_val_mape,
+        "serve": served, "n_node_cap": n_cap,
+        "bench_n_node_cap": bench_n_node_cap, "data_s": data_s,
+        "run_s": run_s, "resume_s": resume_s, "serve_s": serve_s}))
+    print(json.dumps({
+        "metric": "run/loop_overhead", "card": card,
+        "epoch_train_step_ms": step_ms, "bench_train_step_ms": bench_step_ms,
+        "overhead": [ms / bench_step_ms - 1.0 for ms in step_ms],
+        "padded_step_ms": padded_ms, "cold_epoch_step_ms": cold_ms,
+        "padding": padded_ms / bench_step_ms - 1.0,
+        "cold_start": float(np.median(cold_ms)) / padded_ms - 1.0,
+        "loop_own": [ms / float(np.median(cold_ms)) - 1.0 for ms in step_ms],
+        "n_node_cap": n_cap, "bench_n_node_cap": bench_n_node_cap,
+        "bench_main_value": json.loads(bench_line)["value"]}))
+    return {"run_train": train_launches, "run_serve": serve_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2459,6 +2704,10 @@ def main():
     unfused, spill2_err = unfused_paths(dev, card, setup, vsetup, vtrain,
                                         etrain)
 
+    # ---- 10. the training run and the checkpoint it serves from ---------
+    run_paths = training_run(dev, card, bench["train_step_ms"],
+                             train["batch"].n_node_cap)
+
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
         "card": card, "infer_step_ms": serve["infer_step_ms"],
@@ -2542,7 +2791,8 @@ def main():
                "virtual_serve": vserve_launches,
                "virtual_train": vtrain_launches,
                "ea_serve": eserve_launches,
-               "ea_train": etrain_launches, **csr_paths, **unfused}
+               "ea_train": etrain_launches, **csr_paths, **unfused,
+               **run_paths}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",
