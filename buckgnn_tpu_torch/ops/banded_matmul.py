@@ -169,7 +169,7 @@ def _launch(band, x, *, tile, width, out_dtype, spill_offsets, spill_lo,
              int(out_dtype == torch.float32), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"banded_matmul launch failed: CUDA error {err}")
-    LAUNCHES["banded_matmul"] += 1
+    cuda_build.count_launch(LAUNCHES, "banded_matmul")
     return out
 
 

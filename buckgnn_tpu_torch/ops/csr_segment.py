@@ -231,7 +231,7 @@ def _launch(x, idx, off, mean=False):
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"csr_segment launch failed: CUDA error {err}")
-    LAUNCHES["csr_segment"] += 1
+    cuda_build.count_launch(LAUNCHES, "csr_segment")
     return out
 
 

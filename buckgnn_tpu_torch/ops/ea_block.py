@@ -587,7 +587,7 @@ def _launch_fwd(x, e_win, w, bias, ctx, *, skip, rate, seed, save_res, enc):
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ea_block_fwd launch failed: CUDA error {err}")
-    LAUNCHES["ea_block_fwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "ea_block_fwd")
     if save_res:
         return zx, ze, e1s, m1s
     return zx, ze
@@ -644,7 +644,7 @@ def _launch_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx, *, skip, rate,
              s0, s1, scale, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ea_block_bwd launch failed: CUDA error {err}")
-    LAUNCHES["ea_block_bwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "ea_block_bwd")
     return dx, de_win, dw, dbias
 
 

@@ -130,6 +130,8 @@ def _fn(name: str, n_ptr: int):
 
 
 def _launch_fwd(c, p, seed, rate):
+    from buckgnn_tpu_torch.utils import cuda_build
+
     _operands([c] + ([p] if p is not None else []), c)
     y = torch.empty_like(c)
     stream = torch.cuda.current_stream(c.device).cuda_stream
@@ -139,11 +141,13 @@ def _launch_fwd(c, p, seed, rate):
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"epilogue_fwd launch failed: CUDA error {err}")
-    LAUNCHES["epilogue_fwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "epilogue_fwd")
     return y
 
 
 def _launch_bwd(g, c, seed, rate, has_skip):
+    from buckgnn_tpu_torch.utils import cuda_build
+
     _operands([g, c], c)
     dc = torch.empty_like(c)
     dp = torch.empty_like(c) if has_skip else None
@@ -154,7 +158,7 @@ def _launch_bwd(g, c, seed, rate, has_skip):
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"epilogue_bwd launch failed: CUDA error {err}")
-    LAUNCHES["epilogue_bwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "epilogue_bwd")
     return dc, dp
 
 

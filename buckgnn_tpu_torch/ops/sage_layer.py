@@ -324,7 +324,7 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sage_layer_fwd launch failed: CUDA error {err}")
-    LAUNCHES["sage_layer_fwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "sage_layer_fwd")
     if save_res:
         return z, ftab, y, inv, agg
     return z, ftab
@@ -521,7 +521,7 @@ def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
              scale, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sage_layer_bwd launch failed: CUDA error {err}")
-    LAUNCHES["sage_layer_bwd"] += 1
+    cuda_build.count_launch(LAUNCHES, "sage_layer_bwd")
     return dx, dwl, dwr, dbl, town
 
 
@@ -599,7 +599,7 @@ def _launch_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile, skip, rate, seed,
     if err != 0:
         raise RuntimeError(
             f"sage_layer_bwd_tile launch failed: CUDA error {err}")
-    LAUNCHES["sage_layer_bwd_tile"] += 1
+    cuda_build.count_launch(LAUNCHES, "sage_layer_bwd_tile")
     return dagg, dxp, dwl, dwr, dbl, tbwd
 
 

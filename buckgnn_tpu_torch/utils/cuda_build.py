@@ -5,6 +5,10 @@ is compiled at first use for ``sm_90a`` into ``buckgnn_tpu_torch/_build/``
 (listed in .gitignore), keyed by a hash of the source and the shared
 headers (``csrc/*.cuh``). Nothing here runs at
 import time; a machine without nvcc only fails when a kernel is asked for.
+Building and loading hold one lock, so threads that ask for the same
+kernel at once (concurrent tuning trials) start one nvcc, and a temporary
+output is named by process and thread. `count_launch` adds to a wrapper's
+launch count under a lock of its own, for the same threads.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +38,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -58,6 +65,11 @@ def build_all(names=None) -> dict[str, float]:
     started together. Returns seconds per built kernel; raises with the
     compiler's output when a build fails. The compiler's resource report
     (``-Xptxas -v``) is kept beside each library as ``.log``."""
+    with _BUILD_LOCK:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict[str, float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
     procs = {}
@@ -66,7 +78,7 @@ def build_all(names=None) -> dict[str, float]:
         if os.path.exists(out):
             continue
         nvcc = nvcc or _nvcc()
-        tmp = f"{out}.tmp{os.getpid()}"
+        tmp = f"{out}.tmp{os.getpid()}_{threading.get_ident()}"
         procs[name] = (time.perf_counter(), tmp, out, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -84,7 +96,17 @@ def build_all(names=None) -> dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use."""
-    if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(lib_path(name))
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        if name not in _LIBS:
+            _build_all([name])
+            _LIBS[name] = ctypes.CDLL(lib_path(name))
+        return _LIBS[name]
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """One more launch of kernel ``name`` in a wrapper's ``counts``."""
+    with _COUNT_LOCK:
+        counts[name] += 1

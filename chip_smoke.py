@@ -107,7 +107,22 @@ Phases, each fatal on failure:
      and whether they are bit-equal); run_inference on weights/best (6 #1
      per batch, its MAPE the best epoch's val MAPE); the epoch loop's step
      time beside the flagship bench's (``run/loop_overhead``) and the line
-     of ``python -m buckgnn_tpu_torch.bench``.
+     of ``python -m buckgnn_tpu_torch.bench``;
+ 11. the command line on folder datasets (``cli``), in the README's order
+     through ``cli.main``: three ``python -m buckgnn_tpu_torch datagen``
+     processes at once (256 cases with stiffeners into D/Train, 64 into
+     D/Validation, 96 into a folder of the default flags' own), ``split``
+     of D/Train with the flagship's data flags (the manifest's sizes add
+     up to 256), ``train --data-dir D`` at the flagship's flags for 3
+     epochs (the launches its batches imply: #1 per layer for each train
+     step and val batch, #2 for each step on a batch without spill edges,
+     #3 and #4 for each one with them; no other kernel), ``infer`` on its
+     weights/best (#1 only; its MAPE within PRED_TOL of the best val
+     MAPE), ``timer`` (#1 only; nastran null), ``train`` at the JAX
+     package's default flags (float32, impl xla, H 128, virtual edges; #8
+     and #9 only, in float32), ``tune --synthetic 64 --max-concurrent 2``
+     (two trials on the card in overlapping intervals, SAGE kernels only)
+     and ``python -m buckgnn_tpu_torch --help``.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2130,12 +2145,10 @@ class RecordingWriter:
         pass
 
 
-def recorded_run(*args, **kw):
-    """train_gnn with its scalars and packs recorded: (result, scalars, the
-    batches of each pack: the train set's, then the val set's)."""
+@contextlib.contextmanager
+def recorded_packs(module):
+    """Keep every batch list `module`'s batch_iterator packs."""
     from unittest import mock
-
-    from buckgnn_tpu_torch.train import trainer
 
     packs = []
 
@@ -2143,8 +2156,19 @@ def recorded_run(*args, **kw):
         packs.append(list(batch_iterator(*a, **k)))
         return iter(packs[-1])
 
+    with mock.patch.object(module, "batch_iterator", packing):
+        yield packs
+
+
+def recorded_run(*args, **kw):
+    """train_gnn with its scalars and packs recorded: (result, scalars, the
+    batches of each pack: the train set's, then the val set's)."""
+    from unittest import mock
+
+    from buckgnn_tpu_torch.train import trainer
+
     with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
-            mock.patch.object(trainer, "batch_iterator", packing):
+            recorded_packs(trainer) as packs:
         res = trainer.train_gnn(*args, **kw)
     return res, RecordingWriter.made[-1].scalars, packs
 
@@ -2324,7 +2348,324 @@ def training_run(dev, card, bench_step_ms, bench_n_node_cap):
         "loop_own": [ms / float(np.median(cold_ms)) - 1.0 for ms in step_ms],
         "n_node_cap": n_cap, "bench_n_node_cap": bench_n_node_cap,
         "bench_main_value": json.loads(bench_line)["value"]}))
-    return {"run_train": train_launches, "run_serve": serve_launches}
+    return {"run_train": train_launches, "run_serve": serve_launches}, step_ms
+
+
+# ---- 11. the command line on folder datasets ------------------------------
+
+# The README's quick start through `cli.main`, in this process so that the
+# launches are counted: the flagship's flags on datagen folders, then the
+# JAX package's default flags on a folder of their own (the dataset cache
+# is keyed on the prediction type alone, so it would hand back the
+# supernode graphs).
+CLI_FLAGSHIP = ["--use-super-node", "--model-name", "GraphSage_addAggr_Shared",
+                "--hidden-channels", "512", "--num-layers", "6",
+                "--compute-dtype", "bfloat16", "--segment-impl",
+                "banded_pallas", "--batch-size", "128", "--lr", "1e-3",
+                "--num-epochs", "3"]
+CLI_LAYERS, CLI_EPOCHS, CLI_DEFAULT_EPOCHS = 6, 3, 2
+CLI_DATAGEN = {  # folder -> datagen flags: 256, 64 and 96 cases
+    "D/Train": ["--n-models", "64", "--loadcases-per-model", "4",
+                "--stiffeners", "--seed", "0"],
+    "D/Validation": ["--n-models", "16", "--seed", "1000"],
+    "E": ["--n-models", "24", "--seed", "2000"],
+}
+
+
+def cli_call(argv):
+    """cli.main(argv) with its standard output kept: (seconds, the lines it
+    printed, the JSON object of its last line)."""
+    import io
+
+    from buckgnn_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"cli {argv[0]} returned {rc}: {lines[-3:]}")
+    return time.perf_counter() - t0, lines, json.loads(lines[-1])
+
+
+def sage_train_launches(train_packs, val_packs, epochs, layers):
+    """What a fused SAGE run's batches imply: per layer, #1 for each train
+    step and val batch; #2 for each train step on a batch without spill
+    edges, #3 and #4 (the split backward) for each one with them."""
+    spill = sum(b.has_spill_edges for b in train_packs)
+    steps, val = len(train_packs), len(val_packs)
+    want = {"sage_layer_fwd": layers * epochs * (steps + val),
+            "sage_layer_bwd": layers * epochs * (steps - spill)}
+    if spill:
+        want["sage_layer_bwd_tile"] = want["banded_matmul"] = \
+            layers * epochs * spill
+    return {k: v for k, v in want.items() if v}, spill
+
+
+def cli_batch_checks(packs):
+    """The CLI train run's kernels against their plain versions on its
+    first and last (short) batch, with seeded activations at H 512: #1's
+    spill variant (serving and training), #3's tile pass and #4 with the
+    spill window, the star table and acc. Returns {kernel: [max abs
+    errors]}."""
+    errs = {"sage_layer_fwd": [], "sage_layer_bwd_tile": [],
+            "banded_matmul": []}
+    for i in sorted({0, len(packs) - 1}):
+        b = packs[i]
+        if not (b.has_spill_edges and b.has_supernode_edges):
+            fail(f"cli train batch {i} must have spill edges and stars")
+        x = seeded_x(b, 512, 120 + i)
+        w = check_weights(512, x, b.node_mask, seed=8 + i)
+        name = f"cli/train/batch{i}/n{int(b.node_mask.sum())}"
+        m = b.node_mask
+        errs["sage_layer_fwd"] += [
+            fwd_vs_plain(name, *spill_inputs(b, x, w, True), m),
+            train_fwd_checks(name, *spill_inputs(b, x, w, True), m)]
+        errs["sage_layer_bwd_tile"].append(
+            tile_vs_plain(name, b, x, w, True, RATE))
+        errs["banded_matmul"].append(banded_vs_plain(
+            f"{name}/spill1/table1/acc1",
+            *banded_inputs(b, x, 130 + i, True, True, True)))
+    return errs
+
+
+def tune_launches(results, packs_of):
+    """What a tune run's trials imply: `sage_train_launches` of each
+    trial's own packs over the epochs it ran (ASHA may stop one early),
+    summed."""
+    want = {}
+    for i, r in enumerate(results):
+        packs = packs_of[f"trial_{i:05d}"]
+        if len(packs) != 2:
+            fail(f"cli tune trial {i} packed {len(packs)} batch lists")
+        w, _ = sage_train_launches(*packs, r["final"]["epoch"] + 1,
+                                   r["config"]["num_layers"])
+        for k, v in w.items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def cli_tune(flags):
+    """`cli tune --synthetic 64` over two learning rates, both trials at
+    once, with ``flags``: (seconds, its last line, the trials' results,
+    each trial's packs by trial id). Each trial's thread keeps its trial
+    id, so that the packs it makes are its own."""
+    import threading
+    from unittest import mock
+
+    from buckgnn_tpu_torch.train import trainer, tune
+
+    seen, packs_of, current = [], {}, threading.local()
+    real, real_train = tune.hyperparameter_optimization, tune.train_gnn
+    real_iter = trainer.batch_iterator
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out[1])
+        return out
+
+    def tracked(*a, trial_id, **kw):
+        current.trial = trial_id
+        return real_train(*a, trial_id=trial_id, **kw)
+
+    def packing(*a, **k):
+        packs = packs_of.setdefault(getattr(current, "trial", None), [])
+        packs.append(list(real_iter(*a, **k)))
+        return iter(packs[-1])
+
+    with mock.patch.object(tune, "hyperparameter_optimization", recording), \
+            mock.patch.object(tune, "train_gnn", tracked), \
+            mock.patch.object(trainer, "batch_iterator", packing):
+        secs, _, tuned = cli_call([
+            "tune", "--synthetic", "64", "--max-concurrent", "2", "--grid",
+            '{"lr": [1e-3, 1e-2]}', *flags])
+    (results,) = seen
+    return secs, tuned, results, packs_of
+
+
+def cli_phase(dev, card, run_step_ms):
+    """Phase 11: datagen, split, train, infer and timer at the flagship's
+    flags, train at the JAX package's defaults, tune with two concurrent
+    trials, and ``python -m buckgnn_tpu_torch --help``. Returns the paths'
+    launches, and the kernels' errors against their plain versions on the
+    train run's batches."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    from buckgnn_tpu_torch.eval import inference
+    from buckgnn_tpu_torch.train import trainer
+
+    phase_t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    paths, lines = {}, []
+
+    def report(step, seconds, **kw):
+        line = {"cli": step, "card": card, "s": seconds, **kw}
+        lines.append(line)
+        print(json.dumps(line))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(rel):
+            return os.path.join(tmp, rel)
+
+        # ---- datagen: one process each, all at once (no kernel) ----
+        t0 = time.perf_counter()
+        procs = {rel: subprocess.Popen(
+            [sys.executable, "-m", "buckgnn_tpu_torch", "datagen",
+             "--out-dir", at(rel), *flags], cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rel, flags in CLI_DATAGEN.items()}
+        for rel, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"cli datagen {rel}: {out[-2000:]}")
+        counts = {rel: sum(f.endswith(".bdf") for f in os.listdir(at(rel)))
+                  for rel in CLI_DATAGEN}
+        report("datagen", time.perf_counter() - t0, cases=counts)
+        if counts != {"D/Train": 256, "D/Validation": 64, "E": 96}:
+            fail(f"cli datagen wrote {counts}")
+
+        # ---- split (its data flags make the folder's supernode cache) ----
+        secs, _, split = cli_call(["split", "--data-dir", at("D/Train"),
+                                   "--out-dir", at("S"), "--use-super-node"])
+        with open(at("S/split_manifest.json")) as f:
+            sizes = json.load(f)["sizes"]
+        report("split", secs, sizes=sizes)
+        if sum(sizes) != 256 or split["sizes"] != sizes:
+            fail(f"cli split sizes {sizes}")
+
+        # ---- train at the flagship's width ----
+        reset_launch_counts()
+        with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+                recorded_packs(trainer) as packs:
+            secs, _, run = cli_call(["train", "--data-dir", at("D"),
+                                     "--output-dir", at("R"), *CLI_FLAGSHIP])
+        got = launch_counts()
+        scalars = RecordingWriter.made[-1].scalars
+        tr, va = packs
+        want, spill = sage_train_launches(tr, va, CLI_EPOCHS, CLI_LAYERS)
+        expect_launches(f"cli/train ({CLI_EPOCHS} epochs of {len(tr)} train "
+                        f"steps, {spill} with spill edges, and {len(va)} val "
+                        "batch)", got, want)
+        paths["cli/train"] = got
+        best = os.path.join(run["log_dir"], "weights", "best")
+        if not (math.isfinite(run["best_val_mape"])
+                and os.path.exists(os.path.join(best, "state.pt"))):
+            fail(f"cli train: {run}")
+        report("train", secs, step_ms=scalars["Perf/train_step_ms"],
+               run_phase_step_ms=run_step_ms,
+               best_val_mape=run["best_val_mape"],
+               n_node_cap=tr[0].n_node_cap, train_batches=len(tr),
+               spill_batches=spill, val_batches=len(va),
+               real_nodes=[int(b.node_mask.sum()) for b in tr],
+               launches=got)
+        kernel_errs = cli_batch_checks(tr)
+        del packs, tr, va
+
+        # ---- infer on weights/best, the same graphs as the val set ----
+        reset_launch_counts()
+        with recorded_packs(inference) as packs:
+            secs, _, served = cli_call([
+                "infer", "--model-path", best, "--data-dir",
+                at("D/Validation"), "--output-dir", at("I"),
+                "--use-super-node"])
+        got = launch_counts()
+        expect_launches(f"cli/serve ({len(packs[0])} batch)", got,
+                        {"sage_layer_fwd": CLI_LAYERS * len(packs[0])})
+        paths["cli/serve"] = got
+        check_close("cli/serve/mape vs the run's best val MAPE",
+                    torch.tensor(served["MAPE"]),
+                    torch.tensor(run["best_val_mape"]), PRED_TOL)
+        report("infer", secs, mape=served, launches=got)
+        del packs
+
+        # ---- timer: 3 warm-up and 20 timed forwards of one batch ----
+        reset_launch_counts()
+        secs, _, timed = cli_call([
+            "timer", "--model-path", best, "--data-dir", at("D/Validation"),
+            "--output-path", at("timer.txt"), "--use-super-node"])
+        got = launch_counts()
+        expect_launches("cli/timer (23 forwards)", got,
+                        {"sage_layer_fwd": CLI_LAYERS * 23})
+        paths["cli/timer"] = got
+        if timed["nastran"] is not None or not timed["samples_per_s"] > 0:
+            fail(f"cli timer: {timed}")
+        report("timer", secs, mape=timed["metrics"]["mape"],
+               samples_per_s=timed["samples_per_s"],
+               latency_per_sample_ms=timed["latency_per_sample_ms"],
+               nastran=timed["nastran"], n_node_cap=timed["n_node_cap"],
+               launches=got)
+
+        # ---- train at the JAX package's default flags ----
+        dtypes = set()
+        fwd = ep.epilogue_fwd
+
+        def typed(c, *a, **k):
+            dtypes.add(str(c.dtype))
+            return fwd(c, *a, **k)
+
+        reset_launch_counts()
+        with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+                mock.patch.object(ep, "epilogue_fwd", typed), \
+                recorded_packs(trainer) as packs:
+            secs, _, drun = cli_call([
+                "train", "--data-dir", at("E"), "--output-dir", at("R2"),
+                "--num-epochs", str(CLI_DEFAULT_EPOCHS)])
+        got = launch_counts()
+        scalars = RecordingWriter.made[-1].scalars
+        steps = len(packs[0])
+        each = CLI_LAYERS * CLI_DEFAULT_EPOCHS * steps
+        expect_launches(f"cli/default ({CLI_DEFAULT_EPOCHS} epochs of "
+                        f"{steps} train steps)", got,
+                        {"epilogue_fwd": each, "epilogue_bwd": each})
+        paths["cli/default"] = got
+        if dtypes != {"torch.float32"} or not math.isfinite(
+                drun["best_val_mape"]):
+            fail(f"cli default train: {drun}, epilogue dtypes {dtypes}")
+        report("default", secs, step_ms=scalars["Perf/train_step_ms"],
+               best_val_mape=drun["best_val_mape"],
+               n_node_cap=packs[0][0].n_node_cap, train_batches=steps,
+               val_batches=len(packs[1]), epilogue_dtypes=sorted(dtypes),
+               launches=got)
+        del packs
+
+        # ---- tune: two grid points at once on the card ----
+        reset_launch_counts()
+        secs, tuned, results, packs_of = cli_tune([
+            "--output-dir", at("T"), "--compute-dtype", "bfloat16",
+            "--segment-impl", "banded_pallas", "--hidden-channels", "128",
+            "--use-super-node", "--num-epochs", "2"])
+        got = launch_counts()
+        paths["cli/tune"] = got
+        a, b = (r["schedule"] for r in results)
+        overlap = min(a["end"], b["end"]) - max(a["start"], b["start"])
+        if (tuned["n_trials"] != 2 or overlap <= 0
+                or not all(math.isfinite(r["best_val_mape"])
+                           for r in results)):
+            fail(f"cli tune: {tuned}, schedules {a} {b}")
+        epochs = [r["final"]["epoch"] + 1 for r in results]
+        expect_launches(f"cli/tune (2 trials of {epochs} epochs)", got,
+                        tune_launches(results, packs_of))
+        report("tune", secs, overlap_s=overlap,
+               schedules=[r["schedule"] for r in results], epochs=epochs,
+               best_val_mape=[r["best_val_mape"] for r in results],
+               launches=got)
+        del packs_of
+
+    # ---- python -m buckgnn_tpu_torch --help ----
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "buckgnn_tpu_torch",
+                          "--help"], cwd=repo, capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0 or "datagen,train,tune" not in res.stdout:
+        fail(f"python -m buckgnn_tpu_torch --help: {res.stderr[-2000:]}")
+    report("help", time.perf_counter() - t0)
+    print(json.dumps({"phase": "cli", "card": card,
+                      "s": time.perf_counter() - phase_t0}))
+    return paths, kernel_errs
 
 
 def main():
@@ -2705,8 +3046,14 @@ def main():
                                         etrain)
 
     # ---- 10. the training run and the checkpoint it serves from ---------
-    run_paths = training_run(dev, card, bench["train_step_ms"],
-                             train["batch"].n_node_cap)
+    run_paths, run_step_ms = training_run(dev, card, bench["train_step_ms"],
+                                          train["batch"].n_node_cap)
+
+    # ---- 11. the command line on folder datasets -----------------------
+    cli_paths, cli_errs = cli_phase(dev, card, run_step_ms)
+    errs += cli_errs["sage_layer_fwd"]
+    tile_errs += cli_errs["sage_layer_bwd_tile"]
+    banded_errs += cli_errs["banded_matmul"]
 
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
@@ -2792,7 +3139,7 @@ def main():
                "virtual_train": vtrain_launches,
                "ea_serve": eserve_launches,
                "ea_train": etrain_launches, **csr_paths, **unfused,
-               **run_paths}
+               **run_paths, **cli_paths}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",

@@ -36,7 +36,7 @@ from buckgnn_tpu_torch.ops import csr_segment as cs
 from buckgnn_tpu_torch.ops import epilogue as ep
 from buckgnn_tpu_torch.ops import segment
 from buckgnn_tpu_torch.ops.dropout import keep_mask
-from buckgnn_tpu_torch.ops.sage import sage_aggregate
+from buckgnn_tpu_torch.ops.sage import _gather_messages, sage_aggregate
 
 SEED = (0x2545F491, 0x9E3779B9)
 # fp32: the same sums in another order, 1e-5 relative to the largest entry
@@ -189,6 +189,41 @@ def test_segment_ops_match_jax():
     got = segment.segment_max(td, ti, 41)
     _close(got, j_seg.segment_max(jd, ji, 41), 0.0)
     assert bool((got[7] == 0).all()) and bool((got[40] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xla_route_with_pad_edges_matches_jax(dtype):
+    """The 'xla' route where the dead row sends 2,000 pad edges to itself,
+    as it does in a padded batch: the messages are x[senders] bit for bit
+    (the backward sends the dead row's duplicates to spare rows), and the
+    output and its backward match jax.vjp: fp32 to round-off; bf16 within
+    a few ulps of the largest entry (XLA's bf16 scatter-add rounds per
+    add). The dead row's gradient, the sum of its 2,000 cotangents, is
+    held to the exact sum: to round-off in fp32, one ulp in bf16."""
+    n = 300
+    s, r = _graph(n, n_edges=700, hub=100, seed=4)
+    s = np.concatenate([s, np.full(2000, n - 1, np.int32)])
+    r = np.concatenate([r, np.full(2000, n - 1, np.int32)])
+    x, g = _x(n, 64, 5), _x(n, 64, 6)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    st, rt = torch.from_numpy(s), torch.from_numpy(r)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    assert torch.equal(_gather_messages(xt.detach(), st),
+                       xt.detach()[st.long()])
+    out, vjp = jax.vjp(lambda v: j_sage_aggregate(
+        v, jnp.asarray(s), jnp.asarray(r), n), jnp.asarray(x, jdt))
+    (want,) = vjp(jnp.asarray(g, out.dtype))
+    got = sage_aggregate(xt, st, rt, n, impl="xla")
+    got.backward(torch.from_numpy(g).to(got.dtype))
+    assert xt.grad.dtype == tdt
+    tol = F32_TOL if dtype == "float32" else BF16_XLA_TOL
+    _close(got.detach()[:-1], np.asarray(out, np.float32)[:-1], tol)
+    _close(xt.grad[:-1], np.asarray(want, np.float32)[:-1], tol)
+    # the dead row against the exact sum: JAX's sequential scatter-add
+    # drifts by 2e-5 over the 2,000 adds in fp32
+    gd = torch.from_numpy(g[-1]).to(tdt).double().numpy() * 2000
+    _close(xt.grad[-1], gd, F32_TOL if dtype == "float32" else BF16_ULP_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -150,19 +150,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_serve_setup()
 
 
+# the command line and the modules it brought (ROADMAP items 8b-8c, 10a)
+CLI_MODULES = tuple(f"buckgnn_tpu_torch.{m}" for m in (
+    "__main__", "cli", "graph.mesh", "graph.op2", "graph.io", "graph.folder",
+    "graph.split", "graph.flatten", "graph.materialize", "datagen",
+    "datagen.shapes", "datagen.loadcases", "datagen.runner", "eval.timer",
+    "train.tune"))
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax, flax and buckgnn_tpu
-    out of sys.modules (checked in a fresh interpreter: this test process
-    has imported jax already)."""
+    """Importing every module of the port, the command line and the
+    folder-dataset, datagen, tuning and timer modules among them, leaves
+    jax, flax and buckgnn_tpu out of sys.modules (checked in a fresh
+    interpreter: this test process has imported jax already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import buckgnn_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {CLI_MODULES!r} if m not in sys.modules]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'buckgnn_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
