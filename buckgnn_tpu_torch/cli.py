@@ -19,11 +19,12 @@ graph/folder.py.
 
 The port of buckgnn_tpu/cli.py: the same subcommands, options, defaults,
 choices and dests, and the same data and train configs from them. It
-differs in four places: ``--device`` on train, tune, infer and timer (the
-CUDA card unless ``--device cpu``, which runs the plain PyTorch path);
-``bench`` runs the port's own benchmark (buckgnn_tpu_torch/bench.py);
-``scale``, the data-parallel harness, raises NotImplementedError
-(multi-GPU, ROADMAP item 9); and ``timer`` adds the solver's timings
+differs in four places: ``--device`` on train, tune, infer, timer and
+scale (the CUDA card unless ``--device cpu``, which runs the plain
+PyTorch path); ``bench`` runs the port's own benchmark
+(buckgnn_tpu_torch/bench.py); ``scale`` spawns one process per device for
+each count it measures (NCCL over the cards, gloo over CPU processes with
+``--device cpu``); and ``timer`` adds the solver's timings
 (``nastran``, null without a solver) to the GNN's in the line it prints.
 """
 
@@ -297,10 +298,13 @@ def cmd_flatten(args) -> int:
 
 
 def cmd_scale(args) -> int:
-    raise NotImplementedError(
-        "scale, the data-parallel scaling harness "
-        "(buckgnn_tpu/parallel/scaling.py), runs over several devices: "
-        "multi-GPU, ROADMAP item 9")
+    from buckgnn_tpu_torch.parallel.scaling import scaling_bench
+
+    out = scaling_bench(n_devices=args.n_devices,
+                        graphs_per_device=args.graphs_per_device,
+                        n_steps=args.n_steps, device=args.device)
+    print(json.dumps(out))
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -399,6 +403,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--n-devices", type=int, default=None)
     sc.add_argument("--graphs-per-device", type=int, default=8)
     sc.add_argument("--n-steps", type=int, default=10)
+    _add_device_flag(sc)
     sc.set_defaults(fn=cmd_scale)
     return p
 

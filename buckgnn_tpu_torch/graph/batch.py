@@ -130,9 +130,9 @@ class GraphBatch:
     has_supernode_edges: bool = False
     has_spill_edges: bool = True
     has_spill2_edges: bool = True
-    # the multi-device partitions of the JAX package (parallel/
-    # partitioned.py, ea_shard.py): ROADMAP queue 1, item 9. The port's
-    # packing never sets them; a batch that carries one is refused.
+    # the multi-device shards (parallel/partitioned.py::PartitionedBatch,
+    # parallel/ea_shard.py::EAShards) that train_gnn attaches for
+    # segment_impl="banded_partitioned"; packing never sets them
     part: object | None = None
     ea_part: object | None = None
 
@@ -157,10 +157,12 @@ class GraphBatch:
 
     def to(self, device) -> "GraphBatch":
         device = torch.device(device)
+        shards = {f: getattr(self, f).to(device) for f in ("part", "ea_part")
+                  if getattr(self, f) is not None}
         return self.replace(**{
             f: getattr(self, f).to(device)
             for f in _TENSOR_FIELDS if getattr(self, f) is not None
-        })
+        }, **shards)
 
 
 def _round_up(x: int, multiple: int) -> int:

@@ -38,9 +38,13 @@ unfused GraphNetBlock of EA_GNN / EA_GNN_Shared, as
 the caller's generator outside the checkpointed functions, and the batch
 norms, whose running statistics move in training, stay outside them too.
 
-What still raises names its ROADMAP item: a partitioned batch and the
-tile-sharded EA path (queue 1, item 9); on the card, kernel #4's limits
-(ops/banded.py::band_route).
+``impl="banded_partitioned"`` runs the multi-device routes on a batch
+that carries them (the trainer attaches them, train/trainer.py): the SAGE
+convs' aggregation over ``batch.part`` (parallel/partitioned.py), and the
+fused EA stack tile-sharded over ``batch.ea_part`` (parallel/ea_shard.py,
+with the edge encoder run per shard), both over the current mesh's
+``model`` dim (parallel/mesh.py::set_mesh). What still raises on the card
+is kernel #4's limits (ops/banded.py::band_route).
 """
 
 from __future__ import annotations
@@ -334,16 +338,20 @@ class BuckGNN(nn.Module):
             edge_attr = eaw.window_edge_features(batch)
         can_fuse = (windows is not None and self.remat is not True
                     and supports_fused_ea(batch, h))
-        if can_fuse and self.impl == "banded_partitioned" \
-                and batch.ea_part is not None:
-            raise NotImplementedError(
-                "a batch with ea_part: the tile-sharded EA stack is ROADMAP "
-                "queue 1, item 9")
         shared = self.model_name == "EA_GNN_Shared"
 
         def block(i):
             return (self.shared_gn_block if shared
                     else getattr(self, f"gn_block_{i}"))
+
+        if can_fuse and self.impl == "banded_partitioned" \
+                and batch.ea_part is not None:
+            from buckgnn_tpu_torch.parallel.ea_shard import ea_tp_stack
+
+            return ea_tp_stack(x, batch.ea_part, [block(i) for i in range(L)],
+                               self.edge_encoder, rate=run.rate,
+                               seed=run.seed(),
+                               deterministic=run.deterministic)
 
         if can_fuse:
             from buckgnn_tpu_torch.ops.ea_block import make_ea_context
@@ -501,7 +509,10 @@ class _Run:
                 self._agg_ctx = make_agg_context(
                     batch, use_pallas=m.impl == "banded_pallas",
                     need_degree="mean" in m.model_name.lower(),
-                    partitioned=m.impl == "banded_partitioned")
+                    # EA batches carry ea_part (tile shards) instead of
+                    # part: their context stays unpartitioned
+                    partitioned=(m.impl == "banded_partitioned"
+                                 and batch.part is not None))
             if m.impl == "pallas":
                 from buckgnn_tpu_torch.ops.csr_segment import (
                     make_csr_context,

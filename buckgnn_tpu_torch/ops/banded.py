@@ -13,7 +13,8 @@ per-graph sums.
 
 `make_agg_context` builds one `AggContext` per forward (the pack-time int8
 band, or the device build of `build_band_matrix` for batches packed with
-``materialize_band=False``) and the fused layer (ops/sage_layer.py) and
+``materialize_band=False``; or, partitioned, the batch's ``part`` shards of
+parallel/partitioned.py) and the fused layer (ops/sage_layer.py) and
 `banded_sage_aggregate`, the unfused layers' aggregation, share it.
 
 The band product with its spill window is TPU kernel #4 where the JAX
@@ -55,6 +56,9 @@ class AggContext:
     degree: torch.Tensor | None = None  # [N] float32 in-degree (mean)
     super_gather_mask: torch.Tensor | None = None  # [N] float32
     use_pallas: bool = False
+    # the edge-partitioned multi-device operator's shards
+    # (parallel/partitioned.py::PartitionedBatch)
+    part: object | None = None
 
 
 def build_band_matrix(batch: GraphBatch) -> torch.Tensor:
@@ -87,14 +91,15 @@ def make_agg_context(batch: GraphBatch, use_pallas: bool = False,
                      partitioned: bool = False) -> AggContext:
     """The context of one forward. ``need_degree``: the in-degree over the
     real edges (band, spill, star; the pad loops masked out, as the JAX
-    package counts them), which only the mean aggregation divides by. ``partitioned``: the edge-partitioned
-    multi-device operator, which needs ``batch.part`` (ROADMAP queue 1,
-    item 9); without it the context is the unpartitioned one, as in the
-    JAX model (models/buckgnn.py:153-157)."""
-    if partitioned and getattr(batch, "part", None) is not None:
-        raise NotImplementedError(
-            "a partitioned batch: the edge-partitioned multi-device "
-            "aggregation is ROADMAP queue 1, item 9")
+    package counts them), which only the mean aggregation divides by.
+    ``partitioned``: the edge-partitioned multi-device operator
+    (parallel/partitioned.py) over ``batch.part``, which it needs."""
+    if partitioned:
+        if getattr(batch, "part", None) is None:
+            raise ValueError(
+                "partitioned aggregation needs batch.part "
+                "(parallel.partitioned.partition_batch)")
+        return AggContext(batch=batch, band=None, part=batch.part)
     if batch.band_senders is None:
         return AggContext(batch=batch, band=None)
     n, tile = batch.n_node_cap, batch.band_tile
@@ -221,6 +226,14 @@ def banded_sage_aggregate(x: torch.Tensor, ctx: AggContext,
     bf16-only kernel bf16 rows, where the JAX route sums the float32 rows
     and its Dense rounds the sum to bf16 after."""
     batch = ctx.batch
+    if ctx.part is not None:
+        # node rows sharded over the mesh's 'model' dim: halo exchange,
+        # spill all_to_all and the star all_reduce
+        from buckgnn_tpu_torch.parallel.partitioned import (
+            partitioned_sage_aggregate,
+        )
+
+        return partitioned_sage_aggregate(x, ctx.part, aggr=aggr)
     if ctx.band is None or aggr == "max":
         from buckgnn_tpu_torch.ops.sage import sage_aggregate
 

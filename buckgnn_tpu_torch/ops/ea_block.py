@@ -42,6 +42,22 @@ each node sums its sender-sorted slots' [de1 | dzm] once, which makes the
 halo and far folds one pass: s = sum over the node's slots -> x.dtype,
 dx += s @ W_sp^T.
 
+Far-gradient modes (the JAX package's ``far_grad``,
+pallas_ea_block.py:815-842, for the tile-sharded stack of
+parallel/ea_shard.py, where far senders are global ids into the
+replicated x). The TPU kernel returns the receiver-tiled far table's
+gradient and XLA folds or returns it; here 'fold' reads every far sender
+from x and the sender fold writes its gradient into dx. In 'autodiff'
+every far rank of every tile, in 'hybrid' the ranks from ``far_local`` on
+(their senders on other shards), instead get a row of their own appended
+below the batch's rows, holding that sender's row of ``x_full``: both
+kernels run unchanged on the longer x (the slab starts clamped to the
+batch's own N), the appended rows are never receivers, so the backward's
+sender fold writes exactly their returned gradient there (s @ W_sp^T),
+and autograd's index transpose adds it into x_full's gradient. 'hybrid'
+finds its local ranks' rows through the sender-sorted fs tables. The plain
+versions take the same contexts, so they serve every mode on the CPU.
+
 Dropout: two keep masks per call from the port's hash (ops/dropout.py),
 the edge mask on rows 0..E-1 (slot t*W + w) and the node mask on rows
 E..E+N-1, so the backward regenerates both from the two seed words. The
@@ -202,10 +218,16 @@ def reset_launch_counts() -> None:
 @dataclasses.dataclass
 class EAContext:
     """Flattened window geometry of one batch (see the module docstring).
-    ``send``/``recv``: [E] int32 global ids, -1 for pads; ``rlo``/``rhi``:
+    ``send``/``recv``: [E] int32 row ids, -1 for pads; ``rlo``/``rhi``:
     [N] int32 slot runs; ``sorder``: [E] int32 slots sorted by sender (pads
     last), ``soff``: [N + 1] int32; ``cnt``: [N] float32 in-degree (CSR
-    row lengths, pad edges included, as the JAX block divides by)."""
+    row lengths, pad edges included, as the JAX block divides by).
+
+    ``far_grad`` is the far-gradient mode the context was built for
+    (`make_ea_context`). In 'hybrid' and 'autodiff' mode the block's rows
+    are the batch's ``n_local`` nodes and, below them, the far rows whose
+    gradient is returned rather than folded: row n_local + i holds
+    x_src[ext_ids[i]], then zero rows up to N, a multiple of 64."""
 
     n_nodes: int
     n_tiles: int
@@ -217,25 +239,79 @@ class EAContext:
     sorder: torch.Tensor
     soff: torch.Tensor
     cnt: torch.Tensor
+    far_grad: str = "fold"
+    far_local: int = 0
+    n_local: int | None = None
+    ext_ids: torch.Tensor | None = None
 
     @property
     def n_slots(self) -> int:
         return self.n_tiles * self.w_cap
 
 
-def make_ea_context(batch) -> EAContext:
-    """The `EAContext` of a windowed batch (built once per forward)."""
+FAR_GRADS = ("fold", "hybrid", "autodiff")
+
+
+def _far_senders(batch, rank, far_grad: str, far_local: int, n: int):
+    """Each far slot's sender row (``rank``: its far rank, clamped) and the
+    ids of the rows appended below the n node rows (None in 'fold' mode).
+
+    'fold': the far table's own ids, rows of x. 'autodiff': every far rank
+    (t, r) gets its own appended row n + t * Ct + r. 'hybrid': ranks below
+    ``far_local`` have senders in this batch's rows, found through the
+    sender-sorted fs tables (entry c of sender tile ts holds the flat rank
+    t * Ct + r, and the sender's row in that tile: the fold tables of the
+    JAX package's ``_fold_dx``); the rest get appended rows n + t * (Ct -
+    far_local) + r - far_local."""
+    tsend = batch.win_far_tsend.long()
+    n_tiles, ct = tsend.shape
+    t = torch.arange(n_tiles, device=tsend.device)[:, None]
+    if far_grad == "fold":
+        return torch.gather(tsend, 1, rank), None
+    if far_grad == "autodiff":
+        return n + t * ct + rank, tsend.reshape(-1)
+    fl = int(far_local)
+    tile = batch.band_tile
+    lidx = batch.win_fs_lidx.long()
+    valid = lidx < tile
+    rows = torch.arange(n_tiles, device=tsend.device)[:, None] * tile + lidx
+    local = torch.full((n_tiles * ct,), -1, dtype=torch.long,
+                       device=tsend.device)
+    local[batch.win_fs_src.long()[valid]] = rows[valid]
+    local_ids = torch.gather(local.reshape(n_tiles, ct), 1, rank)
+    remote_ids = n + t * (ct - fl) + (rank - fl)
+    return (torch.where(rank < fl, local_ids, remote_ids),
+            tsend[:, fl:].reshape(-1))
+
+
+def make_ea_context(batch, far_grad: str = "fold",
+                    far_local: int = 0) -> EAContext:
+    """The `EAContext` of a windowed batch (built once per forward) for the
+    far-gradient mode ``far_grad`` (`fused_ea_block`): 'fold' reads every
+    far sender from x and folds its gradient into dx; 'autodiff' reads
+    every far sender from an appended row and returns its gradient there;
+    'hybrid' does the first for far ranks below ``far_local`` and the
+    second for the rest."""
+    if far_grad not in FAR_GRADS:
+        raise ValueError(f"far_grad {far_grad!r}: one of {FAR_GRADS}")
     tile, _, slab, n_tiles, n = eaw.window_geometry(batch)
     w_cap = batch.win_sidx.shape[1]
     ct = batch.win_far_tsend.shape[1]
     dev = batch.device
     t = torch.arange(n_tiles, device=dev)
+    # the slab starts are clamped to the batch's own n - slab, before any
+    # row is appended
     starts = eaw.slab_starts(batch)
     code = batch.win_sidx.long()
     in_slab = code < slab
     is_far = (code >= slab) & (code < slab + ct)
-    far_ids = torch.gather(batch.win_far_tsend.long(), 1,
-                           (code - slab).clamp(0, ct - 1))
+    far_ids, ext_ids = _far_senders(batch, (code - slab).clamp(0, ct - 1),
+                                    far_grad, far_local, n)
+    rows = n
+    if ext_ids is not None and ext_ids.numel() == 0:
+        ext_ids = None  # 'hybrid' with every far rank local
+    if ext_ids is not None:
+        rows = n + ((ext_ids.numel() + 63) // 64) * 64
     send = torch.where(in_slab, starts[:, None] + code,
                        torch.where(is_far, far_ids, -1)).reshape(-1)
     ridx = batch.win_ridx.long()
@@ -245,19 +321,24 @@ def make_ea_context(batch) -> EAContext:
     # trailing pads 2 * (next tile's first node) - 1
     key = torch.where(valid, 2 * recv,
                       2 * (t[:, None] + 1) * tile - 1).reshape(-1)
-    nodes2 = 2 * torch.arange(n, device=dev)
+    nodes2 = 2 * torch.arange(rows, device=dev)
     rlo = torch.searchsorted(key, nodes2)
     rhi = torch.searchsorted(key, nodes2, right=True)
-    skey = torch.where(send >= 0, send, n)
+    skey = torch.where(send >= 0, send, rows)
     sorder = torch.argsort(skey, stable=True)
     soff = torch.searchsorted(skey[sorder],
-                              torch.arange(n + 1, device=dev))
+                              torch.arange(rows + 1, device=dev))
+    cnt = eaw.window_count(batch)
+    if rows > n:
+        cnt = torch.cat([cnt, cnt.new_zeros(rows - n)])
     i32 = torch.int32
-    return EAContext(n_nodes=n, n_tiles=n_tiles,
+    return EAContext(n_nodes=rows, n_tiles=n_tiles,
                      w_cap=w_cap, send=send.to(i32),
                      recv=recv.reshape(-1).to(i32), rlo=rlo.to(i32),
                      rhi=rhi.to(i32), sorder=sorder.to(i32),
-                     soff=soff.to(i32), cnt=eaw.window_count(batch))
+                     soff=soff.to(i32), cnt=cnt, far_grad=far_grad,
+                     far_local=int(far_local) if far_grad == "hybrid" else 0,
+                     n_local=n, ext_ids=ext_ids)
 
 
 # the kernels' passes (csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu)
@@ -694,7 +775,9 @@ def ea_block_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx: EAContext, *,
 
 class _FusedBlock(torch.autograd.Function):
     """The fused block with its custom backward (the JAX package's
-    ``_fused_block`` / ``_fused_block_enc`` custom VJPs in 'fold' mode).
+    ``_fused_block`` / ``_fused_block_enc`` custom VJPs; in 'hybrid' and
+    'autodiff' mode x's appended rows take the far rows' returned
+    gradient, `EAContext`).
     Differentiable inputs: x, e_win (not in encoder mode: the raw window is
     data), the bias stack and the weights (in ``spec['keys']`` order). Each
     weight's gradient is cast to the weight's dtype, as ``_cast_dwd``
@@ -721,16 +804,18 @@ class _FusedBlock(torch.autograd.Function):
                 *(dw[k].to(w[k].dtype) for k in spec["keys"]))
 
 
-def block_weights(block, cdt: torch.dtype, encoder=None):
+def block_weights(block, cdt: torch.dtype, encoder=None, param=None):
     """(w, bias) of a `models.blocks.GraphNetBlock` for the kernels: its
     Dense weights as [in, out] in ``cdt``, sliced into the kernels' dict
     (pallas_ea_block.py:964-1008), and the float32 bias stack; with an
     ``encoder`` (the model's edge_encoder MLP) also the zero-padded encoder
-    weights and bias rows 8-10. Built from the parameters under autograd."""
+    weights and bias rows 8-10. Built from the parameters under autograd,
+    each passed through ``param`` first when given."""
     h = block.hidden_channels
+    param = param or (lambda t: t)
 
     def k(lin):
-        return lin.weight.t().to(cdt)
+        return param(lin.weight).t().to(cdt)
 
     k_e0 = k(block.edge_mlp.lin_0)
     k_p0 = k(block.node_mlp_phi.lin_0)
@@ -743,7 +828,7 @@ def block_weights(block, cdt: torch.dtype, encoder=None):
         wg1=k(block.node_mlp_gamma.lin_1),
         wb0=k(block.node_mlp_beta.lin_0),
         wb1=k(block.node_mlp_beta.lin_1))
-    rows = [m.bias for m in (
+    rows = [param(m.bias) for m in (
         block.edge_mlp.lin_0, block.edge_mlp.lin_1, block.node_mlp_phi.lin_0,
         block.node_mlp_phi.lin_1, block.node_mlp_gamma.lin_0,
         block.node_mlp_gamma.lin_1, block.node_mlp_beta.lin_0,
@@ -753,28 +838,53 @@ def block_weights(block, cdt: torch.dtype, encoder=None):
         fe, c0 = k0.shape
         w.update(wen0=F.pad(k0, (0, ENC_HID - c0, 0, ENC_IN - fe)),
                  wen1=F.pad(k1, (0, 0, 0, ENC_HID - k1.shape[0])), wen2=k2)
-        rows += [F.pad(encoder.lin_0.bias, (0, h - c0)),
-                 F.pad(encoder.lin_1.bias, (0, h - ENC_HID)),
-                 encoder.lin_2.bias]
+        rows += [F.pad(param(encoder.lin_0.bias), (0, h - c0)),
+                 F.pad(param(encoder.lin_1.bias), (0, h - ENC_HID)),
+                 param(encoder.lin_2.bias)]
     w = {key: v.contiguous() for key, v in w.items()}
     return w, torch.stack(rows).float()
+
+
+def extended_rows(x, ctx: EAContext, x_full=None):
+    """The rows the kernels run on: x, then (in 'hybrid' and 'autodiff'
+    mode) the far rows x_src[ctx.ext_ids] whose gradient is returned
+    (x_src: ``x_full``, default x) and zero rows up to ctx.n_nodes."""
+    if ctx.ext_ids is None:
+        return x
+    src = x if x_full is None else x_full
+    pad = ctx.n_nodes - x.shape[0] - ctx.ext_ids.numel()
+    return torch.cat([x, src[ctx.ext_ids], x.new_zeros((pad, x.shape[1]))])
 
 
 def fused_ea_block(x, e_win, block, ctx: EAContext, *, skip: bool,
                    rate: float = 0.0, seed=None, deterministic: bool = True,
                    encoder=None, far_grad: str = "fold", far_local: int = 0,
-                   x_full=None):
+                   x_full=None, weights=None):
     """One full GraphNetBlock + skip + dropout (the JAX package's
     ``fused_ea_block``), differentiable in x, e_win and the parameters of
     ``block`` (and of ``encoder``). ``encoder`` (layer 0, requires
     `supports_fused_encoder`): ``e_win`` is then the raw [T, W, fe] window
     and the model's edge_encoder runs inside the call; the raw window
     carries no gradient. ``seed``: two ints, needed when training with
-    ``rate`` > 0. Returns ``(zx, ze)``. Requires `supports_fused_ea`."""
-    if far_grad != "fold" or x_full is not None:
-        raise NotImplementedError(
-            f"far_grad={far_grad!r} / x_full: the tile-sharded multi-chip EA "
-            "path (ROADMAP queue 1, item 9)")
+    ``rate`` > 0. Returns ``(zx, ze)``. Requires `supports_fused_ea`.
+
+    ``far_grad`` (the context's mode, `make_ea_context`): 'fold' folds
+    every far sender's gradient into dx. 'autodiff' and 'hybrid' (the
+    tile-sharded stack, parallel/ea_shard.py) read the far rows they do
+    not fold from ``x_full`` (default x) by their ids: the kernels run on
+    [x; those rows], and the backward kernel's sender fold writes each
+    appended row's gradient, which autograd's index transpose adds into
+    x_full's gradient (the JAX package's ``take`` transpose). ``weights``:
+    the kernels' (w, bias) of `block_weights`, built by the caller."""
+    if far_grad not in FAR_GRADS:
+        raise ValueError(f"far_grad {far_grad!r}: one of {FAR_GRADS}")
+    fl = int(far_local) if far_grad == "hybrid" else 0
+    if (ctx.far_grad, ctx.far_local) != (far_grad, fl):
+        raise ValueError(
+            f"far_grad {far_grad!r} (far_local {fl}) on a context built for "
+            f"{ctx.far_grad!r} (far_local {ctx.far_local})")
+    if x_full is not None and far_grad == "fold":
+        raise ValueError("x_full needs far_grad 'hybrid' or 'autodiff'")
     rate = float(rate) if not deterministic else 0.0
     _check_dropout(rate, seed)
     enc = encoder is not None
@@ -783,13 +893,19 @@ def fused_ea_block(x, e_win, block, ctx: EAContext, *, skip: bool,
             raise ValueError("encoder fusion is layer 0 (no skip)")
         fe = e_win.shape[2]
         e_win = F.pad(e_win.to(x.dtype), (0, ENC_IN - fe)).contiguous()
-    w, bias = block_weights(block, x.dtype, encoder)
+    w, bias = weights if weights is not None else block_weights(
+        block, x.dtype, encoder)
+    n = x.shape[0]
+    x = extended_rows(x, ctx, x_full)
     kw = dict(skip=skip, rate=rate, seed=seed, enc=enc)
     keys = WKEYS + (ENC_WKEYS if enc else ())
     needs_grad = torch.is_grad_enabled() and (
         x.requires_grad or e_win.requires_grad or bias.requires_grad
         or any(w[k].requires_grad for k in keys))
     if not needs_grad:
-        return ea_block_fwd(x, e_win, w, bias, ctx, **kw)
-    spec = dict(ctx=ctx, kw=kw, keys=keys)
-    return _FusedBlock.apply(x, e_win, bias, spec, *(w[k] for k in keys))
+        zx, ze = ea_block_fwd(x, e_win, w, bias, ctx, **kw)
+    else:
+        spec = dict(ctx=ctx, kw=kw, keys=keys)
+        zx, ze = _FusedBlock.apply(x, e_win, bias, spec,
+                                   *(w[k] for k in keys))
+    return zx[:n], ze

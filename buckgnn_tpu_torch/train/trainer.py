@@ -17,6 +17,7 @@ once per epoch, last/best checkpoints that truly resume, results.txt.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Sequence
@@ -241,6 +242,43 @@ def _fetch(acc: dict) -> dict:
     return dict(zip(keys, values))
 
 
+def attach_shards(batches: list, model_name: str, floors: dict,
+                  device) -> list:
+    """The batches with the current mesh's ``model``-dim shards attached
+    (one shard without a mesh), as the JAX trainer's pack: EA models
+    tile-shard the edge windows (``ea_part``, parallel/ea_shard.py), the
+    others partition the banded aggregation's node rows (``part``,
+    parallel/partitioned.py). Caps and flags are the run's: each batch's
+    shards are built once at its own caps and padded to the largest, with
+    the EA caps sticky across repacks through ``floors``."""
+    from buckgnn_tpu_torch.parallel.mesh import model_dim
+
+    n_shards = model_dim()[1]
+    if model_name.startswith("EA_GNN"):
+        from buckgnn_tpu_torch.parallel.ea_shard import (
+            pad_ea_shards, shard_caps, shard_ea_batch,
+        )
+
+        built = [shard_ea_batch(b, n_shards) for b in batches]
+        needed = [shard_caps(s) for s in built]
+        for i, k in enumerate(("ea_cl", "ea_cr", "ea_cs")):
+            floors[k] = max(max(n[i] for n in needed), floors[k])
+        caps = floors["ea_cl"], floors["ea_cr"], floors["ea_cs"]
+        return [b.replace(ea_part=pad_ea_shards(s, *caps).to(device))
+                for b, s in zip(batches, built)]
+    from buckgnn_tpu_torch.parallel.partitioned import (
+        pad_partitioned, partition_batch,
+    )
+
+    pbs = [partition_batch(b, n_shards) for b in batches]
+    s_cap = max(int(pb.send_idx.shape[-1]) for pb in pbs)
+    e_cap = max(int(pb.recv_perm.shape[-1]) for pb in pbs)
+    any_spill = any(pb.has_spill for pb in pbs)
+    return [b.replace(part=pad_partitioned(pb, s_cap, e_cap,
+                                           force_spill=any_spill).to(device))
+            for b, pb in zip(batches, pbs)]
+
+
 def train_gnn(
     cfg: TrainConfig,
     train_data: Sequence[GraphData],
@@ -268,12 +306,13 @@ def train_gnn(
     resume as the JAX package's key is, so a resumed run equals an
     uninterrupted one exactly at dropout rate 0 only. ``report_fn(entry)``
     gets each epoch's history entry and stops the run by returning False.
+
+    ``segment_impl="banded_partitioned"`` shards each batch over the
+    ``model`` dim of the current mesh (parallel/mesh.py::set_mesh; one
+    shard without one): every rank of that dim runs this function on the
+    same data, each with its own ``output_dir``.
     """
     device = resolve_device(device)
-    if cfg.segment_impl == "banded_partitioned":
-        raise NotImplementedError(
-            "segment_impl='banded_partitioned' shards a batch over a device "
-            "mesh: multi-GPU, ROADMAP item 9")
     train_data = slice_static_targets(train_data, cfg.prediction_type)
     val_data = slice_static_targets(val_data, cfg.prediction_type)
     trial_id = trial_id or f"manual_run_{int(time.time())}"
@@ -307,6 +346,15 @@ def train_gnn(
             **(dict(tile=128, widths=(64, 128)) if ea else {}),
         )
         align = 4 * tile
+        if cfg.segment_impl == "banded_partitioned":
+            # node capacity splits into tile-aligned shard ranges; an EA
+            # shard needs one full slab (tile + width <= 2 tiles) of rows
+            from buckgnn_tpu_torch.parallel.mesh import model_dim
+
+            n_shards = model_dim()[1]
+            align = math.lcm(align, n_shards * tile)
+            if ea:
+                align = math.lcm(align, n_shards * 2 * tile)
         n_node_cap = ((max(n_node_cap, tile + width) + align - 1)
                       // align) * align
         band_kw = dict(band_width=width, band_tile=tile, rcm=True,
@@ -332,7 +380,8 @@ def train_gnn(
     # stay dropped (the JAX trainer keeps one compiled step this way; here
     # it keeps every epoch's batches alike)
     win_floors = {"w": 0, "f": 0, "ft": 0, "fs": 0, "s": 0, "s2": 0,
-                  "b": 0, "local_star": True}
+                  "b": 0, "ea_cl": 0, "ea_cr": 0, "ea_cs": 0,
+                  "local_star": True}
 
     def pack(data, shuffle, seed):
         batches = list(
@@ -365,6 +414,9 @@ def train_gnn(
                                   int(b.band_senders.shape[0]))
         if any(b.gcode is not None and b.gwin is None for b in batches):
             win_floors["local_star"] = False
+        if cfg.segment_impl == "banded_partitioned" and batches:
+            batches = attach_shards(batches, cfg.model_name, win_floors,
+                                    device)
         return batches
 
     train_batches = pack(train_data, True, cfg.seed)

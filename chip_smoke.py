@@ -122,7 +122,29 @@ Phases, each fatal on failure:
      package's default flags (float32, impl xla, H 128, virtual edges; #8
      and #9 only, in float32), ``tune --synthetic 64 --max-concurrent 2``
      (two trials on the card in overlapping intervals, SAGE kernels only)
-     and ``python -m buckgnn_tpu_torch --help``.
+     and ``python -m buckgnn_tpu_torch --help``;
+ 12. multi-GPU (``multi``): the ea-virtual batch split into 2 and 4 tile
+     ranges (parallel/ea_shard.py); on every shard #5 and #6 in 'hybrid'
+     mode (and 'autodiff' at D = 2; dropout 0 and 0.1 on one shard)
+     against their plain versions, the appended far rows' gradient
+     included; the shards adding up, with no collective, to the unsharded
+     block (zx and ze concatenated, dx and every dW summed); the gates
+     failing a backward that folds the remote rows into the shard's own
+     rows and a forward that reads the far rows from the shard's own x.
+     Then one process per card (``spawn``, NCCL, world =
+     ``torch.cuda.device_count()``, printed): the dry run
+     (parallel/dryrun.py: the DP x partitioned flagship step and the DP x
+     tile-sharded EA step, each against its one-device oracle),
+     ``train_gnn(segment_impl="banded_partitioned")`` for 2 epochs at the
+     flagship's config on the run phase's panels (#8 and #9) and at
+     EA_GNN_Shared on the ea-virtual panels (#5 and #6 in 'hybrid' through
+     ``ea_tp_stack``), the DP step on the flagship batch (#1 and #2 on each
+     rank), each with exact launches; the DP step's loss and update
+     against the plain train step's, the partitioned model's forward and
+     gradients (float32) and the tile-sharded model's forward and readout
+     gradients against the unpartitioned paths; then ``python -m
+     buckgnn_tpu_torch scale --n-devices <world>``. One ``multi`` line per
+     run with its world and step ms beside the card.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -2668,6 +2690,490 @@ def cli_phase(dev, card, run_step_ms):
     return paths, kernel_errs
 
 
+# ---- phase 12: multi-GPU ---------------------------------------------------
+
+MULTI_EPOCHS = 2  # train_gnn epochs of each banded_partitioned run
+MULTI_TIMEOUT_S = 600  # the spawned world's limit
+# the DP step against the plain train step, and the partitioned and
+# tile-sharded models against the unpartitioned ones, from the same
+# weights: bf16 products summed in another order (the dry run's bf16
+# parity gates, parallel/dryrun.py)
+MULTI_PARITY = (1e-2, 1e-4, 1e-2, 1e-2)
+
+
+def shard_case(shards, d, mode, x_full, e, dzx, dze):
+    """Shard d's inputs to #5 and #6 in ``mode``: its context, its rows,
+    those rows extended by the far rows of x_full whose gradient is
+    returned, its window and its slices of the cotangents (zero on the
+    appended rows)."""
+    from buckgnn_tpu_torch.parallel.ea_shard import _ShardView
+
+    fl = shards.cf_local if mode == "hybrid" else 0
+    ctx = eb.make_ea_context(_ShardView(shards, d), mode, fl)
+    nl, t_l = ctx.n_local, shards.sidx.shape[1]
+    rows, tiles = slice(d * nl, (d + 1) * nl), slice(d * t_l, (d + 1) * t_l)
+    x = eb.extended_rows(x_full[rows].contiguous(), ctx, x_full)
+    dz = torch.zeros_like(x)
+    dz[:nl] = dzx[rows]
+    return ctx, rows, x, e[tiles].contiguous(), dz, dze[tiles].contiguous()
+
+
+def remote_rows_check(name, got, ref, ctx):
+    """The appended (remote) rows of dx against a reference, by norm and per
+    row, at the dx gates; returns (ok, norm error, row error)."""
+    nl, n_ext = ctx.n_local, ctx.n_local + ctx.ext_ids.numel()
+    a, r = got[0][nl:n_ext], ref[0][nl:n_ext]
+    if float(r.float().abs().max()) == 0:
+        fail(f"{name}: no remote row carries a gradient")
+    errs = (eb.rel_err(a, r), eb.row_rel_err(a, r))
+    return (errs[0] <= eb.bwd_tol("dx") and errs[1] <= eb.bwd_tol("dx_row"),
+            *errs)
+
+
+def shard_checks(label, ebatch):
+    """Phase 12, step 1, in this process: the ea-virtual batch split into
+    D = 2 and 4 tile ranges (parallel/ea_shard.py); on every shard #5 and
+    #6 in 'hybrid' mode (and 'autodiff' at D = 2) against their plain
+    versions at the EA gates, the appended far rows' gradient included;
+    the shards adding up, with no collective, to the unsharded block
+    ('fold'): zx and ze concatenated, dx (each shard's rows plus its remote
+    rows scattered) and every dW summed; and the gates failing a backward
+    that folds the remote rows into the shard's own rows and a forward that
+    reads the far rows from the shard's own x. Returns the largest forward
+    and backward errors."""
+    import dataclasses
+
+    from buckgnn_tpu_torch.parallel.ea_shard import shard_ea_batch
+
+    h = 512
+    x_full, e, w, bias = ea_case(ebatch, h, False, 91)
+    g = torch.Generator(device=x_full.device).manual_seed(93)
+    dzx = torch.randn(x_full.shape, generator=g,
+                      device=x_full.device).to(x_full.dtype)
+    dze = torch.randn(e.shape, generator=g, device=e.device).to(e.dtype)
+    kw = dict(skip=True, rate=0.0, seed=None, enc=False)
+    ctx1 = eb.make_ea_context(ebatch)
+    one = eb.ea_block_fwd(x_full, e, w, bias, ctx1, save_res=True, **kw)
+    one_b = eb.ea_block_bwd(dzx, dze, one[2], one[3], x_full, e, w, bias,
+                            ctx1, **kw)
+    v1 = ea_valid(ctx1)
+    fwd_err = bwd_err = 0.0
+    for d_sh in (2, 4):
+        t0 = time.perf_counter()
+        shards = shard_ea_batch(ebatch, d_sh).to(ebatch.device)
+        host_s = time.perf_counter() - t0
+        for mode in ("hybrid", "autodiff") if d_sh == 2 else ("hybrid",):
+            tag = f"{label}/D{d_sh}/{mode}"
+            zxs, zes = [], []
+            dx = torch.zeros(x_full.shape, dtype=torch.float32,
+                             device=x_full.device)
+            dw = {k: 0.0 for k in eb.WKEYS}
+            dbias = 0.0
+            remote = 0
+            for d in range(d_sh):
+                ctx, rows, x, el, dz, dzel = shard_case(shards, d, mode,
+                                                        x_full, e, dzx, dze)
+                nl = ctx.n_local
+                remote += ctx.ext_ids.numel()
+                v = ea_valid(ctx)
+                first = (d_sh, mode, d) == (2, "hybrid", 0)
+                # rate 0 last: the sums below take its outputs
+                for rate in (RATE, 0.0) if first else (0.0,):
+                    name = f"{tag}/shard{d}/rate{rate}"
+                    kwr = dict(kw, rate=rate, seed=SEED if rate else None)
+                    got = eb.ea_block_fwd(x, el, w, bias, ctx, save_res=True,
+                                          **kwr)
+                    ref = eb.ea_block_fwd_plain(x, el, w, bias, ctx,
+                                                save_res=True, **kwr)
+                    for what, a, r in zip(("zx", "ze", "e1s", "m1s"), got,
+                                          ref):
+                        a, r = ((a[:nl], r[:nl]) if what == "zx" else
+                                (a.reshape(-1, h)[v], r.reshape(-1, h)[v]))
+                        fwd_err = max(fwd_err, check_close(
+                            f"{name}/{what}", a, r,
+                            sl.gate_tol(r, eb.KERNEL_FWD_TOL)))
+                    args = (dz, dzel, got[2], got[3], x, el, w, bias, ctx)
+                    gb = eb.ea_block_bwd(*args, **kwr)
+                    rb = eb.ea_block_bwd_plain(*args, **kwr)
+                    bwd_err = max(bwd_err, ea_bwd_errors(name, gb, rb, ctx,
+                                                         h))
+                    ok, n_err, r_err = remote_rows_check(name, gb, rb, ctx)
+                    print(json.dumps({"check": f"{name}/remote_rows",
+                                      "ok": ok, "rel_err": n_err,
+                                      "row_rel_err": r_err}))
+                    if not ok:
+                        fail(f"{name}: the remote rows' gradient disagrees "
+                             "with the plain version")
+                    if first and rate == 0.0:
+                        folded = eb.ea_block_bwd_plain(*args[:-1], dataclasses
+                                                       .replace(ctx, send=(
+                            torch.where(ctx.send >= nl, ctx.ext_ids[
+                                (ctx.send.long() - nl).clamp_min(0)] % nl,
+                                ctx.send).to(torch.int32))), **kwr)
+                        caught = not remote_rows_check(name, folded, gb,
+                                                       ctx)[0]
+                        print(json.dumps({"gate": f"{name}/remote-folded-"
+                                          "locally", "caught": caught}))
+                        if not caught:
+                            fail(f"{name}: the gate lets a backward that "
+                                 "folds the remote rows locally pass")
+                        own = torch.cat([x[:nl], x[:nl][ctx.ext_ids % nl],
+                                         x[ctx.ext_ids.numel() + nl:]])
+                        check_caught(f"{name}/far-rows-from-own-x",
+                                     eb.ea_block_fwd_plain(
+                                         own, el, w, bias, ctx, **kwr)[0][:nl],
+                                     got[0][:nl],
+                                     sl.gate_tol(got[0][:nl],
+                                                 eb.KERNEL_FWD_TOL))
+                zxs.append(got[0][:nl])
+                zes.append(got[1])
+                dx[rows] += gb[0][:nl].float()
+                dx.index_add_(0, ctx.ext_ids,
+                              gb[0][nl:nl + ctx.ext_ids.numel()].float())
+                dw = {k: dw[k] + gb[2][k] for k in dw}
+                dbias = dbias + gb[3]
+            fwd_err = max(fwd_err, check_close(
+                f"{tag}/sum/zx", torch.cat(zxs), one[0],
+                sl.gate_tol(one[0], eb.KERNEL_FWD_TOL)))
+            ze, ze1 = torch.cat(zes).reshape(-1, h)[v1], \
+                one[1].reshape(-1, h)[v1]
+            fwd_err = max(fwd_err, check_close(
+                f"{tag}/sum/ze", ze, ze1, sl.gate_tol(ze1, eb.KERNEL_FWD_TOL)))
+            errs = {"dx": eb.rel_err(dx, one_b[0]),
+                    "dx_row": eb.row_rel_err(dx, one_b[0]),
+                    "dbias": eb.rel_err(dbias, one_b[3]),
+                    **{f"d{k}": eb.rel_err(dw[k], one_b[2][k]) for k in dw}}
+            ok = all(v <= eb.bwd_tol(k) for k, v in errs.items())
+            print(json.dumps({"check": f"{tag}/sum", "ok": ok,
+                              "rel_err": errs, "remote_rows": remote,
+                              "cf_local": shards.cf_local,
+                              "far_cap": int(shards.far.shape[-1]),
+                              "shard_host_s": host_s}))
+            if not ok:
+                fail(f"{tag}: the shards do not add up to the unsharded "
+                     f"block {errs}")
+    return fwd_err, bwd_err
+
+
+def multi_panels():
+    """The run phase's flagship panels, and the ea-virtual cell's with 16
+    more for validation: ((train, val, normalizer) of each)."""
+    panels = generate_dataset(RUN_TRAIN + RUN_VAL, seed=0, min_side=24,
+                              max_side=32, use_super_node=True,
+                              use_virtual_edges=False)
+    train, nz = normalize_dataset(panels[:RUN_TRAIN])
+    val, _ = normalize_dataset(panels[RUN_TRAIN:], nz)
+    ea = generate_dataset(64, seed=0, min_side=24, max_side=32,
+                          use_super_node=False, use_virtual_edges=True)
+    ea_val = generate_dataset(16, seed=1, min_side=24, max_side=32,
+                              use_super_node=False, use_virtual_edges=True)
+    etrain, enz = normalize_dataset(ea)
+    eval_, _ = normalize_dataset(ea_val, enz)
+    return (train, val, nz), (etrain, eval_, enz)
+
+
+def partitioned_run(label, cfg, data, out_dir, layers_launches, dev, card):
+    """train_gnn(segment_impl="banded_partitioned") for MULTI_EPOCHS on the
+    current mesh, its packs' shards recorded; the launches of the kernels
+    named in ``layers_launches`` (per layer: (per train step, per val
+    batch)) exactly, and no other. Returns (launches, train step ms)."""
+    from unittest import mock
+
+    from buckgnn_tpu_torch.parallel import ea_shard as es_mod
+    from buckgnn_tpu_torch.train import trainer
+
+    packs, tp_calls = [], [0]
+    real_attach, real_tp = trainer.attach_shards, es_mod.ea_tp_stack
+
+    def attach(*a, **k):
+        packs.append(real_attach(*a, **k))
+        return packs[-1]
+
+    def tp(*a, **k):
+        tp_calls[0] += 1
+        return real_tp(*a, **k)
+
+    train, val, nz = data
+    reset_launch_counts()
+    with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+            mock.patch.object(trainer, "attach_shards", attach), \
+            mock.patch.object(es_mod, "ea_tp_stack", tp):
+        res = trainer.train_gnn(cfg, train, val, nz, out_dir,
+                                trial_id=label.replace("/", "_"),
+                                verbose=False, device=dev)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    check_run(label, res, MULTI_EPOCHS)
+    steps, val_batches = len(packs[0]), len(packs[1])
+    field = "ea_part" if cfg.model_name.startswith("EA_") else "part"
+    if not all(getattr(b, field) is not None for p in packs for b in p):
+        fail(f"{label}: a batch without its {field}")
+    if field == "ea_part" and tp_calls[0] != MULTI_EPOCHS * (steps +
+                                                             val_batches):
+        fail(f"{label}: {tp_calls[0]} forwards through ea_tp_stack")
+    layers = cfg.num_layers
+    expect_launches(
+        f"{label} ({MULTI_EPOCHS} epochs of {steps} train steps and "
+        f"{val_batches} val batches)", got,
+        {k: layers * MULTI_EPOCHS * (s * steps + v * val_batches)
+         for k, (s, v) in layers_launches.items()})
+    step_ms = RecordingWriter.made[-1].scalars["Perf/train_step_ms"][-1]
+    return got, step_ms
+
+
+def model_copy(cfg, model, impl, dev):
+    """A model of ``cfg`` with ``impl``, holding ``model``'s weights."""
+    import dataclasses
+
+    from buckgnn_tpu_torch.train.trainer import build_model
+
+    m = build_model(dataclasses.replace(cfg, segment_impl=impl),
+                    model.num_node_features, model.num_edge_features,
+                    device=dev)
+    m.load_state_dict(model.state_dict())
+    return m
+
+
+def unpartitioned_parity(label, setup, impl, batch, pred_tol, readout, dev,
+                         dropout=True, grad_dtype=None):
+    """The forward and one train step's gradients of ``impl`` on ``batch``
+    (carrying its shards) against the setup's unpartitioned model on its
+    own batch, from the same weights and dropout seeds (``dropout`` False:
+    at rate 0, where the two paths draw their seeds differently). With
+    ``grad_dtype`` the gradients are compared on copies of both models
+    computing in that dtype."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    model = setup["state"].model
+    dtype = grad_dtype or setup["cfg"].compute_dtype
+    if not dropout:
+        model.dropout_rate = 0.0
+    other = model_copy(setup["cfg"], model, impl, dev)
+    other.dropout_rate = model.dropout_rate
+    with torch.no_grad():
+        want, _ = model(setup["batch"], deterministic=True)
+        got, _ = other(batch, deterministic=True)
+    g = setup["batch"].graph_mask
+    check_close(f"{label}/forward/pred", got[g], want[g], pred_tol)
+    if grad_dtype is not None:
+        cfg = dataclasses.replace(setup["cfg"], compute_dtype=grad_dtype)
+        model = model_copy(cfg, model, model.impl, dev)
+        other = model_copy(cfg, other, impl, dev)
+        model.dropout_rate = other.dropout_rate
+        setup = dict(setup, state=SimpleNamespace(model=model))
+    loss, grads = step_grads(setup, 11, readout)
+    loss_p, grads_p = step_grads(dict(setup, batch=batch,
+                                      state=SimpleNamespace(model=other)),
+                                 11, readout)
+    check_close(f"{label}/train/loss", loss_p, loss, pred_tol)
+    rel = {k: float((grads_p[k].float() - grads[k].float()).norm()
+                    / grads[k].float().norm().clamp_min(1e-30))
+           for k in grads}
+    ok = grads.keys() == grads_p.keys() and max(rel.values()) <= GRAD_TOL
+    print(json.dumps({"check": f"{label}/train/grads", "ok": ok,
+                      "readout": readout, "dtype": dtype, "tol": GRAD_TOL,
+                      "rel_err": rel}))
+    if not ok:
+        fail(f"{label}: gradients disagree with the unpartitioned path {rel}")
+
+
+def dp_vs_plain(label, setup, mesh, dev):
+    """One DP step against one plain train step, each on a fresh copy of
+    the setup's weights at dropout 0: the loss and the update."""
+    from buckgnn_tpu_torch.parallel.dp import make_parallel_train_step
+    from buckgnn_tpu_torch.parallel.dryrun import (
+        _assert_update_parity, _params, _update_fingerprint,
+    )
+    from buckgnn_tpu_torch.train.losses import get_loss_function
+    from buckgnn_tpu_torch.train.trainer import (
+        make_optimizer, make_train_step,
+    )
+
+    cfg, batch = setup["cfg"], setup["batch"]
+    crit = get_loss_function(cfg.loss_function)
+    out = []
+    for dp in (True, False):
+        m = model_copy(cfg, setup["state"].model, cfg.segment_impl, dev)
+        m.dropout_rate = 0.0
+        opt = make_optimizer(cfg, m)
+        step = (make_parallel_train_step(m, opt, crit, cfg,
+                                         setup["normalizer"], mesh) if dp
+                else make_train_step(m, opt, crit, cfg,
+                                     setup["normalizer"])[0])
+        before = _params(m)
+        metrics = step(batch, setup["lr"], None)
+        out.append((float(metrics["loss"]),
+                    _update_fingerprint(before, _params(m))))
+    (loss, fp), (loss_p, fp_p) = out
+    ok = abs(loss - loss_p) <= MULTI_PARITY[1] + MULTI_PARITY[0] * abs(loss_p)
+    l2, l2_p, cos = _assert_update_parity(label, fp, fp_p, MULTI_PARITY)
+    print(json.dumps({"check": f"{label}/dp_vs_plain", "ok": ok, "loss": loss,
+                      "plain_loss": loss_p, "update_l2": l2,
+                      "plain_update_l2": l2_p, "cos": cos}))
+    if not ok:
+        fail(f"{label}: the DP step's loss {loss} is not the plain step's "
+             f"{loss_p}")
+
+
+def multi_rank(rank, world, out_dir):
+    """Phase 12, step 2, on each rank of the spawned world (one process per
+    card, NCCL): the dry run; train_gnn(segment_impl="banded_partitioned")
+    at the flagship's config on the run phase's panels and at EA_GNN_Shared
+    on the ea-virtual panels; the DP step on the flagship batch (#1 and #2
+    on each rank); the partitioned and tile-sharded models and the DP step
+    against the unpartitioned paths. Rank 0 returns its readings."""
+    import dataclasses
+    import os
+
+    from buckgnn_tpu_torch import bench as port_bench
+    from buckgnn_tpu_torch.parallel import dryrun
+    from buckgnn_tpu_torch.parallel.dp import make_parallel_train_step
+    from buckgnn_tpu_torch.parallel.ea_shard import shard_ea_batch
+    from buckgnn_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from buckgnn_tpu_torch.parallel.partitioned import partition_batch
+    from buckgnn_tpu_torch.train.losses import get_loss_function
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cuda_build.build_all()  # built by the parent: only loaded here
+    card = card_line()
+    out = dict(world=world, card=card, launches={}, ms={}, s={})
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    dr = dryrun.dryrun_multichip()
+    torch.cuda.synchronize()
+    out["s"]["dryrun"] = time.perf_counter() - t0
+    n_data = dr["mesh"][0]
+    ea_l = 2  # the dry run's EA layers: its sharded step, then the oracle
+    expect_launches("multi/dryrun", launch_counts(), {
+        "epilogue_fwd": 6, "epilogue_bwd": 6,
+        "ea_block_fwd": ea_l * (1 + n_data),
+        "ea_block_bwd": ea_l * (1 + n_data)})
+    out["dryrun"] = dr
+    out["launches"]["multi/dryrun"] = launch_counts()
+
+    sage_data, ea_data = multi_panels()
+    mesh = make_mesh(1, world)
+    runs = (("multi/train_flagship", "flagship", sage_data,
+             {"epilogue_fwd": (1, 0), "epilogue_bwd": (1, 0)}),
+            ("multi/train_ea", "ea-virtual", ea_data,
+             {"ea_block_fwd": (1, 1), "ea_block_bwd": (1, 0)}))
+    for label, cell, data, kernels in runs:
+        cfg = dataclasses.replace(port_bench.cell_config(cell),
+                                  num_epochs=MULTI_EPOCHS,
+                                  segment_impl="banded_partitioned")
+        t0 = time.perf_counter()
+        with set_mesh(mesh):
+            got, step_ms = partitioned_run(
+                label, cfg, data, os.path.join(out_dir, f"rank{rank}",
+                                               label.split("/")[1]),
+                kernels, dev, card)
+        out["launches"][label] = got
+        out["ms"][label] = step_ms
+        out["s"][label] = time.perf_counter() - t0
+
+    setup = port_bench.build_train_setup(device=dev)
+    dmesh = make_mesh(world, 1)
+    step = make_parallel_train_step(
+        setup["state"].model, setup["state"].optimizer,
+        get_loss_function(setup["cfg"].loss_function), setup["cfg"],
+        setup["normalizer"], dmesh)
+    batch, gen = setup["batch"], torch.Generator().manual_seed(0)
+    reset_launch_counts()
+    losses = [float(step(batch, setup["lr"], gen)["loss"])
+              for _ in range(3)]
+    n_steps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        m = step(batch, setup["lr"], gen)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    out["ms"]["multi/dp_flagship"] = (time.perf_counter() - t0) / n_steps * 1e3
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"multi/dp_flagship: non-finite losses {losses}")
+    layers = setup["cfg"].num_layers
+    expect_launches(f"multi/dp_flagship ({3 + n_steps} steps)",
+                    launch_counts(),
+                    {"sage_layer_fwd": layers * (3 + n_steps),
+                     "sage_layer_bwd": layers * (3 + n_steps)})
+    out["launches"]["multi/dp_flagship"] = launch_counts()
+    out["dp_losses"] = losses
+
+    # against the unpartitioned paths (the same batch on every rank)
+    fresh = port_bench.build_train_setup(device=dev)
+    dp_vs_plain("multi/dp_flagship", fresh, dmesh, dev)
+    with set_mesh(mesh):
+        unpartitioned_parity(
+            "multi/partitioned_flagship", dict(
+                fresh, state=dataclasses.replace(fresh["state"], model=(
+                    model_copy(fresh["cfg"], fresh["state"].model,
+                               "banded", dev)))),
+            "banded_partitioned",
+            fresh["batch"].replace(part=partition_batch(
+                fresh["batch"], world).to(dev)), PRED_TOL, False, dev,
+            grad_dtype="float32")
+        esetup = port_bench.build_train_setup(device=dev,
+                                              config="ea-virtual")
+        unpartitioned_parity(
+            "multi/tp_ea", esetup, "banded_partitioned",
+            esetup["batch"].replace(ea_part=shard_ea_batch(
+                esetup["batch"], world).to(dev)), EA_PRED_TOL, True, dev,
+            dropout=False)
+    return out if rank == 0 else None
+
+
+def multi_phase(dev, card, ebatch):
+    """Phase 12: the per-shard kernel checks in this process, the world of
+    one process per card, and ``python -m buckgnn_tpu_torch scale``.
+    Returns (launches by path, the largest shard errors of #5 and #6)."""
+    import os
+    import tempfile
+
+    from buckgnn_tpu_torch.parallel.scaling import run_world
+
+    phase_t0 = time.perf_counter()
+    fwd_err, bwd_err = shard_checks("multi/shards", ebatch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    print(json.dumps({"multi": "world", "world": world, "card": card,
+                      "shard_checks_s": time.perf_counter() - phase_t0}))
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        r = run_world(multi_rank, world, args=(out_dir,),
+                      timeout=MULTI_TIMEOUT_S)[0]
+        world_s = time.perf_counter() - t0
+    for label, ms in r["ms"].items():
+        print(json.dumps({"multi": label, "world": world, "step_ms": ms,
+                          "card": r["card"], "run_s": r["s"].get(label)}))
+    print(json.dumps({"multi": "multi/dryrun", "world": world,
+                      "card": r["card"], "run_s": r["s"]["dryrun"],
+                      **r["dryrun"]}))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "buckgnn_tpu_torch", "scale", "--n-devices",
+         str(world)], capture_output=True, text=True, timeout=300, env=env)
+    if proc.returncode != 0:
+        fail(f"multi/scale exited {proc.returncode}: {proc.stderr[-2000:]}")
+    scale = json.loads(proc.stdout.strip().splitlines()[-1])
+    if scale["backend"] != "cuda" or scale["n_devices"] != world or \
+            set(map(int, scale["per_count"])) != {1, world}:
+        fail(f"multi/scale: {scale}")
+    print(json.dumps({"multi": "multi/scale", "world": world, "card": card,
+                      "run_s": time.perf_counter() - t0, **scale}))
+    print(json.dumps({"multi": "phase", "world": world, "world_s": world_s,
+                      "phase_s": time.perf_counter() - phase_t0}))
+    return r["launches"], (fwd_err, bwd_err)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3055,6 +3561,12 @@ def main():
     tile_errs += cli_errs["sage_layer_bwd_tile"]
     banded_errs += cli_errs["banded_matmul"]
 
+    # ---- 12. multi-GPU -------------------------------------------------
+    multi_paths, (shard_fwd_err, shard_bwd_err) = multi_phase(dev, card,
+                                                              ebatch)
+    ea_fwd_err = max(ea_fwd_err, shard_fwd_err)
+    ea_bwd_err = max(ea_bwd_err, shard_bwd_err)
+
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
         "card": card, "infer_step_ms": serve["infer_step_ms"],
@@ -3139,7 +3651,7 @@ def main():
                "virtual_train": vtrain_launches,
                "ea_serve": eserve_launches,
                "ea_train": etrain_launches, **csr_paths, **unfused,
-               **run_paths, **cli_paths}
+               **run_paths, **cli_paths, **multi_paths}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",

@@ -229,16 +229,34 @@ def test_band_route_follows_the_jax_rule_and_the_cards_limits():
 
 
 def test_partitioned_batches_raise_naming_item_9():
-    """banded_partitioned without a partition is the banded path (as the
-    JAX model); a batch that carries one raises."""
+    """A partitioned context needs batch.part and raises without it, as the
+    JAX package's make_agg_context (item 9's refusal is gone: the
+    partitioned aggregation is parallel/partitioned.py). With one shard it
+    is the banded sum, forward and backward, and the model runs it."""
+    from buckgnn_tpu_torch.parallel.partitioned import partition_batch
+
     _, ours, _ = _super()
-    assert bd.make_agg_context(ours, partitioned=True).band is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bd.make_agg_context(ours.replace(part=object()), partitioned=True)
+    with pytest.raises(ValueError, match="batch.part"):
+        bd.make_agg_context(ours, partitioned=True)
+    part = ours.replace(part=partition_batch(ours, 1))
+    ctx = bd.make_agg_context(part, partitioned=True)
+    assert ctx.part is part.part and ctx.band is None
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((ours.n_node_cap, 16), generator=g)
+    probe = torch.randn(x.shape, generator=g)
+    got_x, want_x = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got = bd.banded_sage_aggregate(got_x, ctx)
+    want = bd.banded_sage_aggregate(want_x, bd.make_agg_context(ours))
+    (got * probe).sum().backward()
+    (want * probe).sum().backward()
+    m = ours.node_mask
+    torch.testing.assert_close(got[m], want[m], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_x.grad[m], want_x.grad[m], rtol=1e-5,
+                               atol=1e-5)
     model = BuckGNN(ours.nodes.shape[1], 5, hidden_channels=32,
                     num_layers=2, impl="banded_partitioned")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model(ours.replace(part=object()))
+    pred, _ = model(part)
+    assert bool(torch.isfinite(pred[ours.graph_mask]).all())
 
 
 def _kw(ds, h, **extra):

@@ -58,7 +58,7 @@ def test_parser_matches_jax():
         got = _options(tsubs[name])
         device = got.pop("device", None)
         assert got == _options(jsubs[name]), name
-        if name in ("train", "tune", "infer", "timer"):
+        if name in ("train", "tune", "infer", "timer", "scale"):
             assert device[:2] == (("--device",), None), name
         else:
             assert device is None, name
@@ -205,9 +205,12 @@ def test_cli_tune_runs_two_trials_at_once(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_scale_refuses_and_device_defaults_to_the_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tcli.main(["scale"])
+    """scale, train and tune run on the card unless told --device cpu:
+    without a card they raise (scale runs on gloo in
+    test_torch_port_parallel.py)."""
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["scale"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(["train", "--synthetic", "4"] + SMALL)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -269,8 +269,9 @@ def test_routes_the_port_refuses():
     """'banded' and 'banded_partitioned' on a banded batch run the unfused
     banded path (the slab product; banded_partitioned without a partition
     is 'banded', as in the JAX model) and match the JAX model with the same
-    impl: pred and every gradient. Only an unknown impl and a batch that
-    carries a partition (item 9) still raise."""
+    impl: pred and every gradient. A batch that carries a one-shard
+    partition runs the partitioned aggregation with the same pred; an
+    unknown impl raises."""
     ds = generate_dataset(4, seed=1, min_side=6, max_side=8,
                           use_super_node=False, use_virtual_edges=False)
     pack = dict(band_width=64, band_tile=128)
@@ -289,9 +290,14 @@ def test_routes_the_port_refuses():
                                    atol=PRED_ATOL, err_msg=impl)
         for k in jgrads:
             _rel_close(grads[k], jgrads[k], f"{impl}/{k}")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BuckGNN(impl="banded_partitioned", **kw)(
-            banded.replace(part=object()))
+    from buckgnn_tpu_torch.parallel.partitioned import partition_batch
+
+    port = BuckGNN(impl="banded_partitioned", **kw)
+    port.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        ppred, _ = port(banded.replace(part=partition_batch(banded, 1)))
+    np.testing.assert_allclose(ppred.numpy()[gm], jpred[gm], rtol=PRED_RTOL,
+                               atol=PRED_ATOL, err_msg="partitioned")
     with pytest.raises(ValueError, match="impl"):
         BuckGNN(impl="csr", **kw)
 

@@ -24,7 +24,10 @@ failing their faults; and the unfused model's launches per train step.
 The unfused layers' banded aggregation (ops/banded.py: kernel #4 in its
 forward and its symmetric backward, with star terms, the spill window and
 spill2) against the same aggregation on the plain band product, and its
-refusal of float32 rows and H = 384 on the card.
+refusal of float32 rows and H = 384 on the card. The fused EA block's
+'hybrid' and 'autodiff' far-gradient modes on the shards of a tile-split
+batch (parallel/ea_shard.py): the kernels against their plain versions,
+the appended far rows' gradient included.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -866,6 +869,51 @@ def test_ea_kernels_with_an_empty_last_block_on_cuda(which, h):
     assert torch.equal(dx, dx2) and torch.equal(de, de2)
     assert torch.equal(dbias, dbias2)
     assert all(torch.equal(dw[k], dw2[k]) for k in dw)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "autodiff"])
+@pytest.mark.parametrize("shard", [0, 1])
+def test_ea_far_grad_modes_match_plain_on_cuda(mode, shard):
+    """#5 and #6 on one shard of the "full" batch split in two tile ranges
+    (parallel/ea_shard.py), in 'hybrid' and 'autodiff' mode: the kernels
+    run on the shard's rows and the appended far rows of the whole x, and
+    the backward's sender fold writes those rows' gradient. zx, ze, e1s
+    and m1s within the forward's gate; dx (its own rows and the appended
+    rows, by norm and per row), de_win and every dW within the backward's
+    (skip on, dropout 0.1)."""
+    from buckgnn_tpu_torch.parallel.ea_shard import _ShardView, shard_ea_batch
+
+    dev = _card()
+    h = 512
+    b, _, x_full, _, w, bias = _ea_case(dev, h, False, seed=41)
+    shards = shard_ea_batch(b, 2).to(dev)
+    fl = shards.cf_local if mode == "hybrid" else 0
+    ctx = eb.make_ea_context(_ShardView(shards, shard), mode, fl)
+    nl = ctx.n_local
+    assert ctx.ext_ids is not None and ctx.n_nodes > nl
+    x = eb.extended_rows(x_full[shard * nl:(shard + 1) * nl].contiguous(),
+                         ctx, x_full)
+    g = torch.Generator(device=dev).manual_seed(43)
+    t, wc = shards.sidx.shape[1:]
+    e = torch.randn((t, wc, h), generator=g, device=dev).to(torch.bfloat16)
+    kw = dict(skip=True, rate=0.1, seed=SEED, enc=False)
+    got = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, save_res=True, **kw)
+    _ea_fwd_close(got, ref, ctx, h)
+    dzx = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    dzx[nl:] = 0
+    dze = torch.randn(e.shape, generator=g, device=dev).to(x.dtype)
+    args = (dzx, dze, ref[2], ref[3], x, e, w, bias, ctx)
+    gb = eb.ea_block_bwd(*args, **kw)
+    rb = eb.ea_block_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for k, err in eb.bwd_errors(gb, rb, ctx).items():
+        assert err <= eb.bwd_tol(k), (k, err)
+    n_ext = nl + ctx.ext_ids.numel()
+    remote = rb[0][nl:n_ext]
+    assert float(remote.float().abs().max()) > 0
+    assert eb.rel_err(gb[0][nl:n_ext], remote) <= eb.bwd_tol("dx")
+    assert eb.row_rel_err(gb[0][nl:n_ext], remote) <= eb.bwd_tol("dx_row")
 
 
 def test_ea_kernels_are_deterministic():

@@ -155,12 +155,15 @@ CLI_MODULES = tuple(f"buckgnn_tpu_torch.{m}" for m in (
     "__main__", "cli", "graph.mesh", "graph.op2", "graph.io", "graph.folder",
     "graph.split", "graph.flatten", "graph.materialize", "datagen",
     "datagen.shapes", "datagen.loadcases", "datagen.runner", "eval.timer",
-    "train.tune"))
+    "train.tune", "parallel", "parallel.mesh", "parallel.edge_partition",
+    "parallel.partitioned", "parallel.ea_shard", "parallel.dp",
+    "parallel.scaling", "parallel.dryrun"))
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the command line and the
-    folder-dataset, datagen, tuning and timer modules among them, leaves
+    """Importing every module of the port, the command line, the
+    folder-dataset, datagen, tuning and timer modules and the multi-device
+    ones (parallel/*) among them, leaves
     jax, flax and buckgnn_tpu out of sys.modules (checked in a fresh
     interpreter: this test process has imported jax already)."""
     code = (

@@ -294,8 +294,9 @@ def test_scope_guards():
     assert not eb.supports_fused_ea(ours.replace(win_edges=None), 128)
     h = 128
     _, ctx, blk, _, x, e, _ = _inputs(h, False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eb.fused_ea_block(x, e, blk, ctx, skip=False, far_grad="hybrid")
+    for mode in ("hybrid", "scatter"):
+        with pytest.raises(ValueError, match="far_grad"):
+            eb.fused_ea_block(x, e, blk, ctx, skip=False, far_grad=mode)
     with pytest.raises(ValueError, match="seed"):
         eb.fused_ea_block(x, e, blk, ctx, skip=False, rate=0.1,
                           deterministic=False)

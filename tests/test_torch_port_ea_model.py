@@ -262,7 +262,9 @@ def test_batches_the_fused_block_does_not_take_raise(monkeypatch):
     (the windowed blocks), a batch without edge windows (the flat blocks),
     remat=True (the windowed escape hatch, under checkpoint) and
     EAGNN_SAG (flat blocks and the SAG score conv): pred and every
-    gradient. Only the tile-sharded path still raises, naming item 9."""
+    gradient. The tile-sharded path (impl "banded_partitioned" with
+    ea_part) runs the fused block, here over one shard: the same pred as
+    "banded_pallas"."""
     from buckgnn_tpu_torch.ops import ea_block as eb
 
     graphs, _, ours, ref = _data(n_graphs=8)
@@ -301,6 +303,16 @@ def test_batches_the_fused_block_does_not_take_raise(monkeypatch):
         for k in jgrads:
             _rel_close(grads[k], jgrads[k], f"{extra}/{k}")
     assert calls == []
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BuckGNN(hidden_channels=128, impl="banded_partitioned", **kw)(
-            ours.replace(ea_part=object()))
+    from buckgnn_tpu_torch.parallel.ea_shard import shard_ea_batch
+
+    mkw = dict(kw, hidden_channels=128)
+    fused, tp = (BuckGNN(impl=impl, **mkw)
+                 for impl in ("banded_pallas", "banded_partitioned"))
+    tp.load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        want, _ = fused(ours)
+        got, _ = tp(ours.replace(ea_part=shard_ea_batch(ours, 1)))
+    gm = ours.graph_mask
+    assert calls
+    torch.testing.assert_close(got[gm], want[gm], rtol=PRED_RTOL,
+                               atol=PRED_ATOL)

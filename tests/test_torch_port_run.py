@@ -395,11 +395,37 @@ def test_profile_epochs_writes_a_trace(tiny, tmp_path):
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
 
 
-def test_banded_partitioned_raises(tiny, tmp_path):
-    _, cfg = _cfgs(segment_impl="banded_partitioned")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.train_gnn(cfg, tiny["train"], tiny["val"], tiny["nz"],
-                          str(tmp_path), verbose=False, device="cpu")
+def test_banded_partitioned_raises(tiny, start, tmp_path, monkeypatch):
+    """segment_impl="banded_partitioned" no longer raises: without a mesh
+    it packs one shard (``part`` on every batch) and three epochs from the
+    JAX checkpoint equal the JAX run's at dropout 0 (losses, MAPEs, the
+    final parameters), as test_train_gnn_matches_jax holds impl 'xla'."""
+    jcfg, cfg = _cfgs(segment_impl="banded_partitioned")
+    jres = jtr.train_gnn(jcfg, tiny["jtrain"], tiny["jval"], tiny["jnz"],
+                         str(tmp_path / "jax"), trial_id="part",
+                         resume_from=start, verbose=False)
+    packs = []
+    real = trainer.attach_shards
+
+    def spy(*a, **k):
+        packs.append(real(*a, **k))
+        return packs[-1]
+
+    monkeypatch.setattr(trainer, "attach_shards", spy)
+    res = trainer.train_gnn(cfg, tiny["train"], tiny["val"], tiny["nz"],
+                            str(tmp_path / "port"), trial_id="part",
+                            resume_from=start, verbose=False, device="cpu")
+    assert packs and all(b.part is not None and b.part.n_shards == 1
+                         for p in packs for b in p)
+    for h, jh in zip(res.history, jres.history, strict=True):
+        for k in ("train_loss", "val_loss", "train_mape", "val_mape"):
+            np.testing.assert_allclose(h[k], jh[k], rtol=RUN_RTOL,
+                                       err_msg=k)
+    want = state_from_flax(jax.tree.map(np.asarray, jres.state.params))
+    got = res.state.model.state_dict()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0,
+                                   atol=PARAM_ATOL, err_msg=k)
 
 
 def test_train_gnn_needs_a_card_unless_asked(tiny, tmp_path, monkeypatch):
