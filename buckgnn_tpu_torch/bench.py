@@ -35,13 +35,19 @@ cells, named in ``CELLS``:
   unfused banded path without remat;
 - ``ea-windowed``: ``EA_GNN`` with ``remat=True`` on the ea-virtual
   batch, the JAX package's escape hatch onto the unfused windowed blocks
-  (ops/ea_windowed.py, no kernel).
+  (ops/ea_windowed.py, no kernel);
+- ``flagship-f32`` and ``virtual-f32``: the flagship and virtual cells in
+  float32, the JAX package's default compute dtype
+  (``build_bench_setup(compute_dtype="float32")``, bench.py:25-27, 64-66),
+  whose layers take the float32 variants of kernels #1-#4
+  (csrc/sage_simple.cu).
 
 Each is normalized and packed into one batch with exact capacities (RCM
 order and 4-tile node alignment for the banded cells; for the unbanded
 ones the node count itself, as bench.py:94-100: the port's CSR kernel
 needs no alignment, where the TPU's falls back to XLA unless N % 256 ==
-0), for the model at bf16 with random weights from a seeded generator.
+0), for the model at the cell's dtype (bf16 but the ``-f32`` cells) with
+random weights from a seeded generator.
 ``build_serve_setup()`` answers it with eval_step;
 ``build_train_setup()`` trains on it with the TrainConfig defaults of the
 JAX bench (dropout 0.1, relative-error loss, Adam with weight decay 1e-8)
@@ -99,12 +105,12 @@ V100_TRAIN_EDGES_PER_S_EST = 5.0e6
 # the cells' build_bench_setup arguments (bench_configs.py:20-27): panels
 # in the batch, supernodes (else virtual edges), model, segment impl, band
 # tile and width (None: select_band_geometry's pick; unused by the
-# unbanded impls, whose batches carry no band), remat and the pack-time
-# band
+# unbanded impls, whose batches carry no band), remat, the pack-time band
+# and the compute dtype
 _BASE = dict(batch_size=128, use_super_node=False,
              model_name="GraphSage_addAggr_Shared",
              segment_impl="banded_pallas", band_tile=256, band_width=None,
-             remat=None, materialize_band=True)
+             remat=None, materialize_band=True, compute_dtype="bfloat16")
 _EA = dict(_BASE, batch_size=64, model_name="EA_GNN_Shared", band_tile=128,
            band_width=64)
 CELLS = {
@@ -118,20 +124,21 @@ CELLS = {
     "virtual-bandless": dict(_BASE, materialize_band=False),
     "virtual-meanaggr": dict(_BASE, model_name="GraphSage_meanAggr"),
     "ea-windowed": dict(_EA, model_name="EA_GNN", remat=True),
+    "flagship-f32": dict(_BASE, use_super_node=True, compute_dtype="float32"),
+    "virtual-f32": dict(_BASE, compute_dtype="float32"),
 }
 
 
 def cell_config(config: str) -> TrainConfig:
     """The TrainConfig of the cell ``config`` (a key of ``CELLS``): its
-    model at 6 layers, hidden 512, bf16, seed 0, its segment impl, remat
-    and pack-time band, its batch size and the JAX bench's lr (the
-    TrainConfig defaults otherwise: dropout 0.1, relative-error loss,
-    weight decay 1e-8)."""
+    model at 6 layers, hidden 512, its compute dtype, seed 0, its segment impl, remat and pack-time band, its batch size and the
+    JAX bench's lr (the TrainConfig defaults otherwise: dropout 0.1,
+    relative-error loss, weight decay 1e-8)."""
     if config not in CELLS:
         raise ValueError(f"unknown cell {config!r}: one of {sorted(CELLS)}")
     c = CELLS[config]
     return TrainConfig(hidden_channels=512, num_layers=6,
-                       compute_dtype="bfloat16", seed=0, lr=TRAIN_LR,
+                       compute_dtype=c["compute_dtype"], seed=0, lr=TRAIN_LR,
                        batch_size=c["batch_size"],
                        model_name=c["model_name"],
                        segment_impl=c["segment_impl"], remat=c["remat"],

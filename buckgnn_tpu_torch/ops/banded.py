@@ -19,11 +19,12 @@ parallel/partitioned.py) and the fused layer (ops/sage_layer.py) and
 
 The band product with its spill window is TPU kernel #4 where the JAX
 package takes it (``use_pallas`` and H % 128 == 0): on CUDA tensors
-ops/banded_matmul.py::banded_matmul launches the hand-written kernel, which
-takes bf16 operands and H in {128, 256, 512} only, so a float32 model or
-another width raises there (`band_route`); on CPU tensors the same wrapper
-runs its plain version. Elsewhere the band product is the slab product, a
-batched matmul (an XLA dot_general in the JAX package).
+ops/banded_matmul.py::banded_matmul launches a hand-written kernel, the
+product engine's (bf16 at H in {128, 256, 512}) or sage_simple.cu's
+(float32 at any H % 128 == 0, bf16 at the other widths), by the static rule
+`kernel_variant`; on CPU tensors the same wrapper runs its plain version.
+Elsewhere the band product is the slab product, a batched matmul (an XLA
+dot_general in the JAX package).
 
 The aggregation's VJP uses the symmetry of the total adjacency (every edge
 source materializes both directions, the star and the dead row's pad loops
@@ -40,11 +41,8 @@ import torch
 from buckgnn_tpu_torch.graph.batch import GraphBatch
 from buckgnn_tpu_torch.ops import segment
 from buckgnn_tpu_torch.ops.banded_matmul import (
-    banded_matmul, banded_matmul_plain, slab_starts,
+    banded_matmul, banded_matmul_plain, kernel_variant, slab_starts,
 )
-
-# widths the card's band kernel takes (ops/banded_matmul.py::_launch)
-KERNEL_WIDTHS = (128, 256, 512)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,17 +129,18 @@ def band_route(device_type: str, dtype: torch.dtype, h: int,
                use_pallas: bool) -> bool:
     """Whether the band product takes kernel #4 (else the slab product):
     the JAX package's rule, ``use_pallas`` and H % 128 == 0
-    (ops/banded.py:304-307). On the card the kernel takes only bf16 and H
-    in {128, 256, 512}; a route to it outside those raises here rather
-    than take the slab product quietly."""
+    (ops/banded.py:304-307). On the card one of kernel #4's two variants
+    takes every float32 or bf16 width of that rule (`kernel_variant`); a
+    route to it in another dtype raises here rather than take the slab
+    product quietly."""
     if not (use_pallas and h % 128 == 0):
         return False
-    if device_type == "cuda" and (dtype != torch.bfloat16
-                                  or h not in KERNEL_WIDTHS):
-        raise NotImplementedError(
-            f"banded_pallas on the card: kernel #4 takes bfloat16 and H in "
-            f"{KERNEL_WIDTHS}, not {dtype} at H = {h} (the JAX route takes "
-            "Pallas at any H % 128 == 0 and in float32)")
+    if device_type == "cuda":
+        try:
+            kernel_variant(dtype, h)
+        except NotImplementedError as e:
+            raise NotImplementedError(
+                f"banded_pallas on the card: kernel #4 {e}") from None
     return True
 
 
@@ -223,8 +222,8 @@ def banded_sage_aggregate(x: torch.Tensor, ctx: AggContext,
     ``dtype``: the calling conv's compute dtype. On kernel #4's route the
     band product takes x in that dtype: a bf16 model whose batch norms
     promoted its activations to float32 (as the JAX package's do) feeds the
-    bf16-only kernel bf16 rows, where the JAX route sums the float32 rows
-    and its Dense rounds the sum to bf16 after."""
+    kernel bf16 rows (its bf16 variant), where the JAX route sums the
+    float32 rows and its Dense rounds the sum to bf16 after."""
     batch = ctx.batch
     if ctx.part is not None:
         # node rows sharded over the mesh's 'model' dim: halo exchange,

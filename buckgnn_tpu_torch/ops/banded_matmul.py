@@ -15,12 +15,17 @@ clip(off[t] // SPILL_ALIGN * SPILL_ALIGN, 0, Es - SPILL_CHUNK); each row r
 takes the run [lo[r], hi[r]) of it (graph/batch.py::_host_spill_ranges
 packs off, lo and hi).
 
-`banded_matmul` is the wrapper: on CUDA tensors it launches the hand-written
-kernel ``csrc/banded_matmul.cu`` (``csrc/banded.cuh::band_kernel``, bf16
-only, on persistent clusters of the product engine) and counts the launch in
-``ops/sage_layer.py::LAUNCHES["banded_matmul"]``; on CPU tensors it runs
-`banded_matmul_plain`, the plain PyTorch version with the TPU kernel's
-casts.
+`banded_matmul` is the wrapper: on CUDA tensors it launches one of two
+hand-written kernels, chosen by `kernel_variant` from x's dtype and width
+alone: bf16 at H in ``ENGINE_WIDTHS`` takes ``csrc/banded_matmul.cu``
+(``csrc/banded.cuh::band_kernel``, on persistent clusters of the product
+engine), counted in ``ops/sage_layer.py::LAUNCHES["banded_matmul"]``;
+float32, and bf16 at every other H % 128 == 0, take
+``csrc/sage_simple.cu::band_simple`` (FFMA, a warp a row over the row's
+nonzero counts), counted in ``LAUNCHES["banded_matmul_simple"]``. The rule
+is static: a failed build or launch raises, it never sends a call to the
+other kernel. On CPU tensors the wrapper runs `banded_matmul_plain`, the
+plain PyTorch version with the TPU kernel's casts.
 """
 
 from __future__ import annotations
@@ -33,6 +38,41 @@ from buckgnn_tpu_torch.graph.batch import SPILL_ALIGN, SPILL_CHUNK
 
 _BM = 64  # rows per kernel block (csrc/engine.cuh)
 
+# the widths the product engine's kernels take, in bf16 (csrc/engine.cuh:
+# each of four warpgroups takes H/4 columns in [32 k, 64 n] boxes, so 384,
+# whose 96 columns a warpgroup are no whole box, is not one of them)
+ENGINE_WIDTHS = (128, 256, 512)
+# the compute dtypes a TrainConfig admits, which every kernel variant takes
+VARIANT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_variant(dtype: torch.dtype, h: int) -> str:
+    """Which hand-written kernel of #1-#4 a call in ``dtype`` at width
+    ``h`` launches on the card: "engine" (csrc/sage_layer_{fwd,bwd}.cu,
+    banded_matmul.cu: bf16 at H in ENGINE_WIDTHS) or "simple"
+    (csrc/sage_simple.cu: float32 at any H % 128 == 0, bf16 at the other
+    widths). A rule on (dtype, H) alone, never a fallback; anything else
+    raises (the JAX package's route to these kernels asks H % 128 == 0,
+    ops/banded.py:304-307; H % 128 != 0 takes the slab product there and
+    here)."""
+    if dtype not in VARIANT_DTYPES or h <= 0 or h % 128 != 0:
+        raise NotImplementedError(
+            f"SAGE kernels #1-#4 take float32 or bfloat16 at H % 128 == 0, "
+            f"not {dtype} at H = {h}")
+    if dtype == torch.bfloat16 and h in ENGINE_WIDTHS:
+        return "engine"
+    return "simple"
+
+
+def variant_of(x: torch.Tensor, check) -> str:
+    """`kernel_variant` of a kernel call's activations, refused by the
+    wrapper's ``check`` (a ValueError) when no variant takes them."""
+    h = x.shape[-1]
+    check(h % 128 == 0, "H in multiples of 128")
+    check(x.dtype in VARIANT_DTYPES, "float32 or bfloat16 activations")
+    return kernel_variant(x.dtype, h)
+
+
 # The kernel against `banded_matmul_plain` on the same bf16 inputs, as
 # (atol as a fraction of rms(ref), rtol): |got - ref| <= atol * rms(ref) +
 # rtol * |ref|. Both sides sum the same exact bf16 products and terms in f32
@@ -41,6 +81,30 @@ _BM = 64  # rows per kernel block (csrc/engine.cuh)
 # atol 1e-2 of rms(out) covers entries whose terms cancel. A dropped spill
 # message moves its row by about rms(x) per entry and fails it.
 KERNEL_BANDED_TOL = (1e-2, 8e-3)
+# The float32 variants against their float32 plain versions, as atol =
+# SIMPLE_F32_TOL * max|ref| (rtol 0): both sides sum the same float32
+# products in another order (f32 FFMA against the plain version's matmuls
+# with TF32 off), a sum of K terms rounding at about sqrt(K) * 2^-24 of its
+# terms' size. On an H100 at H 128-1024: z, y, agg, dx and the tables
+# (K <= 2H + T + W) at most 2.7e-6 of max|ref|; dW, whose sums run over N
+# rows (chunks of at most 2048, ops/sage_layer.py::_ksplit), reached
+# 7.7e-6 at H 1024 with 34,500-row chunks. A dropped bias, spill run,
+# star row or norm term moves entries by O(rms) and fails it.
+SIMPLE_F32_TOL = 1e-5
+
+
+def variant_tol(ref: torch.Tensor, dtype: torch.dtype, bf16_tol,
+                frac: bool = True) -> tuple[float, float]:
+    """(atol, rtol) of a kernel-vs-plain gate on inputs of ``dtype``:
+    float32 `SIMPLE_F32_TOL` of max|ref|; bf16 the engine's gate
+    ``bf16_tol``, as (atol, rtol) or, with ``frac``, as (atol as a fraction
+    of rms(ref), rtol)."""
+    if dtype == torch.float32:
+        return SIMPLE_F32_TOL * float(ref.float().abs().max()), 0.0
+    atol, rtol = bf16_tol
+    if frac:
+        atol *= float(ref.float().pow(2).mean().sqrt())
+    return atol, rtol
 
 
 def slab_starts(n: int, tile: int, width: int, device) -> torch.Tensor:
@@ -110,66 +174,115 @@ def _ptr(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
+def check_operands(floats, ints, band, x, check) -> None:
+    """The operand rules every kernel variant of #1-#4 shares: every tensor
+    on x's device and contiguous, the float operands in x's dtype, 16-byte
+    aligned and of width H, the codes int32, the band (None: no band pass)
+    int8."""
+    dev = x.device
+    for t in floats + ints + ([band] if band is not None else []):
+        check(t.device == dev, "all tensors on one CUDA device")
+        check(t.is_contiguous(), "contiguous tensors")
+    for t in floats:
+        check(t.dtype == x.dtype, "every activation/weight operand in x's "
+              "dtype (float32 or bfloat16)")
+        check(t.data_ptr() % 16 == 0, "16-byte aligned operands")
+        check(t.shape[-1] == x.shape[-1], "every [., H] operand of width H")
+    for t in ints:
+        check(t.dtype == torch.int32, "int32 offsets and codes")
+    check(band is None or band.dtype == torch.int8, "int8 band")
+
+
+def check_engine(floats, band, tile: int, width: int, check) -> None:
+    """What the product engine's TMA boxes add to `check_operands`:
+    32-byte aligned bf16 operands and, with a band, a 16-byte aligned band
+    of whole 16-column slab rows."""
+    for t in floats:
+        check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
+    if band is not None:
+        check(band.data_ptr() % 16 == 0, "16-byte aligned band")
+        check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
+
+
+def check_band(band, n: int, tile: int, width: int, check) -> None:
+    """The band geometry every variant takes: whole 64-row blocks in a tile
+    (the table sums' blocks), whole tiles, a slab inside N."""
+    check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
+    check(n >= tile + width, "N >= T+W")
+    check(band.numel() == n * (tile + width), "band [N/T, T, T+W]")
+
+
+def check_spill(spill_offsets, spill_lo, spill_hi, spill_messages, n: int,
+                tile: int, check) -> int:
+    """The spill window's operands (``spill_offsets`` given): at least one
+    SPILL_CHUNK of messages, an offset a tile and one more, lo and hi a
+    row. Returns the message count."""
+    n_spill = spill_messages.shape[0]
+    check(n_spill >= SPILL_CHUNK, "at least SPILL_CHUNK spill rows")
+    check(spill_offsets.numel() == n // tile + 1, "offsets [N/T + 1]")
+    check(spill_lo.numel() == n and spill_hi.numel() == n,
+          "spill lo, hi [N/T, T, 1]")
+    return n_spill
+
+
 def _launch(band, x, *, tile, width, out_dtype, spill_offsets, spill_lo,
             spill_hi, spill_messages, gcode, table, acc):
+    """The checks every variant shares, then the variant's kernel:
+    csrc/banded_matmul.cu (engine) or csrc/sage_simple.cu::band_simple
+    (x, the messages, table and acc in x's dtype, any H % 128 == 0)."""
     from buckgnn_tpu_torch.ops.sage_layer import LAUNCHES
     from buckgnn_tpu_torch.utils import cuda_build
 
+    engine = variant_of(x, _check) == "engine"
     n, h = x.shape
-    has_spill = spill_offsets is not None
-    has_table = table is not None
+    has_spill, has_table = spill_offsets is not None, table is not None
     has_acc = acc is not None
-    bf16 = [x] + ([spill_messages] if has_spill else []) + (
+    floats = [x] + ([spill_messages] if has_spill else []) + (
         [table] if has_table else []) + ([acc] if has_acc else [])
     ints = ([spill_offsets, spill_lo, spill_hi] if has_spill else []) + (
         [gcode] if has_table else [])
-    dev = x.device
-    for t in bf16 + ints + [band]:
-        _check(t.device == dev, "all tensors on one CUDA device")
-        _check(t.is_contiguous(), "contiguous tensors")
-    for t in bf16:
-        _check(t.dtype == torch.bfloat16, "bfloat16 operands")
-        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
-        _check(t.shape[-1] == h, "every [., H] operand of width H")
-    for t in ints:
-        _check(t.dtype == torch.int32, "int32 offsets and codes")
-    _check(band.dtype == torch.int8, "int8 band")
-    _check(band.data_ptr() % 16 == 0, "16-byte aligned band")
-    _check(out_dtype in (torch.bfloat16, torch.float32),
-           "out_dtype bfloat16 or float32")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
-    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
-    _check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
-    _check(n >= tile + width, "N >= T+W")
-    _check(band.numel() == n * (tile + width), "band [N/T, T, T+W]")
+    check_operands(floats, ints, band, x, _check)
+    _check(out_dtype in VARIANT_DTYPES, "out_dtype float32 or bfloat16")
+    check_band(band, n, tile, width, _check)
+    if engine:
+        check_engine(floats, band, tile, width, _check)
     n_spill = tg = 0
     if has_spill:
-        n_spill = spill_messages.shape[0]
-        _check(n_spill >= SPILL_CHUNK, "at least SPILL_CHUNK spill rows")
-        _check(spill_offsets.numel() == n // tile + 1, "offsets [N/T + 1]")
-        _check(spill_lo.numel() == n and spill_hi.numel() == n,
-               "lo, hi [N/T, T, 1]")
+        n_spill = check_spill(spill_offsets, spill_lo, spill_hi,
+                              spill_messages, n, tile, _check)
     if has_table:
         tg = table.shape[0]
         _check(gcode.numel() == n, "one table code per row")
     if has_acc:
         _check(tuple(acc.shape) == (n, h), "acc [N, H]")
 
-    out = torch.empty((n, h), dtype=out_dtype, device=dev)
-    lib = cuda_build.load("banded_matmul")
-    fn = lib.banded_matmul
+    out = torch.empty((n, h), dtype=out_dtype, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    f32_out = int(out_dtype == torch.float32)
+    if engine:
+        name = "banded_matmul"
+        fn = cuda_build.load(name).banded_matmul
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+        args = (_ptr(x), _ptr(band), _ptr(spill_messages), _ptr(spill_offsets),
+                _ptr(spill_lo), _ptr(spill_hi), _ptr(gcode), _ptr(table),
+                _ptr(acc), _ptr(out), n, h, tile, width, n_spill, tg,
+                int(has_spill), int(has_table), int(has_acc), f32_out)
+    else:
+        name = "band_simple"
+        fn = cuda_build.load("sage_simple").band_simple
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+        args = (_ptr(x), _ptr(band), _ptr(spill_messages), _ptr(spill_offsets),
+                _ptr(spill_lo), _ptr(spill_hi), _ptr(gcode), None, _ptr(table),
+                _ptr(acc), _ptr(out), n, h, tile, width, n_spill, tg, 0, 0,
+                int(x.dtype == torch.bfloat16), f32_out)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_ptr(x), _ptr(band), _ptr(spill_messages), _ptr(spill_offsets),
-             _ptr(spill_lo), _ptr(spill_hi), _ptr(gcode), _ptr(table),
-             _ptr(acc), _ptr(out), n, h, tile, width, n_spill, tg,
-             int(has_spill), int(has_table), int(has_acc),
-             int(out_dtype == torch.float32), ctypes.c_void_p(stream))
+    err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"banded_matmul launch failed: CUDA error {err}")
-    cuda_build.count_launch(LAUNCHES, "banded_matmul")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_build.count_launch(
+        LAUNCHES, "banded_matmul" if engine else "banded_matmul_simple")
     return out
 
 
@@ -177,8 +290,8 @@ def banded_matmul(band, x, *, tile: int, width: int, out_dtype=torch.float32,
                   spill_offsets=None, spill_lo=None, spill_hi=None,
                   spill_messages=None, gcode=None, table=None, acc=None):
     """The banded SpMM (arguments and result as `banded_matmul_plain`).
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    CUDA tensors launch the kernel of `kernel_variant` (or raise); CPU
+    tensors take the plain version."""
     kw = dict(tile=tile, width=width, out_dtype=out_dtype,
               spill_offsets=spill_offsets, spill_lo=spill_lo,
               spill_hi=spill_hi, spill_messages=spill_messages, gcode=gcode,

@@ -24,12 +24,18 @@ Two backward routes, chosen by the batch as the JAX package does:
 
 `sage_layer_fwd`, `sage_layer_bwd` and `sage_layer_bwd_tile` are the
 wrappers: on CUDA tensors they launch the hand-written kernels in ``csrc/``
-(bf16 only) and count each launch in ``LAUNCHES``; on CPU tensors they run
-the plain PyTorch versions (`sage_layer_plain`, `sage_layer_bwd_plain`,
-`sage_layer_bwd_tile_plain`) with the same casts. `fused_sage_layer` is the
-layer as the model calls it: a ``torch.autograd.Function`` (the JAX
-package's ``_fused_layer`` custom VJP) with supernode-star threading
-through ghost tables (`star_source`) on spill-free batches.
+and count each launch in ``LAUNCHES``; on CPU tensors they run the plain
+PyTorch versions (`sage_layer_plain`, `sage_layer_bwd_plain`,
+`sage_layer_bwd_tile_plain`) with the same casts. Which kernel a CUDA call
+launches is ops/banded_matmul.py::kernel_variant's static rule on (dtype,
+H): bf16 at H in {128, 256, 512} the product engine's
+(``sage_layer_fwd.cu``, ``sage_layer_bwd.cu``), float32 at any H % 128 ==
+0 and bf16 at the other widths ``sage_simple.cu``'s (FFMA, a few launches
+a call), each counted under its own name (``*_simple``).
+`fused_sage_layer` is the layer as the model calls it: a
+``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom
+VJP) with supernode-star threading through ghost tables (`star_source`)
+on spill-free batches.
 """
 
 from __future__ import annotations
@@ -43,15 +49,19 @@ from buckgnn_tpu_torch.graph.batch import (
 )
 from buckgnn_tpu_torch.ops import segment
 from buckgnn_tpu_torch.ops.banded_matmul import (
-    banded_matmul, slab_starts, spill_term_plain,
+    banded_matmul, check_band, check_engine, check_operands, check_spill,
+    slab_starts, spill_term_plain, variant_of,
 )
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
 )
 
-# launches of each kernel wrapper (reset by callers that count a run)
+# launches of each kernel wrapper (reset by callers that count a run): the
+# product engine's kernels and, under ``*_simple``, csrc/sage_simple.cu's
 LAUNCHES = {"sage_layer_fwd": 0, "sage_layer_bwd": 0,
-            "sage_layer_bwd_tile": 0, "banded_matmul": 0}
+            "sage_layer_bwd_tile": 0, "banded_matmul": 0,
+            "sage_layer_fwd_simple": 0, "sage_layer_bwd_simple": 0,
+            "sage_layer_bwd_tile_simple": 0, "banded_matmul_simple": 0}
 
 _BM = 64  # rows per kernel block (csrc/sage_layer_{fwd,bwd}.cu)
 _KSPLIT = 16  # row chunks of the backward's weight pass (sage_layer_bwd.cu)
@@ -245,86 +255,106 @@ def _dropout_args(rate: float, seed):
     return 1, dropout_threshold(rate), s0, s1, dropout_scale(rate)
 
 
+def _star_checks(x, tile, table, code, gwin, gw, t0) -> None:
+    """The star operands' shapes (``table`` given): [2*T0, H], a code a
+    row, a window base a tile or the whole table (GW == T0)."""
+    n, h = x.shape
+    _check(tuple(table.shape) == (2 * t0, h), "table [2*T0, H]")
+    _check(code.numel() == n, "one code per row")
+    _check(gwin is None or gwin.numel() == n // tile, "gwin [N/T]")
+    _check(gwin is not None or gw == t0, "full-table selection: GW == T0")
+
+
 def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
             t0, acc_code, skip, emit, save_res, rate, seed, spill_offsets,
             spill_lo, spill_hi, spill_messages):
+    """The checks every variant shares, then the variant's kernel:
+    csrc/sage_layer_fwd.cu (engine) or sage_simple.cu::sage_fwd_simple
+    (#1's float32 / any-width variant: phase 1 (agg), the product pass into
+    an f32 [N, H] scratch, the row epilogue and, with emit, the table
+    sums)."""
     from buckgnn_tpu_torch.utils import cuda_build
 
     _check_dropout(rate, seed)
+    engine = variant_of(x, _check) == "engine"
     n, h = x.shape
     has_super = table is not None
     has_spill = spill_offsets is not None
-    bf16 = [x, w_l, b_l, w_r] + ([table] if has_super else []) + (
+    floats = [x, w_l, b_l, w_r] + ([table] if has_super else []) + (
         [spill_messages] if has_spill else [])
     ints = ([code] if has_super else []) + (
         [gwin] if gwin is not None else []) + ([acc_code] if emit else []) + (
         [spill_offsets, spill_lo, spill_hi] if has_spill else [])
-    dev = x.device
-    for t in bf16 + ints + [band]:
-        _check(t.device == dev, "all tensors on one CUDA device")
-        _check(t.is_contiguous(), "contiguous tensors")
-    for t in bf16:
-        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
-        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
-    for t in ints:
-        _check(t.dtype == torch.int32, "int32 codes")
-    _check(band.dtype == torch.int8, "int8 band")
-    _check(band.data_ptr() % 16 == 0, "16-byte aligned band")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
-    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
-    _check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
-    _check(n >= tile + width, "N >= T+W")
-    _check(band.numel() == n * (tile + width), "band [N/T, T, T+W]")
+    check_operands(floats, ints, band, x, _check)
+    check_band(band, n, tile, width, _check)
     _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h)
            and b_l.numel() == h, "W_l, W_r [H, H] and b_l [H]")
     tg = 2 * t0
     if has_super:
-        _check(tuple(table.shape) == (tg, h), "table [2*T0, H]")
-        _check(code.numel() == n, "one code per row")
-        _check((2 * gw) % 16 == 0 and (gw % 16 == 0 or gw == t0),
-               "star window of whole 16-row fragments")
-        _check(gwin is None or gwin.numel() == n // tile, "gwin [N/T]")
-        _check(gwin is not None or gw == t0, "full-table selection: GW == T0")
+        _star_checks(x, tile, table, code, gwin, gw, t0)
     if emit:
-        _check(has_super and gwin is not None and 2 * gw <= 2 * LOCAL_STAR_ROWS,
-               "emit needs the local star windows")
+        _check(has_super and gwin is not None, "emit needs the local star "
+               "windows")
         _check(acc_code.numel() == n, "one accumulate code per row")
     n_spill = 0
     if has_spill:
-        n_spill = spill_messages.shape[0]
-        _check(tuple(spill_messages.shape) == (n_spill, h)
-               and n_spill >= SPILL_CHUNK, "spill messages [Es >= 256, H]")
-        _check(spill_offsets.numel() == n // tile + 1, "offsets [N/T + 1]")
-        _check(spill_lo.numel() == n and spill_hi.numel() == n,
-               "spill lo, hi [N/T, T, 1]")
+        n_spill = check_spill(spill_offsets, spill_lo, spill_hi,
+                              spill_messages, n, tile, _check)
+    if engine:
+        check_engine(floats, band, tile, width, _check)
+        _check(not has_super or ((2 * gw) % 16 == 0
+                                 and (gw % 16 == 0 or gw == t0)),
+               "star window of whole 16-row fragments")
+        _check(not emit or gw <= LOCAL_STAR_ROWS,
+               "emit needs the local star windows")
 
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty_like(x)
-    partial = ftab = y = inv = agg = None
-    if emit:
-        partial = torch.empty((n // _BM, 2 * gw, h), dtype=torch.float32,
-                              device=dev)
-        ftab = torch.empty((tg, h), dtype=torch.float32, device=dev)
+    y = inv = agg = partial = ftab = None
     if save_res:
-        y, agg = torch.empty_like(x), torch.empty_like(x)
-        inv = torch.empty((n,), dtype=torch.float32, device=dev)
+        y, inv = torch.empty_like(x), torch.empty((n,), **f32)
+    if save_res or not engine:
+        agg = torch.empty_like(x)
+    if emit:
+        partial = torch.empty((n // _BM, 2 * gw, h), **f32)
+        ftab = torch.empty((tg, h), **f32)
     drop, thr, s0, s1, scale = _dropout_args(rate, seed)
-    lib = cuda_build.load("sage_layer_fwd")
-    fn = lib.sage_layer_fwd
+    operands = (_ptr(x), _ptr(band), _ptr(w_l), _ptr(w_r), _ptr(b_l),
+                _ptr(table), _ptr(code), _ptr(gwin), _ptr(acc_code),
+                _ptr(spill_messages), _ptr(spill_offsets), _ptr(spill_lo),
+                _ptr(spill_hi))
+    dropout = (drop, thr, s0, s1, scale)
+    if engine:
+        name = "sage_layer_fwd"
+        fn = cuda_build.load(name).sage_layer_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 14
+                       + [ctypes.c_uint32] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        args = operands + (
+            _ptr(z), _ptr(partial), _ptr(ftab), _ptr(y), _ptr(inv),
+            _ptr(agg), n, h, tile, width, gw, t0, tg, int(has_super),
+            int(skip), int(emit), int(save_res), n_spill,
+            int(has_spill)) + dropout
+    else:
+        name = "sage_fwd_simple"
+        out32 = torch.empty((n, h), **f32)
+        fn = cuda_build.load("sage_simple").sage_fwd_simple
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 13
+                       + [ctypes.c_uint32] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        args = operands + (
+            _ptr(agg), _ptr(out32), _ptr(z), _ptr(y), _ptr(inv),
+            _ptr(partial), _ptr(ftab), n, h, tile, width, gw, t0, tg,
+            int(has_super), int(skip), int(emit), n_spill,
+            int(has_spill)) + dropout + (int(x.dtype == torch.bfloat16),)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 14
-                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_ptr(x), _ptr(band), _ptr(w_l), _ptr(w_r), _ptr(b_l),
-             _ptr(table), _ptr(code), _ptr(gwin), _ptr(acc_code),
-             _ptr(spill_messages), _ptr(spill_offsets), _ptr(spill_lo),
-             _ptr(spill_hi), _ptr(z), _ptr(partial), _ptr(ftab), _ptr(y),
-             _ptr(inv), _ptr(agg), n, h, tile, width, gw, t0, tg,
-             int(has_super), int(skip), int(emit), int(save_res), n_spill,
-             int(has_spill), drop, thr, s0, s1, scale,
-             ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"sage_layer_fwd launch failed: CUDA error {err}")
-    cuda_build.count_launch(LAUNCHES, "sage_layer_fwd")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_build.count_launch(
+        LAUNCHES, "sage_layer_fwd" if engine else "sage_layer_fwd_simple")
     if save_res:
         return z, ftab, y, inv, agg
     return z, ftab
@@ -337,8 +367,8 @@ def sage_layer_fwd(x, w_l, b_l, w_r, band, *, tile: int, width: int,
                    rate: float = 0.0, seed=None, spill_offsets=None,
                    spill_lo=None, spill_hi=None, spill_messages=None):
     """The fused layer (arguments and results as `sage_layer_plain`). CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    tensors launch the kernel of `kernel_variant` (or raise); CPU tensors
+    take the plain version."""
     kw = dict(tile=tile, width=width, table=table, code=code, gwin=gwin,
               gw=gw, t0=t0, acc_code=acc_code, skip=skip, emit=emit,
               save_res=save_res, rate=rate, seed=seed,
@@ -455,36 +485,22 @@ def _norm_backward(dz_eff, y, inv):
 def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
                 table_prev, code, gwin, gw, t0, acc_code, has_super, skip,
                 rate, seed):
+    """The checks every variant shares, then the variant's kernel:
+    csrc/sage_layer_bwd.cu (engine) or sage_simple.cu::sage_bwd_simple
+    (#2's float32 / any-width variant: the norm backward's row pass, the
+    dagg / dxp products, the split-K dW products, db, the own table and the
+    band pass for dx)."""
     from buckgnn_tpu_torch.utils import cuda_build
 
     _check_dropout(rate, seed)
+    engine = variant_of(x, _check) == "engine"
     n, h = x.shape
     apply_prev = table_prev is not None
-    bf16 = [dz, y, agg, x, w_l, w_r] + ([table_prev] if apply_prev else [])
+    floats = [dz, y, agg, x, w_l, w_r] + ([table_prev] if apply_prev else [])
     ints = (([code] if apply_prev else []) + ([acc_code] if has_super else [])
             + ([gwin] if gwin is not None else []))
-    dev = x.device
-    for t in bf16 + ints + [band, inv]:
-        _check(t.device == dev, "all tensors on one CUDA device")
-        _check(t.is_contiguous(), "contiguous tensors")
-    for t in bf16:
-        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
-        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
-        _check(t.shape[-1] == h, "every [., H] operand of width H")
-    for t in ints:
-        _check(t.dtype == torch.int32, "int32 codes")
-    _check(inv.dtype == torch.float32 and inv.numel() == n, "inv f32 [N]")
-    _check(band.dtype == torch.int8, "int8 band")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
-    _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
-    _check(n // tile >= 2, "at least 2 node tiles")
-    _check((tile + width) % 16 == 0 and width % 2 == 0, "T+W % 16 == 0")
-    _check(n >= tile + width, "N >= T+W")
-    _check(band.numel() == n * (tile + width), "band [N/T, T, T+W]")
-    for t in (dz, y, agg):
-        _check(tuple(t.shape) == (n, h), "dz, y, agg [N, H]")
-    _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h),
-           "W_l, W_r [H, H]")
+    _bwd_operand_checks(dz, y, inv, agg, x, w_l, w_r, floats, ints, band)
+    check_band(band, n, tile, width, _check)
     tg = 2 * t0
     if has_super:
         _check(gwin is None or gwin.numel() == n // tile, "gwin [N/T]")
@@ -492,9 +508,19 @@ def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
         _check(acc_code.numel() == n, "one accumulate code per row")
     if apply_prev:
         _check(has_super, "apply_prev needs a supernode batch")
-        _check(tuple(table_prev.shape) == (tg, h), "table_prev [2*T0, H]")
-        _check(code.numel() == n, "one code per row")
+        _star_checks(x, tile, table_prev, code, gwin, gw, t0)
+    if not engine:
+        _, _, dx, dwl, dwr, dbl, town = _simple_bwd_call(
+            dz, y, inv, agg, x, w_l, w_r, band, tile=tile, width=width,
+            table_prev=table_prev, code=code, gwin=gwin, gw=gw, t0=t0, tg=tg,
+            acc_code=acc_code if has_super else None, ncode=2 * gw,
+            skip=skip, rate=rate, seed=seed)
+        cuda_build.count_launch(LAUNCHES, "sage_layer_bwd_simple")
+        return dx, dwl, dwr, dbl, town
+    check_engine(floats, band, tile, width, _check)
+    _check(n // tile >= 2, "at least 2 node tiles")
 
+    dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dout, dagg, dxp, dx = (torch.empty_like(x) for _ in range(4))
     db_part = torch.empty((n // _BM, h), **f32)
@@ -525,14 +551,81 @@ def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
     return dx, dwl, dwr, dbl, town
 
 
+def _ksplit(n: int, h: int) -> int:
+    """Row chunks of the simple backward's dW products: at least two waves
+    of 64 x 128 tiles on 132 SMs, and chunks of at most 2048 rows, whose
+    sequential f32 sums stay short (at 34,500-row chunks dW's error reached
+    7.7e-6 of max|dW| at H 1024 on an H100); at most 64 chunks, none under
+    64 rows."""
+    tiles = (h // 64) * (h // 128)
+    return max(1, min(64, max(-(-264 // tiles), -(-n // 2048)), n // _BM))
+
+
+def _simple_bwd_call(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
+                     table_prev, code, gwin, gw, t0, tg, acc_code, ncode, skip,
+                     rate, seed):
+    """One call of sage_simple.cu::sage_bwd_simple, the merged backward
+    with ``band``, the split backward's tile kernel without: (dagg, dxp,
+    dx, dW_l, dW_r, db_l, own table); dx None without band, the table None
+    without ``acc_code`` (``ncode`` codes a 64-row block)."""
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    n, h = x.shape
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dout, dagg, dxp = (torch.empty_like(x) for _ in range(3))
+    dx = torch.empty_like(x) if band is not None else None
+    dout32 = torch.empty((n, h), **f32) if x.dtype != torch.float32 else None
+    dzeff = torch.empty((n, h), **f32) if skip else None
+    ksplit = _ksplit(n, h)
+    dw_part = torch.empty((ksplit, h, h), **f32)
+    dwl, dwr = torch.empty((h, h), **f32), torch.empty((h, h), **f32)
+    db_part = torch.empty((-(-n // 256), h), **f32)
+    dbl = torch.empty((h,), **f32)
+    t_part = town = None
+    if acc_code is not None:
+        t_part = torch.empty((n // _BM, ncode, h), **f32)
+        town = torch.empty((tg, h), **f32)
+    drop, thr, s0, s1, scale = _dropout_args(rate, seed)
+    fn = cuda_build.load("sage_simple").sage_bwd_simple
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 11
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_int,
+                                              ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(dz), _ptr(y), _ptr(inv), _ptr(agg), _ptr(x), _ptr(w_l),
+             _ptr(w_r), _ptr(band), _ptr(table_prev), _ptr(code), _ptr(gwin),
+             _ptr(acc_code), _ptr(dout), _ptr(dout32), _ptr(dzeff),
+             _ptr(dagg), _ptr(dxp), _ptr(dx), _ptr(dw_part), _ptr(dwl),
+             _ptr(dwr), _ptr(db_part), _ptr(dbl), _ptr(t_part), _ptr(town),
+             n, h, tile, width, gw, t0, tg, int(acc_code is not None),
+             int(skip), ksplit, drop, thr, s0, s1, scale,
+             int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sage_bwd_simple launch failed: CUDA error {err}")
+    return dagg, dxp, dx, dwl, dwr, dbl, town
+
+
+def _bwd_operand_checks(dz, y, inv, agg, x, w_l, w_r, floats, ints, band):
+    n, h = x.shape
+    check_operands(floats, ints, band, x, _check)
+    _check(inv.device == x.device and inv.is_contiguous(),
+           "all tensors on one CUDA device, contiguous")
+    _check(inv.dtype == torch.float32 and inv.numel() == n, "inv f32 [N]")
+    for t in (dz, y, agg):
+        _check(tuple(t.shape) == (n, h), "dz, y, agg [N, H]")
+    _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h),
+           "W_l, W_r [H, H]")
+
+
 def sage_layer_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
                    width: int, table_prev=None, code=None, gwin=None,
                    gw: int = 0, t0: int = 0, acc_code=None,
                    has_super: bool = False, skip: bool = False,
                    rate: float = 0.0, seed=None):
     """The merged backward (arguments and results as
-    `sage_layer_bwd_plain`). CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    `sage_layer_bwd_plain`). CUDA tensors launch the kernel of
+    `kernel_variant` (or raise); CPU tensors take the plain version."""
     kw = dict(tile=tile, width=width, table_prev=table_prev, code=code,
               gwin=gwin, gw=gw, t0=t0, acc_code=acc_code,
               has_super=has_super, skip=skip, rate=rate, seed=seed)
@@ -545,32 +638,35 @@ def sage_layer_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile: int,
 
 def _launch_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile, skip, rate, seed,
                      acc_code, tg):
+    """The checks every variant shares, then the variant's kernel:
+    csrc/sage_layer_bwd.cu::sage_layer_bwd_tile (engine) or
+    sage_simple.cu::sage_bwd_simple without a band (#3's float32 /
+    any-width variant: #2's passes but the band pass, the own table over
+    the whole [tg, H] table by global codes)."""
     from buckgnn_tpu_torch.utils import cuda_build
 
     _check_dropout(rate, seed)
+    engine = variant_of(x, _check) == "engine"
     n, h = x.shape
     has_super = acc_code is not None
-    bf16 = [dz, y, agg, x, w_l, w_r]
-    dev = x.device
-    for t in bf16 + [inv] + ([acc_code] if has_super else []):
-        _check(t.device == dev, "all tensors on one CUDA device")
-        _check(t.is_contiguous(), "contiguous tensors")
-    for t in bf16:
-        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
-        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
-        _check(t.shape[-1] == h, "every [., H] operand of width H")
-    _check(inv.dtype == torch.float32 and inv.numel() == n, "inv f32 [N]")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
+    floats = [dz, y, agg, x, w_l, w_r]
+    _bwd_operand_checks(dz, y, inv, agg, x, w_l, w_r, floats,
+                        [acc_code] if has_super else [], None)
     _check(tile % _BM == 0 and n % tile == 0, "tile % 64 == 0, N % tile == 0")
-    for t in (dz, y, agg):
-        _check(tuple(t.shape) == (n, h), "dz, y, agg [N, H]")
-    _check(tuple(w_l.shape) == (h, h) and tuple(w_r.shape) == (h, h),
-           "W_l, W_r [H, H]")
     if has_super:
-        _check(acc_code.dtype == torch.int32 and acc_code.numel() == n,
-               "one int32 accumulate code per row")
+        _check(acc_code.numel() == n, "one int32 accumulate code per row")
         _check(tg > 0 and tg % 2 == 0, "tg = 2 * T0")
+    if not engine:
+        dagg, dxp, _, dwl, dwr, dbl, tbwd = _simple_bwd_call(
+            dz, y, inv, agg, x, w_l, w_r, None, tile=tile, width=0,
+            table_prev=None, code=None, gwin=None, gw=tg // 2, t0=tg // 2,
+            tg=tg, acc_code=acc_code, ncode=tg, skip=skip, rate=rate,
+            seed=seed)
+        cuda_build.count_launch(LAUNCHES, "sage_layer_bwd_tile_simple")
+        return dagg, dxp, dwl, dwr, dbl, tbwd
+    check_engine(floats, None, tile, 0, _check)
 
+    dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dout, dagg, dxp = (torch.empty_like(x) for _ in range(3))
     db_part = torch.empty((n // _BM, h), **f32)
@@ -607,8 +703,8 @@ def sage_layer_bwd_tile(dz, y, inv, agg, x, w_l, w_r, *, tile: int,
                         skip: bool = False, rate: float = 0.0, seed=None,
                         acc_code=None, tg: int = 0):
     """The split backward's tile kernel (arguments and results as
-    `sage_layer_bwd_tile_plain`). CUDA tensors launch the kernel (or raise);
-    CPU tensors take the plain version."""
+    `sage_layer_bwd_tile_plain`). CUDA tensors launch the kernel of
+    `kernel_variant` (or raise); CPU tensors take the plain version."""
     kw = dict(tile=tile, skip=skip, rate=rate, seed=seed, acc_code=acc_code,
               tg=tg)
     if x.device.type == "cuda":

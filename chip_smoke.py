@@ -120,7 +120,11 @@ Phases, each fatal on failure:
      weights/best (#1 only; its MAPE within PRED_TOL of the best val
      MAPE), ``timer`` (#1 only; nastran null), ``train`` at the JAX
      package's default flags (float32, impl xla, H 128, virtual edges; #8
-     and #9 only, in float32), ``tune --synthetic 64 --max-concurrent 2``
+     and #9 only, in float32), the same with ``--segment-impl
+     banded_pallas`` on D for 2 epochs (phase 13's: the float32 variants
+     of #1, #3 and #4 as its batches imply, no engine kernel) and
+     ``infer`` on its weights/best (#1's variant; its MAPE the run's best
+     val MAPE), ``tune --synthetic 64 --max-concurrent 2``
      (two trials on the card in overlapping intervals, SAGE kernels only)
      and ``python -m buckgnn_tpu_torch --help``;
  12. multi-GPU (``multi``): the ea-virtual batch split into 2 and 4 tile
@@ -144,7 +148,27 @@ Phases, each fatal on failure:
      gradients (float32) and the tile-sharded model's forward and readout
      gradients against the unpartitioned paths; then ``python -m
      buckgnn_tpu_torch scale --n-devices <world>``. One ``multi`` line per
-     run with its world and step ms beside the card.
+     run with its world and step ms beside the card;
+ 13. float32 and every H % 128 == 0 (``widths``): kernels #1-#4's simple
+     variants (csrc/sage_simple.cu, chosen by
+     ops/banded_matmul.py::kernel_variant) against their plain versions,
+     each launch counted under its own name, in float32 at H 128, 384,
+     512, 640 and 1024 and in bf16 at 384, 640 and 1024, on the flagship
+     batch (#1 serving with local windows and emit, training with the
+     whole table at dropout 0.1; #2 with the next layer's star at dropout
+     0.1 and without at 0), the virtual batch (#1's spill term; #3 at
+     dropout 0.1 and 0; #4 as the split backward calls it, in x's dtype and
+     in float32) and the supernode + spill batch (#4 with the table),
+     within bm.variant_tol (float32: 1e-5 of max|plain|); the gates
+     failing a wrong norm, a dropped bias, a forward without its spill
+     term, a norm backward without its s term, a backward without the
+     next layer's star and a band product without its spill messages;
+     the flagship-f32 and virtual-f32 cells served and trained (6 #1 per
+     forward; 6 #1 and 6 #2, or 6 #1, 6 #3 and 6 #4, per step; no engine
+     kernel), each against the plain path; each variant's time at its
+     float32 main path's shape beside its bound (f32 operations at 67
+     TFLOP/s against bytes), its plain version and the float32 torch
+     composition (TF32 off).
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -281,8 +305,8 @@ def check_caught(name, wrong, ref, tol):
         fail(f"{name}: the kernel-vs-plain gate lets a wrong layer pass")
 
 
-def check_weights(h, x, mask, seed):
-    """(W_l, b_l, W_r) in bf16 from a seeded generator: lecun-normal
+def check_weights(h, x, mask, seed, dtype=torch.bfloat16):
+    """(W_l, b_l, W_r) in ``dtype`` from a seeded generator: lecun-normal
     weights and a bias as large as a row of x @ W_r (|x| rms per entry),
     so a kernel that drops or misplaces b_l fails the z gate."""
     g = torch.Generator().manual_seed(seed)
@@ -290,7 +314,7 @@ def check_weights(h, x, mask, seed):
                 for _ in range(2))
     rms = float(x[mask].float().pow(2).mean().sqrt())
     b_l = torch.randn(h, generator=g) * rms
-    return tuple(t.to(x.device, torch.bfloat16) for t in (w_l, b_l, w_r))
+    return tuple(t.to(x.device, dtype) for t in (w_l, b_l, w_r))
 
 
 def layer_inputs(batch, x, weights, windows, emit, skip):
@@ -977,12 +1001,13 @@ def scrambled_spill_batch(dev):
     return b
 
 
-def seeded_x(batch, h, seed):
-    """bf16 activations [N, H] from a seeded generator, the dead row 0."""
+def seeded_x(batch, h, seed, dtype=torch.bfloat16):
+    """Activations [N, H] in ``dtype`` from a seeded generator, the dead row
+    0."""
     g = torch.Generator(device=batch.device).manual_seed(seed)
     x = torch.randn((batch.n_node_cap, h), generator=g, device=batch.device)
     x[-1] = 0.0
-    return x.to(torch.bfloat16)
+    return x.to(dtype)
 
 
 def reset_launch_counts():
@@ -1972,8 +1997,9 @@ def unfused_cell(label, dev, card, serve_kernel, train_kernels, data,
         bench["train_step_ms"], card)
     print(json.dumps(train_prof))
     cfg = train["cfg"]
+    dt = "bf16" if cfg.compute_dtype == "bfloat16" else cfg.compute_dtype
     summary = {
-        "cell": f"{label}: {cfg.model_name} 6L h512 bf16, "
+        "cell": f"{label}: {cfg.model_name} 6L h{cfg.hidden_channels} {dt}, "
                 f"{cfg.segment_impl}, remat={cfg.remat}, dropout 0.1 in "
                 "training, Adam lr 1e-3", "card": card,
         "infer_step_ms": serve["infer_step_ms"],
@@ -2412,10 +2438,11 @@ def cli_call(argv):
     return time.perf_counter() - t0, lines, json.loads(lines[-1])
 
 
-def sage_train_launches(train_packs, val_packs, epochs, layers):
+def sage_train_launches(train_packs, val_packs, epochs, layers, suffix=""):
     """What a fused SAGE run's batches imply: per layer, #1 for each train
     step and val batch; #2 for each train step on a batch without spill
-    edges, #3 and #4 (the split backward) for each one with them."""
+    edges, #3 and #4 (the split backward) for each one with them. With
+    ``suffix`` "_simple", the kernels' float32 / any-width variants."""
     spill = sum(b.has_spill_edges for b in train_packs)
     steps, val = len(train_packs), len(val_packs)
     want = {"sage_layer_fwd": layers * epochs * (steps + val),
@@ -2423,7 +2450,7 @@ def sage_train_launches(train_packs, val_packs, epochs, layers):
     if spill:
         want["sage_layer_bwd_tile"] = want["banded_matmul"] = \
             layers * epochs * spill
-    return {k: v for k, v in want.items() if v}, spill
+    return {k + suffix: v for k, v in want.items() if v}, spill
 
 
 def cli_batch_checks(packs):
@@ -2654,6 +2681,10 @@ def cli_phase(dev, card, run_step_ms):
                launches=got)
         del packs
 
+        # ---- phase 13's command line: the default flags (float32, H 128)
+        # on banded_pallas, then infer: kernels #1-#4's simple variants ----
+        paths.update(cli_f32_banded(at, report))
+
         # ---- tune: two grid points at once on the card ----
         reset_launch_counts()
         secs, tuned, results, packs_of = cli_tune([
@@ -2688,6 +2719,419 @@ def cli_phase(dev, card, run_step_ms):
     print(json.dumps({"phase": "cli", "card": card,
                       "s": time.perf_counter() - phase_t0}))
     return paths, kernel_errs
+
+
+def cli_f32_banded(at, report):
+    """``train --data-dir D --segment-impl banded_pallas`` at the default
+    flags otherwise (float32, H 128, virtual edges) for CLI_DEFAULT_EPOCHS
+    epochs, then ``infer`` on its weights/best over D/Validation: the
+    launches its batches imply of the simple variants (and no engine
+    kernel), finite scalars, and the served MAPE the run's best val
+    MAPE."""
+    import os
+    from unittest import mock
+
+    from buckgnn_tpu_torch.eval import inference
+    from buckgnn_tpu_torch.train import trainer
+
+    paths = {}
+    reset_launch_counts()
+    with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+            recorded_packs(trainer) as packs:
+        secs, _, run = cli_call([
+            "train", "--data-dir", at("D"), "--output-dir", at("R3"),
+            "--segment-impl", "banded_pallas", "--num-epochs",
+            str(CLI_DEFAULT_EPOCHS)])
+    got = launch_counts()
+    scalars = RecordingWriter.made[-1].scalars
+    tr, va = packs
+    if any(b.has_spill2_edges for b in tr + va):
+        fail("cli f32 banded: a batch with spill2 edges (unfused layers)")
+    want, spill = sage_train_launches(tr, va, CLI_DEFAULT_EPOCHS, CLI_LAYERS,
+                                      suffix="_simple")
+    expect_launches(f"cli/f32-banded ({CLI_DEFAULT_EPOCHS} epochs of "
+                    f"{len(tr)} train steps, {spill} with spill edges, and "
+                    f"{len(va)} val batch)", got, want)
+    paths["cli/f32-banded"] = got
+    bad = {k: v for k, v in scalars.items()
+           if not all(math.isfinite(x) for x in v)}
+    best = os.path.join(run["log_dir"], "weights", "best")
+    if bad or not (math.isfinite(run["best_val_mape"])
+                   and os.path.exists(os.path.join(best, "state.pt"))):
+        fail(f"cli f32 banded train: {run}, non-finite scalars {bad}")
+    report("f32-banded", secs, step_ms=scalars["Perf/train_step_ms"],
+           best_val_mape=run["best_val_mape"],
+           losses={k: v for k, v in scalars.items() if "oss" in k},
+           n_node_cap=tr[0].n_node_cap, train_batches=len(tr),
+           spill_batches=spill, val_batches=len(va), launches=got)
+    del packs, tr, va
+    reset_launch_counts()
+    with recorded_packs(inference) as packs:
+        secs, _, served = cli_call([
+            "infer", "--model-path", best, "--data-dir", at("D/Validation"),
+            "--output-dir", at("I3")])
+    got = launch_counts()
+    expect_launches(f"cli/f32-banded serve ({len(packs[0])} batch)", got,
+                    {"sage_layer_fwd_simple": CLI_LAYERS * len(packs[0])})
+    paths["cli/f32-banded-serve"] = got
+    check_close("cli/f32-banded/serve/mape vs the run's best val MAPE",
+                torch.tensor(served["MAPE"]),
+                torch.tensor(run["best_val_mape"]), PRED_TOL)
+    report("f32-banded-infer", secs, mape=served, launches=got)
+    return paths
+
+
+# ---- phase 13: float32 and every H % 128 == 0 ------------------------------
+
+# (dtype, H) of the variant checks: float32 at the engine's widths and
+# beyond, bf16 at the widths the engine does not take
+WIDTH_CASES = [(torch.float32, h) for h in (128, 384, 512, 640, 1024)] + [
+    (torch.bfloat16, h) for h in (384, 640, 1024)]
+SIMPLE = ("sage_layer_fwd_simple", "sage_layer_bwd_simple",
+          "sage_layer_bwd_tile_simple", "banded_matmul_simple")
+SIMPLE_SOURCE = "buckgnn_tpu_torch/csrc/sage_simple.cu"
+
+
+def dtname(dtype):
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def once(name, fn):
+    """fn()'s result, and that it launched kernel ``name`` once and no
+    other kernel."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if got != dict(before, **{name: before[name] + 1}):
+        fail(f"{name}: launches {before} -> {got}")
+    return out
+
+
+def vcheck(name, got, ref, dtype, bf16_tol, frac=False, worst=None):
+    """got within the variant gate (bm.variant_tol) of ``dtype``; float32
+    errors also as a share of max|ref| into ``worst`` (a dict)."""
+    atol, rtol = bm.variant_tol(ref, dtype, bf16_tol, frac)
+    err = check_close(name, got, ref, (atol, rtol))
+    if dtype == torch.float32 and worst is not None:
+        share = err / max(float(ref.float().abs().max()), 1e-30)
+        worst["f32_err_over_max"] = max(worst.get("f32_err_over_max", 0.0),
+                                        share)
+    return err
+
+
+def vcaught(name, got, wrong, dtype, bf16_tol, frac=False):
+    """A deliberately wrong plain output must fail the variant gate."""
+    check_caught(name, got, wrong, bm.variant_tol(wrong, dtype, bf16_tol,
+                                                  frac))
+
+
+def variant_checks(label, batch, vbatch, sbatch, dtype, h, worst):
+    """The four variants against their plain versions at (dtype, h) on the
+    flagship batch (#1 serving with local windows and emit, training with
+    the whole table; #2 with the next layer's star at dropout 0.1 and
+    without at 0), the virtual batch (#1's spill term, serving and
+    training; #3 at dropout 0.1 and 0; #4 as the split backward calls it,
+    the x-dtype and the f32 output) and the supernode + spill batch (#4
+    with the table). Returns {kernel: max abs err}."""
+    errs = {k: 0.0 for k in SIMPLE}
+
+    def note(k, e):
+        errs[k] = max(errs[k], e)
+
+    tag = f"{label}/{dtname(dtype)}/h{h}"
+    m = batch.node_mask
+    x = seeded_x(batch, h, 200 + h, dtype)
+    w = check_weights(h, x, m, seed=h, dtype=dtype)
+    for windows, emit, train in ((True, True, False), (False, False, True)):
+        args, kw, b = layer_inputs(batch, x, w, windows, emit, True)
+        name = f"{tag}/{'local+emit' if emit else 'full-table'}"
+        if train:
+            kw = dict(kw, save_res=True, rate=RATE, seed=SEED)
+        z = once("sage_layer_fwd_simple", lambda: sl.sage_layer_fwd(*args,
+                                                                    **kw))
+        ref = sl.sage_layer_plain(*args, **kw)
+        note("sage_layer_fwd_simple", vcheck(f"{name}/z", z[0][m], ref[0][m],
+                                             dtype, sl.KERNEL_Z_TOL,
+                                             worst=worst))
+        if emit:
+            tabp = sl.emit_table_plain(z[0], kw["acc_code"], kw["gwin"],
+                                       kw["gw"], kw["t0"], kw["tile"])
+            note("sage_layer_fwd_simple", vcheck(
+                f"{name}/table", z[1], tabp, dtype, sl.KERNEL_TABLE_TOL,
+                worst=worst))
+        if train:
+            for what, i in (("y", 2), ("agg", 4)):
+                note("sage_layer_fwd_simple", vcheck(
+                    f"{name}/train/{what}", z[i][m], ref[i][m], dtype,
+                    sl.KERNEL_Z_TOL, worst=worst))
+            check_close(f"{name}/train/inv", z[3][m], ref[3][m],
+                        sl.KERNEL_INV_TOL)
+            dropped = ~keep_mask(SEED, batch.n_node_cap, h, RATE, x.device)
+            if not (bool((z[0][dropped] == 0).all())
+                    and bool((ref[0][dropped] == 0).all())):
+                fail(f"{name}: the variant drops other positions")
+    for windows, prev, skip, rate in ((True, True, True, RATE),
+                                      (False, True, False, 0.0)):
+        args, kw, b = bwd_inputs(batch, x, w, windows, prev, skip, rate,
+                                 seed=h + 1)
+        got = once("sage_layer_bwd_simple",
+                   lambda: sl.sage_layer_bwd(*args, **kw))
+        ref = sl.sage_layer_bwd_plain(*args, **kw)
+        for what, g, r in zip(BWD_NAMES, got, ref):
+            if what == "dx":
+                g, r = g[m], r[m]
+            note("sage_layer_bwd_simple", vcheck(
+                f"{tag}/bwd/local{int(windows)}/rate{rate}/{what}", g, r,
+                dtype, sl.KERNEL_BWD_TOL[what], frac=True, worst=worst))
+    vm = vbatch.node_mask
+    xv = seeded_x(vbatch, h, 300 + h, dtype)
+    wv = check_weights(h, xv, vm, seed=h + 2, dtype=dtype)
+    sargs, skw = spill_inputs(vbatch, xv, wv, True)
+    for train in (False, True):
+        kw = dict(skw, save_res=True, rate=RATE, seed=SEED) if train else skw
+        z = once("sage_layer_fwd_simple", lambda: sl.sage_layer_fwd(*sargs,
+                                                                    **kw))
+        ref = sl.sage_layer_plain(*sargs, **kw)
+        for what, i in (("z", 0),) + ((("y", 2), ("agg", 4)) if train
+                                      else ()):
+            note("sage_layer_fwd_simple", vcheck(
+                f"{tag}/spill/train{int(train)}/{what}", z[i][vm], ref[i][vm],
+                dtype, sl.KERNEL_Z_TOL, worst=worst))
+    for skip, rate in ((True, RATE), (False, 0.0)):
+        targs, tkw = tile_inputs(vbatch, xv, wv, skip, rate, seed=h + 3)
+        got = once("sage_layer_bwd_tile_simple",
+                   lambda: sl.sage_layer_bwd_tile(*targs, **tkw))
+        ref = sl.sage_layer_bwd_tile_plain(*targs, **tkw)
+        for what, g, r in zip(TILE_NAMES, got, ref):
+            if r is None:
+                continue
+            if what in ("dagg", "dxp"):
+                g, r = g[vm], r[vm]
+            note("sage_layer_bwd_tile_simple", vcheck(
+                f"{tag}/tile/rate{rate}/{what}", g, r, dtype,
+                sl.KERNEL_BWD_TOL[what], frac=True, worst=worst))
+    for name, b, xb, spill, table, out in (
+            ("virtual/spill1/acc1", vbatch, xv, True, False, dtype),
+            ("virtual/spill1/acc1/f32-out", vbatch, xv, True, False,
+             torch.float32),
+            ("super+spill/table1", sbatch,
+             seeded_x(sbatch, h, 400 + h, dtype), True, True, dtype)):
+        args, kw = banded_inputs(b, xb, h + 4, spill, table, True)
+        kw["out_dtype"] = out
+        got = once("banded_matmul_simple",
+                   lambda: bm.banded_matmul(*args, **kw))
+        ref = bm.banded_matmul_plain(*args, **kw)
+        note("banded_matmul_simple", vcheck(
+            f"{tag}/banded/{name}", got, ref, dtype, bm.KERNEL_BANDED_TOL,
+            frac=True, worst=worst))
+    return errs
+
+
+def variant_gates(batch, vbatch, dtype, h):
+    """The variant gates fail plain versions with a fault, each held
+    against the variant's own output: a norm over 7/8 of the sum of
+    squares, a dropped b_l, a forward without its spill term (z and agg),
+    a norm backward without its s term, a backward that ignores the next
+    layer's star, a band product without its spill messages."""
+    tag = f"widths/{dtname(dtype)}/h{h}"
+    m = batch.node_mask
+    x = seeded_x(batch, h, 500 + h, dtype)
+    w = check_weights(h, x, m, seed=h + 5, dtype=dtype)
+    args, kw, _ = layer_inputs(batch, x, w, True, False, False)
+    z, _ = sl.sage_layer_fwd(*args, **kw)
+    zp, _ = sl.sage_layer_plain(*args, **kw)
+    scaled = (zp.float() * math.sqrt(8 / 7)).to(zp.dtype)
+    vcaught(f"{tag}/norm-7/8", z[m], scaled[m], dtype, sl.KERNEL_Z_TOL)
+    nb = args[:2] + (torch.zeros_like(args[2]),) + args[3:]
+    vcaught(f"{tag}/no-bias", z[m], sl.sage_layer_plain(*nb, **kw)[0][m],
+            dtype, sl.KERNEL_Z_TOL)
+    vm = vbatch.node_mask
+    xv = seeded_x(vbatch, h, 600 + h, dtype)
+    wv = check_weights(h, xv, vm, seed=h + 6, dtype=dtype)
+    sargs, skw = spill_inputs(vbatch, xv, wv, True)
+    tkw = dict(skw, save_res=True, rate=RATE, seed=SEED)
+    got = sl.sage_layer_fwd(*sargs, **tkw)
+    wrong = sl.sage_layer_plain(*sargs, **no_spill(tkw))
+    vcaught(f"{tag}/fwd/no-spill", got[0][vm], wrong[0][vm], dtype,
+            sl.KERNEL_Z_TOL)
+    vcaught(f"{tag}/train/agg/no-spill", got[4][vm], wrong[4][vm], dtype,
+            sl.KERNEL_Z_TOL)
+    bargs, bkw, _ = bwd_inputs(batch, x, w, True, True, True, RATE,
+                               seed=h + 7)
+    got = sl.sage_layer_bwd(*bargs, **bkw)
+    real = sl._norm_backward
+    sl._norm_backward = lambda dz, y, inv: torch.where(y > 0.0, dz, 0.0) * inv
+    try:
+        no_s = sl.sage_layer_bwd_plain(*bargs, **bkw)
+    finally:
+        sl._norm_backward = real
+    vcaught(f"{tag}/bwd/no-s-term", got[1], no_s[1], dtype,
+            sl.KERNEL_BWD_TOL["dw_l"], frac=True)
+    no_prev = sl.sage_layer_bwd_plain(*bargs, **dict(bkw, table_prev=None))
+    vcaught(f"{tag}/bwd/no-apply-prev", got[0][m], no_prev[0][m], dtype,
+            sl.KERNEL_BWD_TOL["dx"], frac=True)
+    bargs, bkw = banded_inputs(vbatch, xv, h + 8, True, False, True)
+    bkw["out_dtype"] = dtype
+    got = bm.banded_matmul(*bargs, **bkw)
+    vcaught(f"{tag}/banded/no-spill", got,
+            bm.banded_matmul_plain(*bargs, **no_spill(bkw)), dtype,
+            bm.KERNEL_BANDED_TOL, frac=True)
+
+
+def simple_bound(f32_flops, *ts, extra_bytes=0):
+    """(bound ms, what bounds it) of a simple variant: its f32 operations
+    at the FFMA peak against its operands read once and outputs written
+    once (``ts`` and ``extra_bytes``) at the HBM rate."""
+    return bound(0, f32_flops, nbytes_of(*ts) + extra_bytes)
+
+
+def variant_timings(fsetup, vfsetup, card):
+    """Each variant at its float32 main path's shape, with the f32 cells'
+    own weights: ms, its plain version's, the PyTorch float32 composition's
+    (TF32 off) and the bound (f32 operations at 67 TFLOP/s: the products
+    4 N H^2 a pass, the band's nonzero counts times H, the spill, table
+    and acc adds; against the bytes). Returns {kernel: numbers}."""
+    out = {}
+    batch, model = fsetup["batch"], fsetup["state"].model
+    with torch.no_grad():
+        x0 = model.node_encoder(batch.nodes)
+        weights = model.shared_graphsage_block.fused_weights(x0.dtype)
+    n, h = x0.shape
+    args, kw, _ = layer_inputs(batch, x0, weights, True, True, True)
+    band = args[4]
+    nnz = int((band != 0).sum())
+    band_ops = 2 * nnz * h
+    ms = event_ms(lambda: sl.sage_layer_fwd(*args, **kw))
+    bms, bby = simple_bound(
+        4 * n * h * h + band_ops + 2 * n * h, *args, kw["table"],
+        kw["code"], kw["gwin"], kw["acc_code"],
+        extra_bytes=x0.numel() * 4 + kw["table"].numel() * 4)
+    out["sage_layer_fwd_simple"] = dict(
+        shape="flagship-f32, emit and skip on", ms=ms,
+        plain_ms=event_ms(lambda: sl.sage_layer_plain(*args, **kw), reps=5),
+        library_ms=event_ms(lambda: library_layer(*args, **kw)),
+        bound_ms=bms, bound_by=bby,
+        tflops=(4 * n * h * h + band_ops) / ms / 1e9)
+    bargs, bkw, _ = bwd_inputs(batch, x0, weights, True, True, True, RATE,
+                               seed=5)
+    ms = event_ms(lambda: sl.sage_layer_bwd(*bargs, **bkw))
+    keep = keep_mask(SEED, n, h, RATE, x0.device)
+    bms, bby = simple_bound(
+        8 * n * h * h + band_ops + 2 * n * h, *bargs, bkw["table_prev"],
+        bkw["code"], bkw["gwin"], bkw["acc_code"],
+        extra_bytes=x0.numel() * 4 + (2 * h * h + h) * 4
+        + 2 * bkw["t0"] * h * 4)
+    out["sage_layer_bwd_simple"] = dict(
+        shape="flagship-f32, next layer's star, skip, dropout 0.1", ms=ms,
+        plain_ms=event_ms(lambda: sl.sage_layer_bwd_plain(*bargs, **bkw),
+                          reps=5),
+        library_ms=event_ms(lambda: library_bwd(*bargs, keep=keep, **bkw)),
+        bound_ms=bms, bound_by=bby,
+        tflops=(8 * n * h * h + band_ops) / ms / 1e9)
+    vbatch, vmodel = vfsetup["batch"], vfsetup["state"].model
+    with torch.no_grad():
+        xv = vmodel.node_encoder(vbatch.nodes)
+        vweights = vmodel.shared_graphsage_block.fused_weights(xv.dtype)
+    n = xv.shape[0]
+    targs, tkw = tile_inputs(vbatch, xv, vweights, True, RATE, seed=41)
+    ms = event_ms(lambda: sl.sage_layer_bwd_tile(*targs, **tkw))
+    vkeep = keep_mask(SEED, n, h, RATE, xv.device)
+    bms, bby = simple_bound(8 * n * h * h, *targs,
+                            extra_bytes=2 * xv.numel() * 4
+                            + (2 * h * h + h) * 4)
+    out["sage_layer_bwd_tile_simple"] = dict(
+        shape="virtual-f32, skip, dropout 0.1", ms=ms,
+        plain_ms=event_ms(lambda: sl.sage_layer_bwd_tile_plain(
+            *targs, **tkw), reps=5),
+        library_ms=event_ms(lambda: library_bwd_tile(*targs, keep=vkeep,
+                                                     **tkw)),
+        bound_ms=bms, bound_by=bby, tflops=8 * n * h * h / ms / 1e9)
+    dagg, dxp = sl.sage_layer_bwd_tile(*targs, **tkw)[:2]
+    vband = make_agg_context(vbatch).band
+    b_args = (vband, dagg)
+    b_kw = dict(tile=vbatch.band_tile, width=vbatch.band_width,
+                out_dtype=xv.dtype, acc=dxp,
+                spill_offsets=vbatch.spill_offsets,
+                spill_lo=vbatch.spill_lo, spill_hi=vbatch.spill_hi,
+                spill_messages=dagg[vbatch.spill_senders.long()])
+    ms = event_ms(lambda: bm.banded_matmul(*b_args, **b_kw))
+    msgs = b_kw["spill_messages"]
+    bms, bby = simple_bound(
+        2 * int((vband != 0).sum()) * h + msgs.numel() + n * h, vband, dagg,
+        dxp, msgs, b_kw["spill_offsets"], b_kw["spill_lo"],
+        b_kw["spill_hi"], extra_bytes=xv.numel() * 4)
+    recv = vbatch.spill_receivers.long()
+    out["banded_matmul_simple"] = dict(
+        shape="virtual-f32, as the split backward calls it (spill, acc)",
+        ms=ms,
+        plain_ms=event_ms(lambda: bm.banded_matmul_plain(*b_args, **b_kw),
+                          reps=5),
+        library_ms=event_ms(lambda: library_banded(*b_args, recv=recv,
+                                                   **b_kw)),
+        bound_ms=bms, bound_by=bby)
+    for k, v in out.items():
+        print(json.dumps({"kernel": k, "card": card, **v}))
+    return out
+
+
+def widths_phase(dev, card, setup, vsetup):
+    """Phase 13: kernels #1-#4's float32 and any-width variants
+    (csrc/sage_simple.cu) against their plain versions at every (dtype, H)
+    of WIDTH_CASES on the flagship and virtual batches, their gates
+    catching faults, the flagship-f32 and virtual-f32 cells served and
+    trained through them (no engine kernel), and their times. Returns
+    (kernel entries for the kernels line, launches by path)."""
+    phase_t0 = time.perf_counter()
+    batch, vbatch = setup["batch"], vsetup["batch"]
+    sbatch = scrambled_spill_batch(dev)
+    errs, worst = {k: 0.0 for k in SIMPLE}, {}
+    for dtype, h in WIDTH_CASES:
+        t0 = time.perf_counter()
+        for k, e in variant_checks("widths", batch, vbatch, sbatch, dtype, h,
+                                   worst).items():
+            errs[k] = max(errs[k], e)
+        print(json.dumps({"widths": f"{dtname(dtype)}/h{h}", "card": card,
+                          "s": time.perf_counter() - t0}))
+    for dtype, h in ((torch.float32, 384), (torch.bfloat16, 640)):
+        variant_gates(batch, vbatch, dtype, h)
+    print(json.dumps({"widths": "float32 error over max|plain|",
+                      "card": card, **worst}))
+
+    cells, paths, trains = [], {}, {}
+    for label, base, kernels in (
+            ("flagship-f32", setup, {"sage_layer_fwd_simple": 1,
+                                     "sage_layer_bwd_simple": 1}),
+            ("virtual-f32", vsetup, {"sage_layer_fwd_simple": 1,
+                                     "sage_layer_bwd_tile_simple": 1,
+                                     "banded_matmul_simple": 1})):
+        summary, launches, train = unfused_cell(
+            label, dev, card, "sage_layer_fwd_simple", kernels,
+            cell_data(base))
+        print(json.dumps(summary))
+        cells.append(summary)
+        paths.update(launches)
+        trains[label] = train
+    times = variant_timings(trains["flagship-f32"], trains["virtual-f32"],
+                            card)
+    launches = {"sage_layer_fwd_simple": paths["virtual-f32_train"],
+                "sage_layer_bwd_simple": paths["flagship-f32_train"],
+                "sage_layer_bwd_tile_simple": paths["virtual-f32_train"],
+                "banded_matmul_simple": paths["virtual-f32_train"]}
+    replaces = {"sage_layer_fwd_simple": TPU_KERNEL,
+                "sage_layer_bwd_simple": TPU_BWD_KERNEL,
+                "sage_layer_bwd_tile_simple": TPU_TILE_KERNEL,
+                "banded_matmul_simple": TPU_BANDED_KERNEL}
+    kernels = [dict({
+        "name": k, "route": "cuda", "source": SIMPLE_SOURCE,
+        "replaces": replaces[k], "launches": launches[k][k],
+        "max_abs_err": errs[k]}, **{f: times[k][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=times[k]["shape"], f32_err_over_max=worst.get(
+            "f32_err_over_max")) for k in SIMPLE]
+    print(json.dumps({"phase": "widths", "card": card,
+                      "s": time.perf_counter() - phase_t0}))
+    return kernels, paths
 
 
 # ---- phase 12: multi-GPU ---------------------------------------------------
@@ -3567,6 +4011,9 @@ def main():
     ea_fwd_err = max(ea_fwd_err, shard_fwd_err)
     ea_bwd_err = max(ea_bwd_err, shard_bwd_err)
 
+    # ---- 13. float32 and every H % 128 == 0: the simple variants -------
+    width_kernels, width_paths = widths_phase(dev, card, setup, vsetup)
+
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
         "card": card, "infer_step_ms": serve["infer_step_ms"],
@@ -3651,7 +4098,7 @@ def main():
                "virtual_train": vtrain_launches,
                "ea_serve": eserve_launches,
                "ea_train": etrain_launches, **csr_paths, **unfused,
-               **run_paths, **cli_paths, **multi_paths}
+               **run_paths, **cli_paths, **multi_paths, **width_paths}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",
@@ -3701,7 +4148,8 @@ def main():
         "max_abs_err": ea_bwd_err, "ms": eab_ms, "plain_ms": eab_plain_ms,
         "bound_ms": eab_bound_ms, "bound_by": eab_bound_by,
         "library_ms": eab_lib_ms,
-    }] + csr_kernels, "launches_by_path": by_path, "card": card}))
+    }] + csr_kernels + width_kernels, "launches_by_path": by_path,
+        "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -213,17 +213,22 @@ def test_max_aggregate_vjp_at_ties_matches_jax():
 
 def test_band_route_follows_the_jax_rule_and_the_cards_limits():
     """Kernel #4 when use_pallas and H % 128 == 0 (else the slab product);
-    on the card only bf16 at H in {128, 256, 512}: float32, H = 384 and H
-    = 640 raise there rather than take the slab product."""
+    on the card one of its variants takes float32 and bf16 at every such
+    width (the engine bf16 at H in {128, 256, 512}, sage_simple.cu the
+    rest), and another dtype raises there rather than take the slab
+    product."""
     assert bd.band_route("cpu", torch.float32, 128, True)
     assert bd.band_route("cpu", torch.float32, 384, True)
     assert not bd.band_route("cpu", torch.float32, 32, True)
     assert not bd.band_route("cuda", torch.float32, 128, False)
     assert not bd.band_route("cuda", torch.bfloat16, 96, True)
-    for h in (128, 256, 512):
-        assert bd.band_route("cuda", torch.bfloat16, h, True)
-    for dtype, h in ((torch.float32, 128), (torch.bfloat16, 384),
-                     (torch.bfloat16, 640)):
+    for h in (128, 256, 384, 512, 640, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert bd.band_route("cuda", dtype, h, True)
+            want = ("engine" if dtype == torch.bfloat16
+                    and h in (128, 256, 512) else "simple")
+            assert bd.kernel_variant(dtype, h) == want
+    for dtype, h in ((torch.float16, 128), (torch.float64, 384)):
         with pytest.raises(NotImplementedError, match="kernel #4"):
             bd.band_route("cuda", dtype, h, True)
 

@@ -23,11 +23,18 @@ bit against their plain versions with and without the skip; the gates
 failing their faults; and the unfused model's launches per train step.
 The unfused layers' banded aggregation (ops/banded.py: kernel #4 in its
 forward and its symmetric backward, with star terms, the spill window and
-spill2) against the same aggregation on the plain band product, and its
-refusal of float32 rows and H = 384 on the card. The fused EA block's
-'hybrid' and 'autodiff' far-gradient modes on the shards of a tile-split
-batch (parallel/ea_shard.py): the kernels against their plain versions,
-the appended far rows' gradient included.
+spill2) against the same aggregation on the plain band product. The
+float32 and any-width variants of #1-#4 (sage_simple.cu): at float32 H in
+{128, 384, 512, 640, 1024} and bf16 H in {384, 640, 1024}, the forward
+(serving and training, every star case, the spill batches), the merged
+backward, the split tile kernel and the banded product (spill, table, acc,
+both output types) against their plain versions within the variant gates
+(bm.variant_tol), each launch counted under its own name; their gates
+failing faults, their determinism and refusals, and the unfused banded
+route taking #4's variant for float32 rows and bf16 at H = 384. The
+fused EA block's 'hybrid' and 'autodiff' far-gradient modes on the
+shards of a tile-split batch (parallel/ea_shard.py): the kernels against
+their plain versions, the appended far rows' gradient included.
 
 This file imports only the port (no JAX), so it runs on a machine with a
 card and no JAX. The repo's conftest imports JAX, so run it there with
@@ -101,15 +108,14 @@ def _batch(dev, supernode=True, geo=(TILE, WIDTH, None)):
     return b.to(dev)
 
 
-def _inputs(n, h, dev, seed):
+def _inputs(n, h, dev, seed, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, h)).astype(np.float32)
     w_l = (rng.normal(size=(h, h)) / np.sqrt(h)).astype(np.float32)
     # a bias as large as x @ W_r's entries, so a dropped b_l fails the gate
     b_l = rng.normal(size=(h,)).astype(np.float32)
     w_r = (rng.normal(size=(h, h)) / np.sqrt(h)).astype(np.float32)
-    return [torch.from_numpy(a).to(dev, torch.bfloat16)
-            for a in (x, w_l, b_l, w_r)]
+    return [torch.from_numpy(a).to(dev, dtype) for a in (x, w_l, b_l, w_r)]
 
 
 def _layer(dev, h, star, seed, geo=(TILE, WIDTH, None)):
@@ -494,7 +500,7 @@ def test_split_kernels_reject_what_they_do_not_take():
     dev = _card()
     _, band, x, opts = _banded_case(dev, 128)
     with pytest.raises(ValueError, match="bfloat16"):
-        bm.banded_matmul(band, x.float(), tile=TILE, width=WIDTH)
+        bm.banded_matmul(band, x.half(), tile=TILE, width=WIDTH)
     with pytest.raises(ValueError, match="int8"):
         bm.banded_matmul(band.float(), x, tile=TILE, width=WIDTH)
     _, args, kw = _tile_case(dev, 128, "virtual", False, 0.0)
@@ -1218,15 +1224,322 @@ def test_unfused_banded_aggregate_on_cuda(h, kind, aggr, monkeypatch):
                                    rtol=rtol)
 
 
-def test_unfused_banded_route_refuses_what_the_kernel_does_not_take():
-    """On the card the banded_pallas route raises for float32 rows and
-    for H = 384 (the JAX route would take Pallas there)."""
+# ---- the simple variants (csrc/sage_simple.cu): float32 and other widths -
+
+# (dtype, H) of every variant check: float32 at the engine's widths and
+# beyond, bf16 at the widths the engine does not take
+SIMPLE_CASES = [(torch.float32, h) for h in (128, 384, 512, 640, 1024)] + [
+    (torch.bfloat16, h) for h in (384, 640, 1024)]
+SIMPLE_IDS = [f"{str(d)[6:]}-{h}" for d, h in SIMPLE_CASES]
+
+
+def _vclose(got, ref, dtype, bf16_tol, frac=False, what=""):
+    """got within the variant gate of ``dtype`` (bm.variant_tol: float32
+    bm.SIMPLE_F32_TOL of max|ref|, bf16 the engine's ``bf16_tol``)."""
+    atol, rtol = bm.variant_tol(ref, dtype, bf16_tol, frac)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol, msg=lambda m: f"{what}: {m}")
+
+
+def _simple_layer(dev, dtype, h, star, seed, spill=None):
+    """(batch, layer args, kwargs) in ``dtype``: `_layer`'s star cases on
+    the supernode batch, or with ``spill`` ("virtual" or "super")
+    `_spill_layer`'s spill batch."""
+    if spill:
+        b = _spill_batch(dev, spill)
+    else:
+        b = _batch(dev, supernode=star != "none")
+        if star == "full":
+            b = b.replace(gwin=None, lcode=None, lacc=None)
+    x, w_l, b_l, w_r = _inputs(b.n_node_cap, h, dev, seed, dtype)
+    kw = dict(tile=b.band_tile, width=b.band_width)
+    if spill:
+        kw.update(_spill_kw(b, x))
+    if b.has_supernode_edges:
+        code, gwin, gw, acc = sl.star_codes(b)
+        t0, tg = tb.star_table_geometry(b.n_graph_cap)
+        kw.update(table=sl._super_tables(x, b.node_graph, b.node_mask,
+                                         b.supernode_index, b.n_graph_cap,
+                                         tg),
+                  code=code, gwin=gwin, gw=gw, t0=t0,
+                  acc_code=acc if star == "local_emit" else None,
+                  emit=star == "local_emit")
+    return b, (x, w_l, b_l, w_r, make_agg_context(b).band), kw
+
+
+def _counted(name, fn):
+    """fn()'s result, and that it launched ``name`` once and no engine
+    kernel."""
+    before = dict(sl.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    want = dict(before, **{name: before[name] + 1})
+    assert sl.LAUNCHES == want, (sl.LAUNCHES, want)
+    return out
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("star", ["local_emit", "full", "none", "virtual",
+                                  "super_spill"])
+@pytest.mark.parametrize("train", [False, True])
+def test_simple_forward_matches_plain_on_cuda(dtype, h, star, train):
+    """#1's variant, serving (skip on) and training (residuals, dropout
+    0.1): z, y, agg and inv within their gates, the emitted table against
+    the plain emission of the kernel's own z, the same dropped positions;
+    on supernode batches (local windows with emit, the whole table), a
+    batch without stars and the spill batches."""
+    dev = _card()
+    spill = {"virtual": "virtual", "super_spill": "super"}.get(star)
+    b, args, kw = _simple_layer(dev, dtype, h, star, seed=h + 3,
+                                spill=spill)
+    kw["skip"] = True
+    if train:
+        kw.update(save_res=True, rate=0.1, seed=SEED)
+    got = _counted("sage_layer_fwd_simple",
+                   lambda: sl.sage_layer_fwd(*args, **kw))
+    ref = sl.sage_layer_plain(*args, **kw)
+    m = b.node_mask
+    _vclose(got[0][m], ref[0][m], dtype, sl.KERNEL_Z_TOL, what="z")
+    if kw.get("emit"):
+        tabp = sl.emit_table_plain(got[0], kw["acc_code"], kw["gwin"],
+                                   kw["gw"], kw["t0"], kw["tile"])
+        _vclose(got[1], tabp, dtype, sl.KERNEL_TABLE_TOL, what="table")
+    else:
+        assert got[1] is None
+    if train:
+        for what, i, tol in (("y", 2, sl.KERNEL_Z_TOL),
+                             ("agg", 4, sl.KERNEL_Z_TOL)):
+            _vclose(got[i][m], ref[i][m], dtype, tol, what=what)
+        torch.testing.assert_close(got[3][m], ref[3][m], atol=0.0,
+                                   rtol=sl.KERNEL_INV_TOL[1])
+        dropped = ~keep_mask(SEED, b.n_node_cap, h, 0.1, dev)
+        z, zp = got[0], ref[0]
+        assert bool((z[dropped] == 0).all()) and bool((zp[dropped] == 0).all())
+        kept_big = ~dropped & (zp.float().abs() > Z_ATOL)
+        assert bool((z[kept_big] != 0).all())
+
+
+def _simple_bwd_case(dev, dtype, h, star, apply_prev, skip, rate, seed=17):
+    """`_bwd_case` in ``dtype``: residuals of #1's variant, a random dz and
+    (apply_prev) a random next-layer table."""
+    b, args, kw = _simple_layer(dev, dtype, h, star, seed)
+    fwd = {k: v for k, v in kw.items() if k not in ("acc_code", "emit")}
+    _, _, y, inv, agg = sl.sage_layer_fwd(
+        *args, **dict(fwd, skip=skip, save_res=True, rate=rate,
+                      seed=SEED if rate else None))
+    rng = np.random.default_rng(seed + 1)
+    dz = torch.from_numpy(rng.normal(size=(b.n_node_cap, h)).astype(
+        np.float32)).to(dev, dtype)
+    x, w_l, _, w_r, band = args
+    bwd = dict(tile=b.band_tile, width=b.band_width, skip=skip, rate=rate,
+               seed=SEED if rate else None, has_super=star != "none")
+    if star != "none":
+        code, gwin, gw, acc = sl.star_codes(b)
+        t0, tg = tb.star_table_geometry(b.n_graph_cap)
+        bwd.update(code=code, gwin=gwin, gw=gw, t0=t0, acc_code=acc)
+        if apply_prev:
+            bwd["table_prev"] = torch.from_numpy(rng.normal(
+                size=(tg, h)).astype(np.float32)).to(dev, dtype)
+    return b, (dz, y, inv, agg, x, w_l, w_r, band), bwd
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("star,apply_prev", [
+    ("local", True), ("full", True), ("none", False)])
+@pytest.mark.parametrize("skip,rate", [(True, 0.1), (False, 0.0)])
+def test_simple_bwd_matches_plain_on_cuda(dtype, h, star, apply_prev, skip,
+                                          rate):
+    """#2's variant: dx, dW_l, dW_r, db_l and the own table within their
+    gates."""
+    dev = _card()
+    b, args, kw = _simple_bwd_case(dev, dtype, h, star, apply_prev, skip,
+                                   rate)
+    got = _counted("sage_layer_bwd_simple",
+                   lambda: sl.sage_layer_bwd(*args, **kw))
+    ref = sl.sage_layer_bwd_plain(*args, **kw)
+    m = b.node_mask
+    for name, g, r in zip(("dx", "dw_l", "dw_r", "db_l", "town"), got, ref):
+        if name == "town" and star == "none":
+            assert g is None and r is None
+            continue
+        if name == "dx":
+            g, r = g[m], r[m]
+        _vclose(g, r, dtype, sl.KERNEL_BWD_TOL[name], frac=True, what=name)
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("kind", ["virtual", "super"])
+@pytest.mark.parametrize("skip,rate", [(True, 0.1), (False, 0.0)])
+def test_simple_bwd_tile_matches_plain_on_cuda(dtype, h, kind, skip, rate):
+    """#3's variant: dagg, dxp, dW_l, dW_r, db_l and (supernodes) the own
+    table by global codes within their gates."""
+    dev = _card()
+    b, args, kw = _simple_layer(dev, dtype, h, "local", seed=h + 5,
+                                spill=kind)
+    _, _, y, inv, agg = sl.sage_layer_fwd(
+        *args, **dict(kw, skip=skip, save_res=True, rate=rate,
+                      seed=SEED if rate else None))
+    rng = np.random.default_rng(h)
+    dz = torch.from_numpy(rng.normal(size=(b.n_node_cap, h)).astype(
+        np.float32)).to(dev, dtype)
+    x, w_l, _, w_r, _ = args
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    tkw = dict(tile=b.band_tile, skip=skip, rate=rate,
+               seed=SEED if rate else None,
+               acc_code=b.gacc if kind == "super" else None, tg=tg)
+    targs = (dz, y, inv, agg, x, w_l, w_r)
+    got = _counted("sage_layer_bwd_tile_simple",
+                   lambda: sl.sage_layer_bwd_tile(*targs, **tkw))
+    ref = sl.sage_layer_bwd_tile_plain(*targs, **tkw)
+    m = b.node_mask
+    for name, g, r in zip(TILE_NAMES, got, ref):
+        if name == "tbwd" and kind == "virtual":
+            assert g is None and r is None
+            continue
+        if name in ("dagg", "dxp"):
+            g, r = g[m], r[m]
+        _vclose(g, r, dtype, sl.KERNEL_BWD_TOL[name], frac=True, what=name)
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("spill,table,acc,out_f32", [
+    (True, True, True, False), (True, False, False, True),
+    (False, True, False, False), (False, False, True, True),
+    (False, False, False, False)])
+def test_simple_banded_matches_plain_on_cuda(dtype, h, spill, table, acc,
+                                             out_f32):
+    """#4's variant with the spill window, the table, acc and both output
+    types."""
+    dev = _card()
+    b = _spill_batch(dev, "super")
+    rng = np.random.default_rng(h)
+    n = b.n_node_cap
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    x, a = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    tab = torch.from_numpy(rng.normal(size=(tg, h)).astype(np.float32)).to(
+        dev, dtype)
+    opts = dict(spill=_spill_kw(b, x), table=dict(gcode=b.gcode, table=tab),
+                acc=dict(acc=a))
+    kw = dict(tile=b.band_tile, width=b.band_width,
+              out_dtype=torch.float32 if out_f32 else dtype,
+              **_options(opts, spill, table, acc))
+    band = make_agg_context(b).band
+    got = _counted("banded_matmul_simple",
+                   lambda: bm.banded_matmul(band, x, **kw))
+    ref = bm.banded_matmul_plain(band, x, **kw)
+    assert got.dtype == ref.dtype
+    _vclose(got, ref, dtype, bm.KERNEL_BANDED_TOL, frac=True, what="out")
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 384),
+                                     (torch.bfloat16, 640)])
+def test_simple_gates_catch_faults(dtype, h):
+    """The variant gates fail the kernel's own outputs held against plain
+    versions that drop b_l, the spill term, the norm backward's s term or
+    the next layer's star table, and a band product without its spill
+    messages."""
+    dev = _card()
+
+    def caught(got, wrong, bf16_tol, frac):
+        atol, rtol = bm.variant_tol(wrong, dtype, bf16_tol, frac)
+        err = (got.float() - wrong.float()).abs()
+        assert bool((err > atol + rtol * wrong.float().abs()).any())
+
+    b, args, kw = _simple_layer(dev, dtype, h, "none", seed=3,
+                                spill="virtual")
+    m = b.node_mask
+    z, _ = sl.sage_layer_fwd(*args, **kw)
+    nb = args[:2] + (torch.zeros_like(args[2]),) + args[3:]
+    caught(z[m], sl.sage_layer_plain(*nb, **kw)[0][m], sl.KERNEL_Z_TOL,
+           False)
+    no_spill = {k: v for k, v in kw.items() if not k.startswith("spill")}
+    caught(z[m], sl.sage_layer_plain(*args, **no_spill)[0][m],
+           sl.KERNEL_Z_TOL, False)
+    b, bargs, bkw = _simple_bwd_case(dev, dtype, h, "local", True, True, 0.1)
+    got = sl.sage_layer_bwd(*bargs, **bkw)
+    no_prev = sl.sage_layer_bwd_plain(*bargs, **dict(bkw, table_prev=None))
+    caught(got[0][b.node_mask], no_prev[0][b.node_mask],
+           sl.KERNEL_BWD_TOL["dx"], True)
+    real = sl._norm_backward
+    sl._norm_backward = lambda dz, y, inv: torch.where(y > 0.0, dz, 0.0) * inv
+    try:
+        no_s = sl.sage_layer_bwd_plain(*bargs, **bkw)
+    finally:
+        sl._norm_backward = real
+    caught(got[1], no_s[1], sl.KERNEL_BWD_TOL["dw_l"], True)
+    sb = _spill_batch(dev, "virtual")
+    x = _inputs(sb.n_node_cap, h, dev, 9, dtype)[0]
+    band = make_agg_context(sb).band
+    bkw = dict(tile=sb.band_tile, width=sb.band_width, out_dtype=dtype,
+               **_spill_kw(sb, x))
+    out = bm.banded_matmul(band, x, **bkw)
+    wrong = bm.banded_matmul_plain(band, x, tile=sb.band_tile,
+                                   width=sb.band_width, out_dtype=dtype)
+    caught(out, wrong, bm.KERNEL_BANDED_TOL, True)
+
+
+def test_simple_kernels_are_deterministic():
+    """No float atomics: two calls of each variant give the same bits."""
+    dev = _card()
+    b, args, kw = _simple_layer(dev, torch.float32, 640, "local_emit", 4)
+    f1 = sl.sage_layer_fwd(*args, **kw)
+    f2 = sl.sage_layer_fwd(*args, **kw)
+    _, bargs, bkw = _simple_bwd_case(dev, torch.float32, 640, "local", True,
+                                     True, 0.1)
+    g1 = sl.sage_layer_bwd(*bargs, **bkw)
+    g2 = sl.sage_layer_bwd(*bargs, **bkw)
+    torch.cuda.synchronize()
+    for a, c in zip(f1 + g1, f2 + g2):
+        assert torch.equal(a, c)
+
+
+def test_simple_kernels_reject_what_they_do_not_take():
+    """A CUDA call no variant takes raises (float16, H % 128 != 0, mixed
+    dtypes); nothing falls back to another kernel."""
+    dev = _card()
+    b, args, kw = _simple_layer(dev, torch.float32, 384, "none", seed=0)
+    x, w_l, b_l, w_r, band = args
+    with pytest.raises(ValueError, match="bfloat16"):
+        sl.sage_layer_fwd(x, w_l.bfloat16(), b_l, w_r, band, **kw)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sl.sage_layer_fwd(x.half(), w_l.half(), b_l.half(), w_r.half(),
+                          band, **kw)
+    with pytest.raises(ValueError, match="H in"):
+        bm.banded_matmul(band, x[:, :320].contiguous(), tile=b.band_tile,
+                         width=b.band_width)
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 128),
+                                     (torch.bfloat16, 384),
+                                     (torch.float32, 640)])
+@pytest.mark.parametrize("kind", ["super", "virtual"])
+def test_unfused_banded_route_takes_the_simple_variant(dtype, h, kind,
+                                                       monkeypatch):
+    """On the card the banded_pallas route of float32 rows and of bf16 at
+    H = 384 (which the engine does not take) goes through #4's simple
+    variant, once in the forward and once in the symmetric backward,
+    against the same aggregation on the plain band product."""
     from buckgnn_tpu_torch.ops.banded import banded_sage_aggregate
 
     dev = _card()
-    b = _batch(dev)
+    b = _batch(dev) if kind == "super" else _spill_batch(dev, "virtual")
     ctx = make_agg_context(b, use_pallas=True)
-    for dtype, h in ((torch.float32, 128), (torch.bfloat16, 384)):
-        x = torch.zeros((b.n_node_cap, h), dtype=dtype, device=dev)
-        with pytest.raises(NotImplementedError, match="kernel #4"):
-            banded_sage_aggregate(x, ctx)
+    x, g = (_inputs(b.n_node_cap, h, dev, seed=s, dtype=dtype)[0]
+            for s in (h, h + 1))
+
+    def run():
+        xr = x.clone().requires_grad_()
+        out = banded_sage_aggregate(xr, ctx)
+        out.backward(g.to(out.dtype))
+        return out.detach(), xr.grad
+
+    sl.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert sl.LAUNCHES["banded_matmul_simple"] == 2
+    assert sl.LAUNCHES["banded_matmul"] == 0
+    monkeypatch.setattr(bm, "_launch", bm.banded_matmul_plain)
+    ref = run()
+    for gv, rv in zip(got, ref):
+        _vclose(gv, rv, dtype, bm.KERNEL_BANDED_TOL, frac=True)
