@@ -40,7 +40,12 @@ cells, named in ``CELLS``:
   float32, the JAX package's default compute dtype
   (``build_bench_setup(compute_dtype="float32")``, bench.py:25-27, 64-66),
   whose layers take the float32 variants of kernels #1-#4
-  (csrc/sage_simple.cu).
+  (csrc/sage_simple.cu);
+- ``ea-virtual-f32``: the ea-virtual cell in float32, the JAX
+  ``build_bench_setup(use_super_node=False, model_name="EA_GNN_Shared",
+  batch_size=64, n_graphs=64, band_tile=128, band_width=64,
+  compute_dtype="float32")``, whose blocks take the float32 variants of
+  kernels #5 and #6 (csrc/ea_simple.cu).
 
 Each is normalized and packed into one batch with exact capacities (RCM
 order and 4-tile node alignment for the banded cells; for the unbanded
@@ -126,6 +131,7 @@ CELLS = {
     "ea-windowed": dict(_EA, model_name="EA_GNN", remat=True),
     "flagship-f32": dict(_BASE, use_super_node=True, compute_dtype="float32"),
     "virtual-f32": dict(_BASE, compute_dtype="float32"),
+    "ea-virtual-f32": dict(_EA, compute_dtype="float32"),
 }
 
 

@@ -34,13 +34,13 @@
 //    Sums run in the plain version's order of terms: band, spill, table,
 //    acc. #4 alone; #1's phase 1 (agg = x_dtype(acc)); #2's band pass (dx =
 //    x_dtype(band @ dagg slab + dxp)).
-//  - gemm_kernel: C = A0 @ op(B0) (+ A1 @ op(B1)) (+ bias) (+ add), f32
-//    FFMA on 64 x 128 tiles, 256 threads of 4 x 8 sums, 16-deep slices in
-//    shared memory with the next slice's loads in flight in registers.
-//    #1's out = agg @ W_l + x @ W_r + b_l (f32); the backward's dagg =
-//    dout @ W_l^T and dxp = dout @ W_r^T (+ dz_eff); dW = [agg | x]^T @
-//    dout split over row chunks (blockIdx.z) into f32 partials that
-//    sum_parts adds in chunk order.
+//  - gemm_kernel (simple.cuh, shared with ea_simple.cu): C = A0 @ op(B0)
+//    (+ A1 @ op(B1)) (+ bias) (+ add), f32 FFMA on 64 x 128 tiles, 256
+//    threads of 4 x 8 sums, 16-deep slices in shared memory with the next
+//    slice's loads in flight in registers. #1's out = agg @ W_l + x @ W_r
+//    + b_l (f32); the backward's dagg = dout @ W_l^T and dxp = dout @
+//    W_r^T (+ dz_eff); dW = [agg | x]^T @ dout split over row chunks
+//    (blockIdx.z) into f32 partials that sum_parts adds in chunk order.
 //  - row passes, one warp per row, looping over the row's columns, so any
 //    H fits: #1's epilogue (sum of squares, inv, y, relu, skip, dropout,
 //    z) and the backward's norm backward (dz_eff with the next layer's
@@ -68,59 +68,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sage_common.cuh"
+#include "simple.cuh"
 
 namespace simple {
-
-typedef __nv_bfloat16 bf16;
-
-// ---- element access: 4 or 8 neighbouring values as f32 ------------------
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a low, b high
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void ld4(const float* p, float (&o)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void ld4(const bf16* p, float (&o)[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  o[0] = bf_lo(v.x); o[1] = bf_hi(v.x); o[2] = bf_lo(v.y); o[3] = bf_hi(v.y);
-}
-__device__ __forceinline__ void ld8(const float* p, float (&o)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void ld8(const bf16* p, float (&o)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  o[0] = bf_lo(v.x); o[1] = bf_hi(v.x); o[2] = bf_lo(v.y); o[3] = bf_hi(v.y);
-  o[4] = bf_lo(v.z); o[5] = bf_hi(v.z); o[6] = bf_lo(v.w); o[7] = bf_hi(v.w);
-}
-// plain (coherent) loads, for tensors a kernel of the same call wrote
-__device__ __forceinline__ void ld4c(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]),
-                                            pack2(v[2], v[3]));
-}
 
 // the table row that a row's code selects, or -1: with window bases
 // (``gwin``) codes [0, gw) select rows wb.., [gw, 2gw) rows t0 + wb..;
@@ -136,7 +86,6 @@ __device__ __forceinline__ int table_row(int code, const int* gwin, int t,
 
 // ---- the band product (#4) ----------------------------------------------
 
-constexpr int ROW_WARPS = 8;  // rows of a row-pass block, one warp each
 constexpr int GROUP = 8;      // 128-column chunks a warp sums at once
 
 struct BandP {
@@ -266,202 +215,7 @@ cudaError_t band(const BandP& p, bool bf, bool out_f32, cudaStream_t st) {
                  : launch_band<float, bf16>(p, st);
 }
 
-// ---- the products -------------------------------------------------------
-
-constexpr int GBM = 64, GBN = 128, GBK = 16, GTHREADS = 256;
-
-// C = A0 @ op(B0) (+ A1 @ op(B1)) (+ bias) (+ add); op(A)[m][k] = TA ?
-// A[k][m] : A[m][k], op(B)[k][n] = TB ? B[n][k] : B[k][n]. M % 64, N % 128
-// and the depths % 16 are 0. Split-K: block z sums product 0 over depths
-// [z * kchunk, (z + 1) * kchunk) into C + z * zstride (f32).
-struct Gemm {
-  const void *a0, *b0, *a1, *b1;
-  int lda0, ldb0, lda1, ldb1;
-  int k0, k1, kchunk;
-  int m, n;
-  const void* bias;  // [N] in T, or null
-  const float* add;  // [M, N] (ldc), or null
-  void* c;
-  int ldc, c_f32;
-  size_t zstride;
-};
-
-template <typename T, bool TA, bool TB>
-__global__ void __launch_bounds__(GTHREADS) gemm_kernel(Gemm g) {
-  __shared__ __align__(16) float as[GBK][GBM];
-  __shared__ __align__(16) float bs[GBK][GBN];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int m0 = blockIdx.x * GBM, n0 = blockIdx.y * GBN;
-  const int kb = blockIdx.z * g.kchunk;
-  const int ke = min(g.k0, kb + g.kchunk);
-  const int nt0 = ke > kb ? (ke - kb) / GBK : 0;
-  const int nt = nt0 + g.k1 / GBK;
-  float ra[4], rb[8];
-
-  auto load = [&](int kt) {
-    const T* a;
-    const T* b;
-    int lda, ldb, k;
-    if (kt < nt0) {
-      a = static_cast<const T*>(g.a0);
-      b = static_cast<const T*>(g.b0);
-      lda = g.lda0;
-      ldb = g.ldb0;
-      k = kb + kt * GBK;
-    } else {
-      a = static_cast<const T*>(g.a1);
-      b = static_cast<const T*>(g.b1);
-      lda = g.lda1;
-      ldb = g.ldb1;
-      k = (kt - nt0) * GBK;
-    }
-    if (TA) {
-      ld4(a + (size_t)(k + (tid >> 4)) * lda + m0 + (tid & 15) * 4, ra);
-    } else {
-      ld4(a + (size_t)(m0 + (tid >> 2)) * lda + k + (tid & 3) * 4, ra);
-    }
-    if (TB) {
-      ld8(b + (size_t)(n0 + (tid >> 1)) * ldb + k + (tid & 1) * 8, rb);
-    } else {
-      ld8(b + (size_t)(k + (tid >> 4)) * ldb + n0 + (tid & 15) * 8, rb);
-    }
-  };
-  auto store = [&]() {
-    if (TA) {
-      *reinterpret_cast<float4*>(&as[tid >> 4][(tid & 15) * 4]) =
-          make_float4(ra[0], ra[1], ra[2], ra[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) as[(tid & 3) * 4 + i][tid >> 2] = ra[i];
-    }
-    if (TB) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) bs[(tid & 1) * 8 + i][tid >> 1] = rb[i];
-    } else {
-      float* d = &bs[tid >> 4][(tid & 15) * 8];
-      *reinterpret_cast<float4*>(d) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-      *reinterpret_cast<float4*>(d + 4) =
-          make_float4(rb[4], rb[5], rb[6], rb[7]);
-    }
-  };
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  if (nt > 0) load(0);
-  for (int kt = 0; kt < nt; ++kt) {
-    store();
-    __syncthreads();
-    if (kt + 1 < nt) load(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = n0 + half * 64 + tx * 4;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = acc[i][half * 4 + j];
-      if (g.bias) {
-        float bv[4];
-        ld4(static_cast<const T*>(g.bias) + col, bv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] += bv[j];
-      }
-      if (g.add) {
-        float av[4];
-        ld4c(g.add + (size_t)row * g.ldc + col, av);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] += av[j];
-      }
-      if (g.c_f32) {
-        st4(static_cast<float*>(g.c) + blockIdx.z * g.zstride +
-                (size_t)row * g.ldc + col, v);
-      } else {
-        st4(static_cast<T*>(g.c) + (size_t)row * g.ldc + col, v);
-      }
-    }
-  }
-}
-
-template <typename T, bool TA, bool TB>
-cudaError_t gemm(const Gemm& g, int nz, cudaStream_t st) {
-  dim3 grid(g.m / GBM, g.n / GBN, nz);
-  gemm_kernel<T, TA, TB><<<grid, GTHREADS, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
-// out[i] = sum over z of part[z * count + i], in z order
-__global__ void sum_parts_kernel(const float* part, float* out, int nz,
-                                 size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int z = 0; z < nz; ++z) s += part[(size_t)z * count + i];
-  out[i] = s;
-}
-
-// dw [H, H] = a^T @ b over n rows: nz chunks of kchunk rows, then their
-// partials in chunk order
-template <typename T>
-cudaError_t atb(const T* a, const T* b, float* part, float* dw, int n, int h,
-                int ksplit, cudaStream_t st) {
-  int kchunk = (n + ksplit - 1) / ksplit;
-  kchunk = (kchunk + GBM - 1) / GBM * GBM;
-  const int nz = (n + kchunk - 1) / kchunk;
-  Gemm g = {};
-  g.a0 = a;
-  g.b0 = b;
-  g.lda0 = h;
-  g.ldb0 = h;
-  g.k0 = n;
-  g.kchunk = kchunk;
-  g.m = h;
-  g.n = h;
-  g.c = part;
-  g.ldc = h;
-  g.c_f32 = 1;
-  g.zstride = (size_t)h * h;
-  cudaError_t e = gemm<T, true, false>(g, nz, st);
-  if (e != cudaSuccess) return e;
-  const size_t count = (size_t)h * h;
-  sum_parts_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
-      part, dw, nz, count);
-  return cudaGetLastError();
-}
-
 // ---- row passes ---------------------------------------------------------
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
-struct Drop {
-  int on;
-  uint32_t thr, s0, s1;
-  float scale;
-};
 
 // #1's epilogue on out = agg @ W_l + x @ W_r + b_l (f32): y = out * inv,
 // inv = rsqrt(max(sum(out^2), 1e-24)), z = T(dropout(relu(y) (+ x))), and
@@ -621,7 +375,7 @@ cudaError_t colsum(const float* v, float* part, float* out, int n, int h,
   colsum_part_kernel<<<dim3(nc, h / 128), 128, 0, st>>>(v, part, n, h);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sum_parts_kernel<<<(h + 255) / 256, 256, 0, st>>>(part, out, nc,
+  sum_parts_kernel<void><<<(h + 255) / 256, 256, 0, st>>>(part, out, nc,
                                                     (size_t)h);
   return cudaGetLastError();
 }

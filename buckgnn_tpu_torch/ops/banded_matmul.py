@@ -47,17 +47,18 @@ VARIANT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_variant(dtype: torch.dtype, h: int) -> str:
-    """Which hand-written kernel of #1-#4 a call in ``dtype`` at width
+    """Which hand-written kernel of #1-#6 a call in ``dtype`` at width
     ``h`` launches on the card: "engine" (csrc/sage_layer_{fwd,bwd}.cu,
-    banded_matmul.cu: bf16 at H in ENGINE_WIDTHS) or "simple"
-    (csrc/sage_simple.cu: float32 at any H % 128 == 0, bf16 at the other
-    widths). A rule on (dtype, H) alone, never a fallback; anything else
-    raises (the JAX package's route to these kernels asks H % 128 == 0,
-    ops/banded.py:304-307; H % 128 != 0 takes the slab product there and
-    here)."""
+    banded_matmul.cu, ea_block_{fwd,bwd}.cu: bf16 at H in ENGINE_WIDTHS) or
+    "simple" (csrc/sage_simple.cu, ea_simple.cu: float32 at any H % 128 ==
+    0, bf16 at the other widths). A rule on (dtype, H) alone, never a
+    fallback; anything else raises (the JAX package's route to these
+    kernels asks H % 128 == 0, ops/banded.py:304-307 and
+    ops/pallas_ea_block.py:912-923; H % 128 != 0 takes the slab product or
+    the unfused EA block there and here)."""
     if dtype not in VARIANT_DTYPES or h <= 0 or h % 128 != 0:
         raise NotImplementedError(
-            f"SAGE kernels #1-#4 take float32 or bfloat16 at H % 128 == 0, "
+            f"kernels #1-#6 take float32 or bfloat16 at H % 128 == 0, "
             f"not {dtype} at H = {h}")
     if dtype == torch.bfloat16 and h in ENGINE_WIDTHS:
         return "engine"
@@ -66,10 +67,12 @@ def kernel_variant(dtype: torch.dtype, h: int) -> str:
 
 def variant_of(x: torch.Tensor, check) -> str:
     """`kernel_variant` of a kernel call's activations, refused by the
-    wrapper's ``check`` (a ValueError) when no variant takes them."""
+    wrapper's ``check`` (a ValueError naming the dtype and width) when no
+    variant takes them."""
     h = x.shape[-1]
-    check(h % 128 == 0, "H in multiples of 128")
-    check(x.dtype in VARIANT_DTYPES, "float32 or bfloat16 activations")
+    what = f"not {x.dtype} at H = {h}"
+    check(h % 128 == 0, f"H in multiples of 128, {what}")
+    check(x.dtype in VARIANT_DTYPES, f"float32 or bfloat16 activations, {what}")
     return kernel_variant(x.dtype, h)
 
 

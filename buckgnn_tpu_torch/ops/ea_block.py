@@ -63,14 +63,22 @@ the edge mask on rows 0..E-1 (slot t*W + w) and the node mask on rows
 E..E+N-1, so the backward regenerates both from the two seed words. The
 words are not the TPU's: the port matches the JAX package at rate 0 only.
 
-`ea_block_fwd` and `ea_block_bwd` launch the hand-written kernels
-(csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu; bf16 only) on CUDA tensors,
-counted in ``LAUNCHES``, and run the plain versions (`ea_block_fwd_plain`,
-`ea_block_bwd_plain`) on CPU tensors. `fused_ea_block` is the block as the
-model calls it: weights sliced and cast outside a ``torch.autograd.
-Function`` (the JAX package's ``_fused_block`` / ``_fused_block_enc``
-custom VJPs), so that autograd transposes the slicing and sums the tied
-layers' bf16 weight gradients in float32.
+`ea_block_fwd` and `ea_block_bwd` launch hand-written kernels on CUDA
+tensors, chosen before any launch by ``ops/banded_matmul.py::
+kernel_variant``'s static rule on x's (dtype, H), the SAGE kernels' rule:
+bf16 at H in {128, 256, 512} takes the product engine's kernels
+(csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu), counted in ``LAUNCHES`` as
+"ea_block_fwd" / "ea_block_bwd"; float32 at every H % 128 == 0, and bf16
+at the other widths, take the FFMA variants of csrc/ea_simple.cu, counted
+as "ea_block_fwd_simple" / "ea_block_bwd_simple"; any other dtype or width
+raises a ValueError naming both. A failed build or launch raises: nothing
+gives way to another kernel or to the plain version. On CPU tensors they
+run the plain versions (`ea_block_fwd_plain`, `ea_block_bwd_plain`), which
+take any float dtype. `fused_ea_block` is the block as the model calls it:
+weights sliced and cast outside a ``torch.autograd.Function`` (the JAX
+package's ``_fused_block`` / ``_fused_block_enc`` custom VJPs), so that
+autograd transposes the slicing and sums the tied layers' bf16 weight
+gradients in float32.
 """
 
 from __future__ import annotations
@@ -82,11 +90,13 @@ import torch
 from torch.nn import functional as F
 
 from buckgnn_tpu_torch.ops import ea_windowed as eaw
+from buckgnn_tpu_torch.ops.banded_matmul import variant_of, variant_tol
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
 )
 
-LAUNCHES = {"ea_block_fwd": 0, "ea_block_bwd": 0}
+LAUNCHES = {"ea_block_fwd": 0, "ea_block_bwd": 0, "ea_block_fwd_simple": 0,
+            "ea_block_bwd_simple": 0}
 
 WKEYS = ("wer", "wee", "wsp", "we1", "wpe", "wp1", "wg0", "wg1", "wb0",
          "wb1")
@@ -135,6 +145,26 @@ KERNEL_BWD_TOL = {"dx": 1e-2, "de_win": 1e-2, "dw": 3e-2, "dx_row": 0.12,
 # rows with a norm under this share of the rms row norm are judged against
 # that floor (a near-zero row has no scale of its own)
 ROW_FLOOR = 0.1
+# The float32 variants (csrc/ea_simple.cu) against the float32 plain
+# versions. The forward takes bm.variant_tol's float32 gate, SIMPLE_F32_TOL
+# of max|ref| per entry (`variant_fwd_tol`): both sides sum the same f32
+# products in another order, and a relu input that lands on the other side
+# of zero moves its output by no more than its own rounding. On an H100
+# (NVIDIA H100 80GB HBM3, 700 W) over the card tests' 114 float32 cases
+# (H 128-1024, plain and encoder mode, skip on and off, dropout 0 and 0.1)
+# zx, ze, e1 and m1 lay within 1.4e-6 of max|plain|. The backward takes
+# the bf16 gates above, KERNEL_BWD_TOL: its error is a relu mask flip, as
+# in bf16. The node side's masks (g1, b1) and the encoder's are recomputed
+# from f32 sums in another order, and a pre-activation within their
+# rounding of zero flips one element by its whole cotangent. In the same
+# measurement 11 cases of 114 moved by one such flip, in either path: each
+# time one of the two lay within 1.1e-6 of a float64 evaluation of the
+# plain version and the other did not, the kernel at most 5.6e-4 from it
+# in dx's norm and the plain version 1.1e-3. The worst kernel-vs-plain
+# errors: dx 1.1e-3 by norm and 3.0% per row, de_win 2.1e-4 and 0.71%,
+# the weights 6.6e-3 (dW_b0), dbias 2.2e-3; without a flip dx lay within
+# 2.5e-5 (median 7.2e-7). At the ea-virtual-f32 shape: dx 2.1e-4, 3.0%
+# per row.
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -175,8 +205,17 @@ def bwd_errors(got, ref, ctx: EAContext) -> dict[str, float]:
 
 
 def bwd_tol(key: str) -> float:
-    """The gate of a `bwd_errors` key (weights and bias take "dw")."""
+    """The gate of a `bwd_errors` key (weights and bias take "dw"), for
+    either dtype."""
     return KERNEL_BWD_TOL.get(key, KERNEL_BWD_TOL["dw"])
+
+
+def variant_fwd_tol(ref: torch.Tensor, dtype: torch.dtype
+                    ) -> tuple[float, float]:
+    """(atol, rtol) of a forward output's gate for a kernel call in
+    ``dtype``: bf16 KERNEL_FWD_TOL (atol a share of rms(ref)), float32
+    SIMPLE_F32_TOL of max|ref|."""
+    return variant_tol(ref, dtype, KERNEL_FWD_TOL)
 
 
 def sender_faults(batch, ctx: EAContext) -> dict[str, EAContext]:
@@ -585,24 +624,30 @@ def _dropout_args(rate: float, seed):
     return 1, dropout_threshold(rate), s0, s1, dropout_scale(rate)
 
 
-def _check_common(x, e_win, w, bias, ctx, enc, extra_bf16=()):
+def _check_common(x, e_win, w, bias, ctx, enc, extra=(), align=32):
+    """The operand rules of both variants: every tensor on x's device and
+    contiguous, the activations, weights and ``extra`` in x's dtype and
+    ``align``-byte aligned (the engine's TMA boxes take 32 bytes, the
+    simple variant's vector loads 16), int32 geometry, the float32 bias
+    stack and counts, N % 64 == 0 (the kernels' 64-row blocks) and the
+    shapes of every operand."""
     n, h = x.shape
     e = ctx.n_slots
     keys = WKEYS + (ENC_WKEYS if enc else ())
-    bf16 = [x, e_win, *(w[k] for k in keys), *extra_bf16]
+    floats = [x, e_win, *(w[k] for k in keys), *extra]
     ints = [ctx.send, ctx.recv, ctx.rlo, ctx.rhi, ctx.sorder, ctx.soff]
     dev = x.device
-    for t in bf16 + ints + [bias, ctx.cnt]:
+    for t in floats + ints + [bias, ctx.cnt]:
         _check(t.device == dev, "all tensors on one CUDA device")
         _check(t.is_contiguous(), "contiguous tensors")
-    for t in bf16:
-        _check(t.dtype == torch.bfloat16, "bfloat16 activations/weights")
-        _check(t.data_ptr() % 32 == 0, "32-byte aligned bf16 tensors")
+    for t in floats:
+        _check(t.dtype == x.dtype,
+               f"activations/weights in x's dtype ({x.dtype})")
+        _check(t.data_ptr() % align == 0, f"{align}-byte aligned operands")
     for t in ints:
         _check(t.dtype == torch.int32, "int32 geometry")
     _check(bias.dtype == torch.float32 and ctx.cnt.dtype == torch.float32,
            "float32 bias stack and counts")
-    _check(h in (128, 256, 512), "H in (128, 256, 512)")
     _check(n % 64 == 0 and n == ctx.n_nodes, "N % 64 == 0, N of the context")
     _check(tuple(bias.shape) == ((11 if enc else 8), h), "bias [8|11, H]")
     shapes = dict(wer=(h, h), wee=(h, h), wsp=(h, 2 * h), we1=(h, h),
@@ -622,18 +667,32 @@ def _check_common(x, e_win, w, bias, ctx, enc, extra_bf16=()):
         _check(t.numel() == size, "context sizes")
 
 
+def block_variant(x: torch.Tensor) -> str:
+    """Which kernels a block call on the card with activations like ``x``
+    launches (`kernel_variant`): "engine" (csrc/ea_block_{fwd,bwd}.cu) or
+    "simple" (csrc/ea_simple.cu); a ValueError naming x's dtype and width
+    when no variant takes them."""
+    return variant_of(x, _check)
+
+
+def _variant(x, e_win, w, bias, ctx, enc, extra=()) -> bool:
+    """`block_variant`, refused before any launch when no variant takes x,
+    then that variant's operand checks. True for the engine."""
+    engine = block_variant(x) == "engine"
+    _check_common(x, e_win, w, bias, ctx, enc, extra, 32 if engine else 16)
+    return engine
+
+
 def _weight_ptrs(w, enc):
     return ([_ptr(w[k]) for k in WKEYS]
             + [_ptr(w[k]) if enc else _ptr(None) for k in ENC_WKEYS])
 
 
-
-
-def _scratch(lib, name, n, e, h, enc, dev):
+def _scratch(lib, name, dev, *dims):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 4
-    nbytes = int(fn(n, e, h, int(enc)))
+    fn.argtypes = [ctypes.c_int] * len(dims)
+    nbytes = int(fn(*dims))
     return torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
 
 
@@ -642,33 +701,50 @@ def _launch_fwd(x, e_win, w, bias, ctx, *, skip, rate, seed, save_res, enc):
 
     _check_dropout(rate, seed)
     _check(not (enc and skip), "encoder mode is layer 0: no skip")
-    _check_common(x, e_win, w, bias, ctx, enc)
+    engine = _variant(x, e_win, w, bias, ctx, enc)
     n, h = x.shape
     e = ctx.n_slots
     shape = (ctx.n_tiles, ctx.w_cap, h)
     zx = torch.empty_like(x)
     ze = torch.empty(shape, dtype=x.dtype, device=x.device)
-    e1s = torch.empty(shape, dtype=x.dtype, device=x.device) if save_res \
-        else None
+    # the simple variant always writes e1
+    e1s = torch.empty(shape, dtype=x.dtype, device=x.device) \
+        if save_res or not engine else None
     m1s = torch.empty(shape, dtype=x.dtype, device=x.device)
-    lib = cuda_build.load("ea_block_fwd")
-    scratch = _scratch(lib, "ea_block_fwd_scratch_bytes", n, e, h, enc,
-                       x.device)
     drop, thr, s0, s1, scale = _dropout_args(rate, seed)
-    fn = lib.ea_block_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 7
-                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     geometry = (ctx.send, ctx.recv, ctx.rlo, ctx.rhi, ctx.cnt)
-    err = fn(_ptr(x), _ptr(e_win), *_weight_ptrs(w, enc), _ptr(bias),
-             *map(_ptr, geometry), _ptr(scratch), _ptr(zx), _ptr(ze),
-             _ptr(e1s), _ptr(m1s), n, e, h, int(enc), int(skip),
-             int(save_res), drop, thr, s0, s1, scale,
-             ctypes.c_void_p(stream))
+    ptrs = [_ptr(x), _ptr(e_win), *_weight_ptrs(w, enc), _ptr(bias),
+            *map(_ptr, geometry)]
+    outs = [_ptr(zx), _ptr(ze), _ptr(e1s), _ptr(m1s)]
+    if engine:
+        name = "ea_block_fwd"
+        lib = cuda_build.load(name)
+        scratch = _scratch(lib, "ea_block_fwd_scratch_bytes", x.device, n, e,
+                           h, int(enc))
+        fn = lib.ea_block_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 7
+                       + [ctypes.c_uint32] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        args = (*ptrs, _ptr(scratch), *outs, n, e, h, int(enc), int(skip),
+                int(save_res), drop, thr, s0, s1, scale, stream)
+    else:
+        name = "ea_block_fwd_simple"
+        bf = int(x.dtype == torch.bfloat16)
+        lib = cuda_build.load("ea_simple")
+        scratch = _scratch(lib, "ea_block_fwd_simple_scratch_bytes",
+                           x.device, n, e, h, int(enc), bf)
+        fn = lib.ea_block_fwd_simple
+        fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 6
+                       + [ctypes.c_uint32] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        args = (*ptrs, _ptr(scratch), *outs, n, e, h, int(enc), int(skip),
+                drop, thr, s0, s1, scale, bf, stream)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"ea_block_fwd launch failed: CUDA error {err}")
-    cuda_build.count_launch(LAUNCHES, "ea_block_fwd")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_build.count_launch(LAUNCHES, name)
     if save_res:
         return zx, ze, e1s, m1s
     return zx, ze
@@ -678,8 +754,8 @@ def ea_block_fwd(x, e_win, w, bias, ctx: EAContext, *, skip: bool,
                  rate: float = 0.0, seed=None, save_res: bool = False,
                  enc: bool = False):
     """The fused block forward (arguments and results as
-    `ea_block_fwd_plain`). CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    `ea_block_fwd_plain`). CUDA tensors launch the kernel of
+    `kernel_variant` (or raise); CPU tensors take the plain version."""
     kw = dict(skip=skip, rate=rate, seed=seed, save_res=save_res, enc=enc)
     if x.device.type == "cuda":
         return _launch_fwd(x, e_win, w, bias, ctx, **kw)
@@ -694,7 +770,7 @@ def _launch_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx, *, skip, rate,
 
     _check_dropout(rate, seed)
     _check(not (enc and skip), "encoder mode is layer 0: no skip")
-    _check_common(x, e_win, w, bias, ctx, enc, (dzx, dze, e1s, m1s))
+    engine = _variant(x, e_win, w, bias, ctx, enc, (dzx, dze, e1s, m1s))
     n, h = x.shape
     e = ctx.n_slots
     _check(tuple(dzx.shape) == (n, h), "dzx [N, H]")
@@ -708,24 +784,40 @@ def _launch_bwd(dzx, dze, e1s, m1s, x, e_win, w, bias, ctx, *, skip, rate,
     dw = {k: torch.empty(w[k].shape, dtype=torch.float32, device=dev)
           for k in keys}
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=dev)
-    lib = cuda_build.load("ea_block_bwd")
-    scratch = _scratch(lib, "ea_block_bwd_scratch_bytes", n, e, h, enc, dev)
     drop, thr, s0, s1, scale = _dropout_args(rate, seed)
-    fn = lib.ea_block_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 43 + [ctypes.c_int] * 6
-                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     geometry = (ctx.recv, ctx.rlo, ctx.rhi, ctx.sorder, ctx.soff, ctx.cnt)
     dw_ptrs = [_ptr(dw.get(k)) for k in WKEYS + ENC_WKEYS]
-    err = fn(_ptr(dzx), _ptr(dze), _ptr(e1s), _ptr(m1s), _ptr(x),
-             _ptr(e_win), *_weight_ptrs(w, enc), _ptr(bias),
-             *map(_ptr, geometry), _ptr(scratch), _ptr(dx), _ptr(de_win),
-             *dw_ptrs, _ptr(dbias), n, e, h, int(enc), int(skip), drop, thr,
-             s0, s1, scale, ctypes.c_void_p(stream))
+    ptrs = [_ptr(dzx), _ptr(dze), _ptr(e1s), _ptr(m1s), _ptr(x), _ptr(e_win),
+            *_weight_ptrs(w, enc), _ptr(bias), *map(_ptr, geometry)]
+    outs = [_ptr(dx), _ptr(de_win), *dw_ptrs, _ptr(dbias)]
+    argtypes = ([ctypes.c_void_p] * 43 + [ctypes.c_int] * 6
+                + [ctypes.c_uint32] * 3)
+    if engine:
+        name = "ea_block_bwd"
+        lib = cuda_build.load(name)
+        scratch = _scratch(lib, "ea_block_bwd_scratch_bytes", dev, n, e, h,
+                           int(enc))
+        fn = lib.ea_block_bwd
+        fn.argtypes = argtypes + [ctypes.c_float, ctypes.c_void_p]
+        args = (*ptrs, _ptr(scratch), *outs, n, e, h, int(enc), int(skip),
+                drop, thr, s0, s1, scale, stream)
+    else:
+        name = "ea_block_bwd_simple"
+        bf = int(x.dtype == torch.bfloat16)
+        lib = cuda_build.load("ea_simple")
+        scratch = _scratch(lib, "ea_block_bwd_simple_scratch_bytes", dev, n,
+                           e, h, int(enc), bf)
+        fn = lib.ea_block_bwd_simple
+        fn.argtypes = argtypes + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]
+        args = (*ptrs, _ptr(scratch), *outs, n, e, h, int(enc), int(skip),
+                drop, thr, s0, s1, scale, bf, stream)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"ea_block_bwd launch failed: CUDA error {err}")
-    cuda_build.count_launch(LAUNCHES, "ea_block_bwd")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_build.count_launch(LAUNCHES, name)
     return dx, de_win, dw, dbias
 
 

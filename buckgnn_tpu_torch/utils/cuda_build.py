@@ -33,6 +33,7 @@ SOURCES = {
     "csr_segment": os.path.join(_PKG, "csrc", "csr_segment.cu"),
     "epilogue": os.path.join(_PKG, "csrc", "epilogue.cu"),
     "sage_simple": os.path.join(_PKG, "csrc", "sage_simple.cu"),
+    "ea_simple": os.path.join(_PKG, "csrc", "ea_simple.cu"),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -124,7 +124,11 @@ Phases, each fatal on failure:
      banded_pallas`` on D for 2 epochs (phase 13's: the float32 variants
      of #1, #3 and #4 as its batches imply, no engine kernel) and
      ``infer`` on its weights/best (#1's variant; its MAPE the run's best
-     val MAPE), ``tune --synthetic 64 --max-concurrent 2``
+     val MAPE), the same with ``--model-name EA_GNN_Shared`` (phase 14's:
+     the float32 variants of #5 and #6, 6 of each per train step and 6
+     of #5 per val batch, no other kernel) and ``infer`` on it (#5's
+     variant only; its MAPE the run's best val MAPE), ``tune --synthetic
+     64 --max-concurrent 2``
      (two trials on the card in overlapping intervals, SAGE kernels only)
      and ``python -m buckgnn_tpu_torch --help``;
  12. multi-GPU (``multi``): the ea-virtual batch split into 2 and 4 tile
@@ -168,7 +172,26 @@ Phases, each fatal on failure:
      kernel), each against the plain path; each variant's time at its
      float32 main path's shape beside its bound (f32 operations at 67
      TFLOP/s against bytes), its plain version and the float32 torch
-     composition (TF32 off).
+     composition (TF32 off);
+ 14. float32 and every H % 128 == 0 for the EA kernels (``ea_widths``):
+     #5 and #6's simple variants (csrc/ea_simple.cu, the same rule)
+     against their plain versions, each launch counted under its own
+     name, at every (dtype, H) of phase 13 on three small ragged EA
+     batches (one ends in a partial 64-slot block, one at tile 64 has N /
+     64 odd) and in float32 at H 512 on the ea-virtual batch, in plain and
+     encoder mode, skip on and off, dropout 0 and 0.1, within
+     eb.variant_fwd_tol (float32: 1e-5 of max|plain|) and eb.bwd_tol; in
+     'hybrid' and 'autodiff' on one shard of a two-way tile split, the
+     appended far rows' gradient included; the gates failing, at the
+     float32 tolerance, a forward without its far senders, its cnt * b_p1
+     term or its skip, a backward without its sender fold and a dW_sp
+     without the far slots; the same bits twice; the ea-virtual-f32 cell
+     (EA_GNN_Shared in float32, H 512) served and trained (6 #5s per
+     forward, 6 #5s and 6 #6s per step, no engine or SAGE kernel; the
+     forward, the loss and its gradients against the plain path at
+     PRED_TOL and GRAD_TOL), one line per pass of each variant from the
+     train step's profile, its step memory, and each variant's time
+     beside its bound, its plain version and the float32 composition.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -1114,9 +1137,9 @@ EA_SHAPES = dict(wer=(1, 1), wee=(1, 1), wsp=(1, 2), we1=(1, 1), wpe=(1, 1),
                  wp1=(1, 1), wg0=(2, 1), wg1=(1, 1), wb0=(1, 1), wb1=(1, 1))
 
 
-def ea_case(batch, h, enc, seed):
+def ea_case(batch, h, enc, seed, dtype=torch.bfloat16):
     """(x, e_win, w, bias) of one fused-block call on ``batch``, from a
-    seeded generator: lecun-normal bf16 weights ([in, out]), an f32 bias
+    seeded generator: lecun-normal weights ([in, out]) in ``dtype``, an f32 bias
     stack of 0.3 rms (so a dropped cnt * b_p1 term fails the gate), x of
     unit rms with the dead row 0, and the window: the raw features padded
     to 8 in encoder mode, else unit-rms values."""
@@ -1127,7 +1150,7 @@ def ea_case(batch, h, enc, seed):
         shapes.update(wen0=(eb.ENC_IN, eb.ENC_HID),
                       wen1=(eb.ENC_HID, eb.ENC_HID), wen2=(eb.ENC_HID, h))
     w = {k: (torch.randn(s, generator=g, device=dev) / math.sqrt(s[0]))
-         .to(torch.bfloat16).contiguous() for k, s in shapes.items()}
+         .to(dtype).contiguous() for k, s in shapes.items()}
     bias = torch.randn((11 if enc else 8, h), generator=g, device=dev) * 0.3
     x = torch.randn((batch.n_node_cap, h), generator=g, device=dev)
     x[-1] = 0.0
@@ -1137,20 +1160,23 @@ def ea_case(batch, h, enc, seed):
         e = torch.nn.functional.pad(batch.win_edges, (0, eb.ENC_IN - fe))
     else:
         e = torch.randn((t, wc, h), generator=g, device=dev)
-    return (x.to(torch.bfloat16), e.to(torch.bfloat16).contiguous(), w,
-            bias)
+    return x.to(dtype), e.to(dtype).contiguous(), w, bias
 
 
 def ea_valid(ctx):
     return ctx.recv >= 0
 
 
-def ea_fwd_vs_plain(name, batch, ctx, h, enc, skip, rate, seed):
-    """#5 against its plain version on one case: zx, and ze, e1s and m1s
-    on valid slots, within KERNEL_FWD_TOL; at ``rate`` the dropped
-    positions of both masks exactly the hashed ones. Returns (max error,
-    the case, the kernel's outputs)."""
-    x, e, w, bias = ea_case(batch, h, enc, seed)
+def ea_fwd_vs_plain(name, batch, ctx, h, enc, skip, rate, seed,
+                    dtype=torch.bfloat16, worst=None):
+    """#5 (or, in ``dtype`` and at ``h``, the variant `kernel_variant`
+    picks) against its plain version on one case: zx, and ze, e1s and m1s
+    on valid slots, within eb.variant_fwd_tol (bf16: KERNEL_FWD_TOL); at
+    ``rate`` the dropped positions of both masks exactly the hashed ones.
+    In float32 the largest error as a share of max|plain| goes into
+    ``worst`` (a dict). Returns (max error, the case, the kernel's
+    outputs)."""
+    x, e, w, bias = ea_case(batch, h, enc, seed, dtype)
     kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc,
               save_res=True)
     got = eb.ea_block_fwd(x, e, w, bias, ctx, **kw)
@@ -1161,15 +1187,19 @@ def ea_fwd_vs_plain(name, batch, ctx, h, enc, skip, rate, seed):
     for what, a, r in zip(("zx", "ze", "e1s", "m1s"), got, ref):
         if what != "zx":
             a, r = a.reshape(-1, h)[v], r.reshape(-1, h)[v]
-        err = max(err, check_close(f"{name}/{what}", a, r,
-                                   sl.gate_tol(r, eb.KERNEL_FWD_TOL)))
+        e_ = check_close(f"{name}/{what}", a, r, eb.variant_fwd_tol(r, dtype))
+        err = max(err, e_)
+        if dtype == torch.float32 and worst is not None:
+            worst["f32_fwd_err_over_max"] = max(
+                worst.get("f32_fwd_err_over_max", 0.0),
+                e_ / max(float(r.float().abs().max()), 1e-30))
     if rate:
         n_e = ctx.n_slots
         drop_e = ~keep_mask(SEED, n_e, h, rate, x.device)[v]
         drop_x = ~keep_mask(SEED, x.shape[0], h, rate, x.device, row0=n_e)
         zx, zxp = got[0], ref[0]
         ze, zep = got[1].reshape(-1, h)[v], ref[1].reshape(-1, h)[v]
-        atol = sl.gate_tol(zxp, eb.KERNEL_FWD_TOL)[0]
+        atol = eb.variant_fwd_tol(zxp, dtype)[0]
         same = True
         for a, r, d in ((zx, zxp, drop_x), (ze, zep, drop_e)):
             big = ~d & (r.float().abs() > atol)
@@ -1228,31 +1258,34 @@ EA_CASES = [  # (encoder mode, skip, dropout rate)
     (True, False, 0.0), (True, False, RATE)]
 
 
-def ea_kernel_checks(label, batch, ctx, seed, cases=EA_CASES):
-    """#5 and #6 against their plain versions on every case; returns their
-    largest errors."""
+def ea_kernel_checks(label, batch, ctx, seed, cases=EA_CASES, h=512,
+                     dtype=torch.bfloat16, worst=None):
+    """#5 and #6 (in ``dtype`` at ``h``: the variants `kernel_variant`
+    picks) against their plain versions on every case (encoder mode at H >
+    128 only); returns their largest errors."""
     fwd, bwd = [], []
     for i, (enc, skip, rate) in enumerate(cases):
+        if enc and h <= eb.ENC_HID:
+            continue
         name = (f"{label}/{'encoder' if enc else 'plain'}/skip{int(skip)}"
                 f"/rate{rate}")
-        err, case, got = ea_fwd_vs_plain(name, batch, ctx, 512, enc, skip,
-                                         rate, seed + i)
+        err, case, got = ea_fwd_vs_plain(name, batch, ctx, h, enc, skip,
+                                         rate, seed + i, dtype, worst)
         fwd.append(err)
         bwd.append(ea_bwd_vs_plain(name, ctx, case, got, seed + 100 + i))
     return max(fwd), max(bwd)
 
 
-def ea_gates_catch_faults(label, batch, ctx):
-    """The gates fail these faults, each made by the plain version and held
-    against the kernel: a forward that drops the far senders, a mean
-    without cnt * b_p1, a forward without the skip (zx or ze fails); a
-    backward without the slab-overlap (halo) part of dx, without its far
-    part, without one node's sender run, without one far rank of one tile
-    or without the first (clamped) tile's halo (dx's norm or row gate
-    fails; ops/ea_block.py::sender_faults), and a dW_sp without the far
-    slots (the dW gate fails)."""
-    h = 512
-    x, e, w, bias = ea_case(batch, h, False, 71)
+def ea_gates_catch_faults(label, batch, ctx, dtype=torch.bfloat16, h=512):
+    """The gates (at ``dtype``'s tolerance) fail these faults, each made by
+    the plain version and held against the kernel: a forward that drops
+    the far senders, a mean without cnt * b_p1, a forward without the skip
+    (zx or ze fails); a backward without the slab-overlap (halo) part of
+    dx, without its far part, without one node's sender run, without one
+    far rank of one tile or without the first (clamped) tile's halo (dx's
+    norm or row gate fails; ops/ea_block.py::sender_faults), and a dW_sp
+    without the far slots (the dW gate fails)."""
+    x, e, w, bias = ea_case(batch, h, False, 71, dtype)
     kw = dict(skip=True, rate=RATE, seed=SEED)
     zx, ze, e1s, m1s = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True,
                                        **kw)
@@ -1265,9 +1298,9 @@ def ea_gates_catch_faults(label, batch, ctx):
             ("no-cnt-b_p1", (x, e, w, no_cnt_b, ctx), kw),
             ("no-skip", (x, e, w, bias, ctx), dict(kw, skip=False))):
         fzx, fze = eb.ea_block_fwd_plain(*args, **fkw)
-        ok_x = within(fzx, zx, sl.gate_tol(zx, eb.KERNEL_FWD_TOL))
+        ok_x = within(fzx, zx, eb.variant_fwd_tol(zx, dtype))
         ok_e = within(fze.reshape(-1, h)[v], ze.reshape(-1, h)[v],
-                      sl.gate_tol(ze, eb.KERNEL_FWD_TOL))
+                      eb.variant_fwd_tol(ze, dtype))
         caught = not (ok_x[0] and ok_e[0])
         print(json.dumps({"gate": f"{label}/fwd/{fault}", "caught": caught,
                           "max_abs_err": {"zx": ok_x[1], "ze": ok_e[1]}}))
@@ -1294,43 +1327,52 @@ def ea_gates_catch_faults(label, batch, ctx):
             fail("no-far-fold: the dW gate lets a wrong dW_sp pass")
 
 
-def ea_deterministic(label, batch, ctx):
-    """No float atomics: two calls of each EA kernel give the same bits."""
-    outs = []
-    for _ in range(2):
-        x, e, w, bias = ea_case(batch, 512, True, 81)
-        kw = dict(skip=False, rate=RATE, seed=SEED, enc=True)
-        fwd = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
-        g = torch.Generator(device=x.device).manual_seed(82)
-        dzx = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
-        dze = torch.randn(fwd[1].shape, generator=g,
-                          device=x.device).to(x.dtype)
-        dx, _, dw, dbias = eb.ea_block_bwd(dzx, dze, fwd[2], fwd[3], x, e, w,
-                                           bias, ctx, **kw)
-        outs.append(list(fwd) + [dx, dbias] + [dw[k] for k in sorted(dw)])
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*outs))
-    print(json.dumps({"check": f"{label}/ea-kernels/deterministic",
-                      "ok": same}))
-    if not same:
-        fail("two calls of an EA kernel gave different bits")
+def ea_deterministic(label, batch, ctx,
+                     cases=((torch.bfloat16, 512, True, False),)):
+    """No float atomics: two calls of each EA kernel give the same bits,
+    for each (dtype, H, encoder mode, skip) of ``cases`` at dropout 0.1."""
+    for dtype, h, enc, skip in cases:
+        outs = []
+        for _ in range(2):
+            x, e, w, bias = ea_case(batch, h, enc, 81, dtype)
+            kw = dict(skip=skip, rate=RATE, seed=SEED, enc=enc)
+            fwd = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+            g = torch.Generator(device=x.device).manual_seed(82)
+            dzx = torch.randn(x.shape, generator=g,
+                              device=x.device).to(x.dtype)
+            dze = torch.randn(fwd[1].shape, generator=g,
+                              device=x.device).to(x.dtype)
+            dx, de, dw, dbias = eb.ea_block_bwd(dzx, dze, fwd[2], fwd[3], x,
+                                                e, w, bias, ctx, **kw)
+            outs.append(list(fwd) + [dx, dbias] + ([] if de is None else
+                                                   [de])
+                        + [dw[k] for k in sorted(dw)])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        print(json.dumps({"check": f"{label}/{dtname(dtype)}/h{h}/"
+                          "ea-kernels/deterministic", "ok": same}))
+        if not same:
+            fail("two calls of an EA kernel gave different bits")
 
 
-def ea_ragged_batch(dev, n_graphs=16, min_win_cap=0):
+def ea_ragged_batch(dev, n_graphs=16, min_win_cap=0, tile=128, align=256):
     """A small ragged EA batch: ``n_graphs`` virtual-edge panels of 8-11
-    nodes a side (tests/test_fused_ea_block.py:17-51), tile 128, width 64,
-    packed by batch_iterator with W at least ``min_win_cap``: >= 4 tiles,
-    far senders, the first and last tiles' slabs clamped, W not a multiple
-    of 64. 16 panels give 12 tiles of W = 528 (E = 99 blocks of 64 slots);
-    12 panels with W = 552 give 10 tiles and E % 64 = 16, so the kernels'
-    last 64-slot block is partial."""
+    nodes a side (tests/test_fused_ea_block.py:17-51), width 64, packed by
+    batch_iterator at ``tile`` with N a multiple of ``align`` and W at
+    least ``min_win_cap``: >= 4 tiles, far senders, the first and last
+    tiles' slabs clamped, W not a multiple of 64. 16 panels give 12 tiles
+    of W = 528 (E = 99 blocks of 64 slots); 12 panels with W = 552 give 10
+    tiles and E % 64 = 16, so the kernels' last 64-slot block is partial;
+    5 panels at tile 64, align 64 give N = 448 (N / 64 odd: the engine's
+    last cluster of two 64-row blocks has an empty block) and E % 64 =
+    48."""
     from buckgnn_tpu_torch.graph.batch import batch_iterator
 
     ds = generate_dataset(n_graphs, seed=2, min_side=8, max_side=11,
                           use_super_node=False, use_virtual_edges=True)
-    tile, width = 128, 64
+    width = 64
     n = sum(g.n_node for g in ds) + 1
-    ncap = ((max(n, tile + width) + 2 * tile - 1) // (2 * tile)) * 2 * tile
+    ncap = ((max(n, tile + width) + align - 1) // align) * align
     ecap = ((sum(g.n_edge for g in ds) + 127) // 128) * 128
     (b,) = batch_iterator(ds, n_graphs, ncap, ecap, band_width=width,
                           band_tile=tile, min_win_cap=min_win_cap,
@@ -1419,9 +1461,10 @@ def ea_bounds(x, e, w, ctx, *, enc, train):
     operations, bwd operations) of one block call at these inputs: the
     products of the kernels' passes over valid slots
     (ops/ea_block.py::pass_flops; not the TPU's one-hot selection
-    products) at the bf16 peak, against each input read once and each
-    output written once (valid slots only) at the HBM rate. ``train`` adds
-    the residuals e1 and m1 to the forward's writes."""
+    products) at the peak of x's dtype (bf16 tensor cores, or the f32
+    FFMA peak of the float32 variants), against each input read once and
+    each output written once (valid slots only) at the HBM rate. ``train``
+    adds the residuals e1 and m1 to the forward's writes."""
     n, h = x.shape
     ev = int((ctx.recv >= 0).sum())
     flops = eb.pass_flops(n, ev, h, enc=enc)
@@ -1430,14 +1473,15 @@ def ea_bounds(x, e, w, ctx, *, enc, train):
     e_w = e.element_size() * e.shape[-1]
     wbytes = sum(t.numel() * t.element_size() for t in w.values())
     ctx_bytes = nbytes_of(ctx.send, ctx.recv, ctx.rlo, ctx.rhi, ctx.cnt)
-    nh2, eh2 = n * h * 2, ev * h * 2
+    nh2, eh2 = n * h * x.element_size(), ev * h * x.element_size()
     fwd_bytes = (nh2 + ev * e_w + wbytes + ctx_bytes + nh2 + eh2
                  + (2 * eh2 if train else 0))
     bwd_bytes = (nh2 + eh2 + 2 * eh2 + nh2 + ev * e_w + wbytes + ctx_bytes
                  + nbytes_of(ctx.sorder, ctx.soff) + nh2
                  + (0 if enc else eh2) + 2 * wbytes + 11 * h * 4)
-    fb = bound(f_fwd, 0, fwd_bytes)
-    bb = bound(f_bwd, 0, bwd_bytes)
+    f32 = x.dtype == torch.float32
+    fb = bound(0, f_fwd, fwd_bytes) if f32 else bound(f_fwd, 0, fwd_bytes)
+    bb = bound(0, f_bwd, bwd_bytes) if f32 else bound(f_bwd, 0, bwd_bytes)
     return fb[0], fb[1], bb[0], bb[1], f_fwd, f_bwd
 
 
@@ -1469,16 +1513,18 @@ def pass_lines(kind, rows, kernels, flops, card, calls=None, **tags):
             "tflop_per_s": f / ms / 1e9 if ms and f else None}))
 
 
-def ea_pass_lines(rows, batch, card, layers=6):
-    """`pass_lines` of #5 and #6 from an ea-virtual train step: ``layers``
-    block calls a step, layer 0 in encoder mode, the others not."""
+def ea_pass_lines(rows, batch, card, layers=6, kernels=EA_PASS_KERNELS,
+                  **tags):
+    """`pass_lines` of #5 and #6 (or, with ``kernels``, their variants)
+    from an ea-virtual train step: ``layers`` block calls a step, layer 0
+    in encoder mode, the others not."""
     ctx = eb.make_ea_context(batch)
     n, ev = batch.n_node_cap, int((ctx.recv >= 0).sum())
     h = 512
     plain, enc = (eb.pass_flops(n, ev, h, enc=m) for m in (False, True))
-    pass_lines("ea_pass", rows, EA_PASS_KERNELS,
-               {k: (layers - 1) * plain[k] + enc[k] for k in EA_PASS_KERNELS},
-               card, calls=layers)
+    pass_lines("ea_pass", rows, kernels,
+               {k: (layers - 1) * plain[k] + enc[k] for k in kernels},
+               card, calls=layers, **tags)
 
 
 # the kernel names of each pass of the fused SAGE kernels in a profile: #1
@@ -1969,11 +2015,12 @@ def device_band_checks(dev, card, vsetup):
 
 
 def unfused_cell(label, dev, card, serve_kernel, train_kernels, data,
-                 pred_tol=PRED_TOL, readout=False, n_steps=5):
+                 pred_tol=PRED_TOL, readout=False, n_steps=5, rows_out=None):
     """Serve and train one cell of ``CELLS`` on the unfused paths: launch
     counts, the forward and one train step against the plain path, the
     profiles, and the step's own memory. One set-up serves (its eval_step,
     before training) and trains, on the panels of ``data`` (`cell_data`).
+    ``rows_out`` receives the train step's profile rows (`step_profile`).
     Returns (summary, launches by path, train setup)."""
     t0 = time.perf_counter()
     train = build_train_setup(device=dev, config=label, data=data)
@@ -1994,7 +2041,7 @@ def unfused_cell(label, dev, card, serve_kernel, train_kernels, data,
         f"{label} train step",
         lambda: train["train_step"](train["batch"], train["lr"],
                                     train["generator"]),
-        bench["train_step_ms"], card)
+        bench["train_step_ms"], card, rows_out=rows_out)
     print(json.dumps(train_prof))
     cfg = train["cfg"]
     dt = "bf16" if cfg.compute_dtype == "bfloat16" else cfg.compute_dtype
@@ -2684,6 +2731,9 @@ def cli_phase(dev, card, run_step_ms):
         # ---- phase 13's command line: the default flags (float32, H 128)
         # on banded_pallas, then infer: kernels #1-#4's simple variants ----
         paths.update(cli_f32_banded(at, report))
+        # ---- phase 14's: EA_GNN_Shared at the default flags on
+        # banded_pallas, then infer: kernels #5 and #6's simple variants ----
+        paths.update(cli_f32_ea(at, report))
 
         # ---- tune: two grid points at once on the card ----
         reset_launch_counts()
@@ -2778,6 +2828,69 @@ def cli_f32_banded(at, report):
                 torch.tensor(served["MAPE"]),
                 torch.tensor(run["best_val_mape"]), PRED_TOL)
     report("f32-banded-infer", secs, mape=served, launches=got)
+    return paths
+
+
+def cli_f32_ea(at, report):
+    """``train --data-dir D --model-name EA_GNN_Shared --segment-impl
+    banded_pallas`` at the default flags otherwise (float32, H 128, so the
+    blocks' plain mode, the edge encoder outside) for CLI_DEFAULT_EPOCHS
+    epochs, then ``infer`` on its weights/best over D/Validation: per
+    layer #5's variant for each train step and val batch and #6's for
+    each train step (every batch takes the fused block), no engine or
+    SAGE kernel, finite scalars, and the served MAPE the run's best val
+    MAPE."""
+    import os
+    from unittest import mock
+
+    from buckgnn_tpu_torch.eval import inference
+    from buckgnn_tpu_torch.train import trainer
+
+    paths = {}
+    reset_launch_counts()
+    with mock.patch.object(trainer, "MetricsWriter", RecordingWriter), \
+            recorded_packs(trainer) as packs:
+        secs, _, run = cli_call([
+            "train", "--data-dir", at("D"), "--output-dir", at("R4"),
+            "--model-name", "EA_GNN_Shared", "--segment-impl",
+            "banded_pallas", "--num-epochs", str(CLI_DEFAULT_EPOCHS)])
+    got = launch_counts()
+    scalars = RecordingWriter.made[-1].scalars
+    tr, va = packs
+    h = 128
+    if not all(eb.supports_fused_ea(b, h) for b in tr + va):
+        fail("cli f32 EA: a batch the fused block does not take")
+    each = CLI_LAYERS * CLI_DEFAULT_EPOCHS
+    expect_launches(f"cli/f32-ea ({CLI_DEFAULT_EPOCHS} epochs of {len(tr)} "
+                    f"train steps and {len(va)} val batch)", got,
+                    {"ea_block_fwd_simple": each * (len(tr) + len(va)),
+                     "ea_block_bwd_simple": each * len(tr)})
+    paths["cli/f32-ea"] = got
+    bad = {k: v for k, v in scalars.items()
+           if not all(math.isfinite(x) for x in v)}
+    best = os.path.join(run["log_dir"], "weights", "best")
+    if bad or not (math.isfinite(run["best_val_mape"])
+                   and os.path.exists(os.path.join(best, "state.pt"))):
+        fail(f"cli f32 EA train: {run}, non-finite scalars {bad}")
+    report("f32-ea", secs, step_ms=scalars["Perf/train_step_ms"],
+           best_val_mape=run["best_val_mape"],
+           losses={k: v for k, v in scalars.items() if "oss" in k},
+           n_node_cap=tr[0].n_node_cap, windows=list(tr[0].win_sidx.shape),
+           train_batches=len(tr), val_batches=len(va), launches=got)
+    del packs, tr, va
+    reset_launch_counts()
+    with recorded_packs(inference) as packs:
+        secs, _, served = cli_call([
+            "infer", "--model-path", best, "--data-dir", at("D/Validation"),
+            "--output-dir", at("I4")])
+    got = launch_counts()
+    expect_launches(f"cli/f32-ea serve ({len(packs[0])} batch)", got,
+                    {"ea_block_fwd_simple": CLI_LAYERS * len(packs[0])})
+    paths["cli/f32-ea-serve"] = got
+    check_close("cli/f32-ea/serve/mape vs the run's best val MAPE",
+                torch.tensor(served["MAPE"]),
+                torch.tensor(run["best_val_mape"]), PRED_TOL)
+    report("f32-ea-infer", secs, mape=served, launches=got)
     return paths
 
 
@@ -3130,6 +3243,202 @@ def widths_phase(dev, card, setup, vsetup):
         shape=times[k]["shape"], f32_err_over_max=worst.get(
             "f32_err_over_max")) for k in SIMPLE]
     print(json.dumps({"phase": "widths", "card": card,
+                      "s": time.perf_counter() - phase_t0}))
+    return kernels, paths
+
+
+# ---- phase 14: float32 and every H % 128 == 0 for the EA kernels ---------
+
+EA_SIMPLE = ("ea_block_fwd_simple", "ea_block_bwd_simple")
+EA_SIMPLE_SOURCE = "buckgnn_tpu_torch/csrc/ea_simple.cu"
+# each pass of the variants by the pass its kernels' names carry
+EA_SIMPLE_PASS_KERNELS = {p: (f"ea_simple::{p}",)
+                          for p in eb.FWD_PASSES + eb.BWD_PASSES}
+
+
+def ea_variant_shards(ebatch, dtype, h):
+    """#5's and #6's variants on shard 0 of the ea-virtual batch split in
+    two tile ranges (phase 12's `shard_case`), in 'hybrid' and 'autodiff'
+    mode at dropout 0.1: both within their gates against the plain
+    versions, the appended far rows' gradient included. Returns the
+    largest forward and backward errors."""
+    from buckgnn_tpu_torch.parallel.ea_shard import shard_ea_batch
+
+    x_full, e, w, bias = ea_case(ebatch, h, False, 95, dtype)
+    g = torch.Generator(device=x_full.device).manual_seed(96)
+    dzx = torch.randn(x_full.shape, generator=g,
+                      device=x_full.device).to(dtype)
+    dze = torch.randn(e.shape, generator=g, device=e.device).to(dtype)
+    shards = shard_ea_batch(ebatch, 2).to(ebatch.device)
+    kw = dict(skip=True, rate=RATE, seed=SEED, enc=False)
+    ferr = berr = 0.0
+    for mode in ("hybrid", "autodiff"):
+        name = f"ea-widths/{dtname(dtype)}/h{h}/D2/{mode}/shard0"
+        ctx, _, x, el, dz, dzel = shard_case(shards, 0, mode, x_full, e, dzx,
+                                             dze)
+        nl = ctx.n_local
+        v = ea_valid(ctx)
+        got = once("ea_block_fwd_simple", lambda: eb.ea_block_fwd(
+            x, el, w, bias, ctx, save_res=True, **kw))
+        ref = eb.ea_block_fwd_plain(x, el, w, bias, ctx, save_res=True, **kw)
+        for what, a, r in zip(("zx", "ze", "e1s", "m1s"), got, ref):
+            a, r = ((a[:nl], r[:nl]) if what == "zx" else
+                    (a.reshape(-1, h)[v], r.reshape(-1, h)[v]))
+            ferr = max(ferr, check_close(f"{name}/{what}", a, r,
+                                         eb.variant_fwd_tol(r, dtype)))
+        args = (dz, dzel, got[2], got[3], x, el, w, bias, ctx)
+        gb = once("ea_block_bwd_simple", lambda: eb.ea_block_bwd(*args, **kw))
+        rb = eb.ea_block_bwd_plain(*args, **kw)
+        berr = max(berr, ea_bwd_errors(name, gb, rb, ctx, h))
+        ok, n_err, r_err = remote_rows_check(name, gb, rb, ctx)
+        print(json.dumps({"check": f"{name}/remote_rows", "ok": ok,
+                          "rel_err": n_err, "row_rel_err": r_err}))
+        if not ok:
+            fail(f"{name}: the remote rows' gradient disagrees with the "
+                 "plain version")
+    return ferr, berr
+
+
+def ea_variant_timings(etrain, card):
+    """#5's and #6's float32 variants at the ea-virtual-f32 cell's shape,
+    with its model's own weights (layer 1: skip on; the forward also in
+    training form and in layer 0's encoder mode): ms, the plain version's,
+    the PyTorch float32 composition's (TF32 off) and the bound (f32
+    operations at 67 TFLOP/s against the bytes, `ea_bounds`). Returns
+    {kernel: numbers}."""
+    batch, model = etrain["batch"], etrain["state"].model
+    ctx = eb.make_ea_context(batch)
+    fe = batch.win_edges.shape[2]
+    with torch.no_grad():
+        x0 = model.node_encoder(batch.nodes)
+        w, bias = eb.block_weights(model.shared_gn_block, x0.dtype)
+        we, biase = eb.block_weights(model.shared_gn_block, x0.dtype,
+                                     model.edge_encoder)
+    raw = torch.nn.functional.pad(batch.win_edges, (0, eb.ENC_IN - fe)).to(
+        x0.dtype).contiguous()
+    g = torch.Generator(device=x0.device).manual_seed(97)
+    h = x0.shape[1]
+    e = torch.randn((*batch.win_sidx.shape, h), generator=g,
+                    device=x0.device)
+    args = (x0, e, w, bias, ctx)
+    fms = event_ms(lambda: eb.ea_block_fwd(*args, skip=True))
+    fb_ms, fb_by, bb_ms, bb_by, f_ops, b_ops = ea_bounds(
+        x0, e, w, ctx, enc=False, train=False)
+    tkw = dict(skip=True, save_res=True, rate=RATE, seed=SEED)
+    out = {"ea_block_fwd_simple": dict(
+        shape="ea-virtual-f32, layer 1 (skip on)", ms=fms,
+        training_ms=event_ms(lambda: eb.ea_block_fwd(*args, **tkw)),
+        encoder_training_ms=event_ms(lambda: eb.ea_block_fwd(
+            x0, raw, we, biase, ctx, skip=False, save_res=True, rate=RATE,
+            seed=SEED, enc=True)),
+        plain_ms=event_ms(lambda: eb.ea_block_fwd_plain(*args, skip=True),
+                          reps=3),
+        library_ms=event_ms(lambda: library_ea_fwd(*args, skip=True)),
+        bound_ms=fb_ms, bound_by=fb_by, flops=f_ops,
+        tflops=f_ops / fms / 1e9)}
+    _, _, e1s, m1s = eb.ea_block_fwd(*args, **tkw)
+    dzx = torch.randn(x0.shape, generator=g, device=x0.device)
+    dze = torch.randn(e.shape, generator=g, device=x0.device)
+    bargs = (dzx, dze, e1s, m1s) + args
+    bkw = dict(skip=True, rate=RATE, seed=SEED)
+    bms = event_ms(lambda: eb.ea_block_bwd(*bargs, **bkw))
+    out["ea_block_bwd_simple"] = dict(
+        shape="ea-virtual-f32, layer 1 (skip on), dropout 0.1", ms=bms,
+        plain_ms=event_ms(lambda: eb.ea_block_bwd_plain(*bargs, **bkw),
+                          reps=3),
+        library_ms=event_ms(lambda: library_ea_bwd(*bargs, skip=True)),
+        bound_ms=bb_ms, bound_by=bb_by, flops=b_ops,
+        tflops=b_ops / bms / 1e9)
+    for k, v in out.items():
+        print(json.dumps({"kernel": k, "card": card, **v}))
+    return out
+
+
+def ea_widths_phase(dev, card, esetup, etrain):
+    """Phase 14: kernels #5 and #6's float32 and any-width variants
+    (csrc/ea_simple.cu) against their plain versions at every (dtype, H)
+    of WIDTH_CASES on the small ragged EA batches, and in float32 at H 512
+    on the ea-virtual batch, in every mode; on a shard of a two-way tile
+    split; their gates catching faults; the same bits twice; the
+    ea-virtual-f32 cell served and trained through them (no engine
+    kernel); their times. Returns (kernel entries for the kernels line,
+    launches by path)."""
+    phase_t0 = time.perf_counter()
+    ebatch = esetup["batch"]
+    ectx = eb.make_ea_context(ebatch)
+    ragged = []
+    for rb in (ea_ragged_batch(dev), ea_ragged_batch(dev, 12, 552),
+               ea_ragged_batch(dev, 5, tile=64, align=64)):
+        t, wc = rb.win_sidx.shape
+        ragged.append((f"ragged-ea/t{t}/w{wc}/n{rb.n_node_cap}", rb,
+                       eb.make_ea_context(rb)))
+    if not ({(r[1].win_sidx.numel()) % 64 for r in ragged} - {0}
+            and any((r[1].n_node_cap // 64) % 2 for r in ragged)):
+        fail("the ragged EA batches must end in a partial 64-slot block "
+             "and in an odd 64-row block")
+    errs = {k: 0.0 for k in EA_SIMPLE}
+    worst = {}
+
+    def checks(label, batch, ctx, seed, dtype, h):
+        """ea_kernel_checks in ``dtype`` at ``h``, each case launching #5s
+        and #6s once and no other kernel."""
+        before = launch_counts()
+        f, b = ea_kernel_checks(label, batch, ctx, seed, h=h, dtype=dtype,
+                                worst=worst)
+        torch.cuda.synchronize()
+        n = sum(1 for enc, _, _ in EA_CASES if not (enc and h <= eb.ENC_HID))
+        expect_launches(f"{label} (checks)", {
+            k: v - before[k] for k, v in launch_counts().items()},
+            {k: n for k in EA_SIMPLE})
+        errs["ea_block_fwd_simple"] = max(errs["ea_block_fwd_simple"], f)
+        errs["ea_block_bwd_simple"] = max(errs["ea_block_bwd_simple"], b)
+
+    for dtype, h in WIDTH_CASES:
+        t0 = time.perf_counter()
+        for label, rb, rctx in ragged:
+            checks(f"ea-widths/{label}/{dtname(dtype)}/h{h}", rb, rctx, h,
+                   dtype, h)
+        print(json.dumps({"ea_widths": f"{dtname(dtype)}/h{h}", "card": card,
+                          "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    checks("ea-widths/ea-virtual/f32/h512", ebatch, ectx, 150, torch.float32,
+           512)
+    for dtype, h in ((torch.float32, 512), (torch.bfloat16, 384)):
+        f, b = ea_variant_shards(ebatch, dtype, h)
+        errs["ea_block_fwd_simple"] = max(errs["ea_block_fwd_simple"], f)
+        errs["ea_block_bwd_simple"] = max(errs["ea_block_bwd_simple"], b)
+    for label, rb, rctx in ragged[:2]:
+        ea_gates_catch_faults(f"ea-widths/{label}/f32/h384", rb, rctx,
+                              torch.float32, 384)
+    ea_gates_catch_faults("ea-widths/ea-virtual/f32/h512", ebatch, ectx,
+                          torch.float32, 512)
+    ea_gates_catch_faults(f"ea-widths/{ragged[1][0]}/bf16/h640", ragged[1][1],
+                          ragged[1][2], torch.bfloat16, 640)
+    ea_deterministic(f"ea-widths/{ragged[2][0]}", ragged[2][1], ragged[2][2],
+                     cases=((torch.float32, 384, True, False),
+                            (torch.bfloat16, 640, False, True)))
+    print(json.dumps({"ea_widths": "cell shape, shards, gates", "card": card,
+                      "s": time.perf_counter() - t0, **worst}))
+
+    rows = []
+    summary, paths, train = unfused_cell(
+        "ea-virtual-f32", dev, card, "ea_block_fwd_simple",
+        {"ea_block_fwd_simple": 1, "ea_block_bwd_simple": 1},
+        cell_data(etrain), rows_out=rows)
+    print(json.dumps(summary))
+    ea_pass_lines(rows, train["batch"], card,
+                  kernels=EA_SIMPLE_PASS_KERNELS, cell="ea-virtual-f32")
+    times = ea_variant_timings(train, card)
+    launches = paths["ea-virtual-f32_train"]
+    replaces = {"ea_block_fwd_simple": TPU_EA_FWD_KERNEL,
+                "ea_block_bwd_simple": TPU_EA_BWD_KERNEL}
+    kernels = [dict({
+        "name": k, "route": "cuda", "source": EA_SIMPLE_SOURCE,
+        "replaces": replaces[k], "launches": launches[k],
+        "max_abs_err": errs[k]}, **{f: times[k][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=times[k]["shape"], **worst) for k in EA_SIMPLE]
+    print(json.dumps({"phase": "ea_widths", "card": card,
                       "s": time.perf_counter() - phase_t0}))
     return kernels, paths
 
@@ -4014,6 +4323,10 @@ def main():
     # ---- 13. float32 and every H % 128 == 0: the simple variants -------
     width_kernels, width_paths = widths_phase(dev, card, setup, vsetup)
 
+    # ---- 14. the same for the EA kernels: the ea-virtual-f32 cell -------
+    ea_width_kernels, ea_width_paths = ea_widths_phase(dev, card, esetup,
+                                                       etrain)
+
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",
         "card": card, "infer_step_ms": serve["infer_step_ms"],
@@ -4098,7 +4411,8 @@ def main():
                "virtual_train": vtrain_launches,
                "ea_serve": eserve_launches,
                "ea_train": etrain_launches, **csr_paths, **unfused,
-               **run_paths, **cli_paths, **multi_paths, **width_paths}
+               **run_paths, **cli_paths, **multi_paths, **width_paths,
+               **ea_width_paths}
     print(json.dumps({"kernels": [{
         "name": "sage_layer_fwd", "route": "cuda",
         "source": "buckgnn_tpu_torch/csrc/sage_layer_fwd.cu",
@@ -4148,7 +4462,8 @@ def main():
         "max_abs_err": ea_bwd_err, "ms": eab_ms, "plain_ms": eab_plain_ms,
         "bound_ms": eab_bound_ms, "bound_by": eab_bound_by,
         "library_ms": eab_lib_ms,
-    }] + csr_kernels + width_kernels, "launches_by_path": by_path,
+    }] + csr_kernels + width_kernels + ea_width_kernels,
+        "launches_by_path": by_path,
         "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -754,10 +754,10 @@ def test_ea_engine_product_matches_matmul(n, k, transpose):
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
 
 
-def _ea_case(dev, h, enc, seed, which="full"):
-    """(batch, ctx, x, e_win, w, bias): lecun-normal bf16 weights, a bias
-    stack of 0.3 rms (a dropped cnt * b_p1 then fails the gate), x and the
-    window of unit rms (the raw features in encoder mode)."""
+def _ea_case(dev, h, enc, seed, which="full", dtype=torch.bfloat16):
+    """(batch, ctx, x, e_win, w, bias): lecun-normal weights in ``dtype``,
+    a bias stack of 0.3 rms (a dropped cnt * b_p1 then fails the gate), x
+    and the window of unit rms (the raw features in encoder mode)."""
     b, ctx = _ea_batch(dev, which)
     rng = np.random.default_rng(seed)
     dims = dict(wer=(h, h), wee=(h, h), wsp=(h, 2 * h), we1=(h, h),
@@ -766,7 +766,7 @@ def _ea_case(dev, h, enc, seed, which="full"):
     if enc:
         dims.update(wen0=(8, 128), wen1=(128, 128), wen2=(128, h))
     bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
-        dev, torch.bfloat16).contiguous()
+        dev, dtype).contiguous()
     w = {k: bf(rng.normal(size=d) / np.sqrt(d[0])) for k, d in dims.items()}
     bias = torch.from_numpy((rng.normal(size=(11 if enc else 8, h)) * 0.3)
                             .astype(np.float32)).to(dev)
@@ -774,7 +774,7 @@ def _ea_case(dev, h, enc, seed, which="full"):
     x[-1] = 0.0
     t, wc = b.win_sidx.shape
     if enc:
-        e = torch.nn.functional.pad(b.win_edges, (0, 3)).to(torch.bfloat16)
+        e = torch.nn.functional.pad(b.win_edges, (0, 3)).to(dtype)
     else:
         e = bf(rng.normal(size=(t, wc, h)))
     return b, ctx, bf(x), e.contiguous(), w, bias
@@ -813,8 +813,9 @@ def test_ea_forward_matches_plain_on_cuda(h, enc, skip, rate, which):
         assert 0.09 < float(drop_x.float().mean()) < 0.11
 
 
-def _ea_bwd(dev, h, enc, skip, rate, seed, which="full"):
-    b, ctx, x, e, w, bias = _ea_case(dev, h, enc, seed, which)
+def _ea_bwd(dev, h, enc, skip, rate, seed, which="full",
+            dtype=torch.bfloat16):
+    b, ctx, x, e, w, bias = _ea_case(dev, h, enc, seed, which, dtype)
     kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc)
     _, ze, e1s, m1s = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True,
                                       **kw)
@@ -976,11 +977,28 @@ def test_ea_gates_catch_faults_on_cuda(which):
 
 
 def test_ea_kernels_reject_what_they_do_not_take():
+    """float32 throughout takes the simple variant; mixed dtypes, float16
+    and a width no variant takes (H = 192) raise before any launch, the
+    last two naming the dtype and the width."""
     dev = _card()
     _, ctx, args, kw = _ea_bwd(dev, 128, False, False, 0.0, seed=41)
     dzx, dze, e1s, m1s, x, e, w, bias, _ = args
-    with pytest.raises(ValueError, match="bfloat16"):
+    f32 = {k: v.float() for k, v in w.items()}
+    before = dict(eb.LAUNCHES)
+    eb.ea_block_fwd(x.float(), e.float(), f32, bias, ctx, skip=False)
+    torch.cuda.synchronize()
+    assert eb.LAUNCHES == dict(
+        before, ea_block_fwd_simple=before["ea_block_fwd_simple"] + 1)
+    with pytest.raises(ValueError, match="x's dtype"):
         eb.ea_block_fwd(x.float(), e, w, bias, ctx, skip=False)
+    half = {k: v.half() for k, v in w.items()}
+    with pytest.raises(ValueError, match="torch.float16 at H = 128"):
+        eb.ea_block_fwd(x.half(), e.half(), half, bias, ctx, skip=False)
+    x192 = torch.zeros((x.shape[0], 192), dtype=x.dtype, device=dev)
+    with pytest.raises(ValueError, match="torch.bfloat16 at H = 192"):
+        eb.ea_block_fwd(x192, e, w, bias, ctx, skip=False)
+    assert eb.LAUNCHES == dict(
+        before, ea_block_fwd_simple=before["ea_block_fwd_simple"] + 1)
     with pytest.raises(ValueError, match="encoder mode needs H > 128"):
         raw = torch.zeros((*e.shape[:2], 8), dtype=x.dtype, device=dev)
         enc_w = dict(w, wen0=w["wee"][:8].contiguous(),
@@ -1543,3 +1561,196 @@ def test_unfused_banded_route_takes_the_simple_variant(dtype, h, kind,
     ref = run()
     for gv, rv in zip(got, ref):
         _vclose(gv, rv, dtype, bm.KERNEL_BANDED_TOL, frac=True)
+
+
+# ---- the simple variants of the EA block (csrc/ea_simple.cu) -------------
+
+# (dtype, H, encoder mode, skip, dropout rate): every mode of #5 and #6 at
+# every (dtype, H) of SIMPLE_CASES, the encoder at H > 128 only
+EA_SIMPLE_MODES = [(False, True, 0.0), (False, False, 0.1),
+                   (False, True, 0.1), (True, False, 0.0), (True, False, 0.1)]
+EA_SIMPLE_CASES = [(d, h, enc, skip, rate) for d, h in SIMPLE_CASES
+                   for enc, skip, rate in EA_SIMPLE_MODES
+                   if not (enc and h <= 128)]
+EA_SIMPLE_IDS = [f"{str(d)[6:]}-{h}-{'enc' if enc else 'plain'}-skip"
+                 f"{int(skip)}-rate{rate}"
+                 for d, h, enc, skip, rate in EA_SIMPLE_CASES]
+
+
+def _ea_counted(name, fn):
+    """fn()'s result, and that it launched EA kernel ``name`` once and no
+    other EA kernel."""
+    before = dict(eb.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    want = dict(before, **{name: before[name] + 1})
+    assert eb.LAUNCHES == want, (eb.LAUNCHES, want)
+    return out
+
+
+def _ea_vfwd_close(got, ref, ctx, h, dtype):
+    """zx, and ze, e1s and m1s on valid slots, within eb.variant_fwd_tol."""
+    v = ctx.recv >= 0
+    for name, a, r in zip(("zx", "ze", "e1s", "m1s"), got, ref):
+        if name != "zx":
+            a, r = a.reshape(-1, h)[v], r.reshape(-1, h)[v]
+        atol, rtol = eb.variant_fwd_tol(r, dtype)
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+def _ea_vbwd_close(got, ref, ctx):
+    """Every backward output within eb.bwd_tol (either dtype)."""
+    errs = eb.bwd_errors(got, ref, ctx)
+    for k, err in errs.items():
+        assert err <= eb.bwd_tol(k), (k, err)
+    return errs
+
+
+def _ea_simple_run(dev, dtype, h, enc, skip, rate, seed, which):
+    """#5's and #6's variants and their plain versions on one case: the
+    forward from the case's inputs, the backward from the variant's own
+    residuals and a seeded cotangent. Returns (ctx, x, fwd, fwd ref, bwd,
+    bwd ref)."""
+    b, ctx, x, e, w, bias = _ea_case(dev, h, enc, seed, which, dtype)
+    kw = dict(skip=skip, rate=rate, seed=SEED if rate else None, enc=enc)
+    got = _ea_counted("ea_block_fwd_simple", lambda: eb.ea_block_fwd(
+        x, e, w, bias, ctx, save_res=True, **kw))
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, save_res=True, **kw)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dzx = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    dze = torch.randn(got[1].shape, generator=g, device=dev).to(dtype)
+    args = (dzx, dze, got[2], got[3], x, e, w, bias, ctx)
+    gb = _ea_counted("ea_block_bwd_simple",
+                     lambda: eb.ea_block_bwd(*args, **kw))
+    rb = eb.ea_block_bwd_plain(*args, **kw)
+    return ctx, x, got, ref, gb, rb
+
+
+@pytest.mark.parametrize("dtype,h,enc,skip,rate", EA_SIMPLE_CASES,
+                         ids=EA_SIMPLE_IDS)
+@pytest.mark.parametrize("which", ["full", "partial", "odd"])
+def test_ea_simple_matches_plain_on_cuda(dtype, h, enc, skip, rate, which):
+    """#5's and #6's float32 / any-width variants on the small ragged
+    batches (one ends in a partial 64-slot block, one has N / 64 odd):
+    zx, ze, e1s and m1s within eb.variant_fwd_tol, the node mask's dropped
+    positions exact; dx, de_win, every dW and dbias within eb.bwd_tol
+    (the relu-mask flips that bound them are the same in float32, see
+    ops/ea_block.py); each launch counted under its simple name."""
+    dev = _card()
+    ctx, x, got, ref, gb, rb = _ea_simple_run(dev, dtype, h, enc, skip, rate,
+                                              h + 3 * skip, which)
+    _ea_vfwd_close(got, ref, ctx, h, dtype)
+    if rate:
+        drop_x = ~keep_mask(SEED, x.shape[0], h, rate, dev, row0=ctx.n_slots)
+        assert bool((got[0][drop_x] == 0).all())
+    if enc:
+        assert gb[1] is None and rb[1] is None
+    assert sorted(gb[2]) == sorted(rb[2])
+    _ea_vbwd_close(gb, rb, ctx)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "autodiff"])
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 384),
+                                     (torch.bfloat16, 640)])
+def test_ea_simple_far_grad_modes_on_cuda(mode, dtype, h):
+    """The variants on one shard of the "full" batch split in two tile
+    ranges, in 'hybrid' and 'autodiff' mode (skip on, dropout 0.1): the
+    forward and backward within their gates, the appended far rows'
+    gradient included."""
+    from buckgnn_tpu_torch.parallel.ea_shard import _ShardView, shard_ea_batch
+
+    dev = _card()
+    b, _, x_full, _, w, bias = _ea_case(dev, h, False, 45, dtype=dtype)
+    shards = shard_ea_batch(b, 2).to(dev)
+    fl = shards.cf_local if mode == "hybrid" else 0
+    ctx = eb.make_ea_context(_ShardView(shards, 1), mode, fl)
+    nl = ctx.n_local
+    assert ctx.ext_ids is not None and ctx.n_nodes > nl
+    x = eb.extended_rows(x_full[nl:2 * nl].contiguous(), ctx, x_full)
+    g = torch.Generator(device=dev).manual_seed(47)
+    t, wc = shards.sidx.shape[1:]
+    e = torch.randn((t, wc, h), generator=g, device=dev).to(dtype)
+    kw = dict(skip=True, rate=0.1, seed=SEED, enc=False)
+    got = _ea_counted("ea_block_fwd_simple", lambda: eb.ea_block_fwd(
+        x, e, w, bias, ctx, save_res=True, **kw))
+    ref = eb.ea_block_fwd_plain(x, e, w, bias, ctx, save_res=True, **kw)
+    _ea_vfwd_close(got, ref, ctx, h, dtype)
+    dzx = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    dzx[nl:] = 0
+    dze = torch.randn(e.shape, generator=g, device=dev).to(dtype)
+    args = (dzx, dze, got[2], got[3], x, e, w, bias, ctx)
+    gb = _ea_counted("ea_block_bwd_simple",
+                     lambda: eb.ea_block_bwd(*args, **kw))
+    rb = eb.ea_block_bwd_plain(*args, **kw)
+    _ea_vbwd_close(gb, rb, ctx)
+    n_ext = nl + ctx.ext_ids.numel()
+    remote = rb[0][nl:n_ext]
+    assert float(remote.float().abs().max()) > 0
+    assert eb.rel_err(gb[0][nl:n_ext], remote) <= eb.bwd_tol("dx")
+    assert (eb.row_rel_err(gb[0][nl:n_ext], remote)
+            <= eb.bwd_tol("dx_row"))
+
+
+@pytest.mark.parametrize("which", ["odd", "tile64"])
+def test_ea_simple_is_deterministic(which):
+    """No float atomics: two calls of each variant give the same bits, in
+    encoder mode (float32 H 384) and with the skip (bf16 H 640), on
+    batches with N / 64 odd."""
+    dev = _card()
+    for dtype, h, enc, skip in ((torch.float32, 384, True, False),
+                                (torch.bfloat16, 640, False, True)):
+        _, ctx, args, kw = _ea_bwd(dev, h, enc, skip, 0.1, seed=23,
+                                   which=which, dtype=dtype)
+        x, e, w, bias = args[4:8]
+        outs = []
+        for _ in range(2):
+            fwd = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+            dx, de, dw, dbias = eb.ea_block_bwd(*args, **kw)
+            outs.append(list(fwd) + [dx, dbias] + ([] if enc else [de])
+                        + [dw[k] for k in sorted(dw)])
+        torch.cuda.synchronize()
+        for a, c in zip(*outs):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 384),
+                                     (torch.bfloat16, 640)])
+@pytest.mark.parametrize("which", ["full", "partial"])
+def test_ea_simple_gates_catch_faults(dtype, h, which):
+    """The variants' outputs against faulty plain versions, at the dtype's
+    gates: a forward without its far senders, its cnt * b_p1 term or its
+    skip fails eb.variant_fwd_tol; a backward without its sender fold (the
+    halo, the far rows, one node's sender run, one far rank, the first
+    tile's halo) fails dx's norm or row gate, and one without the far rows
+    also dW_sp's."""
+    dev = _card()
+    b, ctx, args, kw = _ea_bwd(dev, h, False, True, 0.1, seed=33,
+                               which=which, dtype=dtype)
+    x, e, w, bias = args[4:8]
+    zx, ze = eb.ea_block_fwd(x, e, w, bias, ctx, **kw)
+    v = ctx.recv >= 0
+    no_far = eb.sender_faults(b, ctx)["no-far-fold"]
+    no_cnt_b = bias.clone()
+    no_cnt_b[3] = 0.0
+
+    def passes(got, ref):
+        atol, rtol = eb.variant_fwd_tol(ref, dtype)
+        err = (got.float() - ref.float()).abs()
+        return not bool((err > atol + rtol * ref.float().abs()).any())
+
+    for fault, fargs, fkw in (
+            ("no-far", (x, e, w, bias, no_far), kw),
+            ("no-cnt-b", (x, e, w, no_cnt_b, ctx), kw),
+            ("no-skip", (x, e, w, bias, ctx), dict(kw, skip=False))):
+        fzx, fze = eb.ea_block_fwd_plain(*fargs, **fkw)
+        assert not (passes(fzx, zx) and passes(
+            fze.reshape(-1, h)[v], ze.reshape(-1, h)[v])), fault
+    got = eb.ea_block_bwd(*args, **kw)
+    for fault, bad in eb.sender_faults(b, ctx).items():
+        errs = eb.bwd_errors(got, eb.ea_block_bwd_plain(*args[:-1], bad, **kw),
+                             ctx)
+        assert (errs["dx"] > eb.bwd_tol("dx")
+                or errs["dx_row"] > eb.bwd_tol("dx_row")), (fault, errs)
+        if fault == "no-far-fold":
+            assert errs["dwsp"] > eb.bwd_tol("dwsp"), errs

@@ -282,7 +282,9 @@ def test_wrappers_take_the_plain_version_on_cpu():
                                  save_res=True)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert eb.LAUNCHES == {"ea_block_fwd": 0, "ea_block_bwd": 0}
+    assert eb.LAUNCHES == {"ea_block_fwd": 0, "ea_block_bwd": 0,
+                           "ea_block_fwd_simple": 0,
+                           "ea_block_bwd_simple": 0}
 
 
 def test_scope_guards():
