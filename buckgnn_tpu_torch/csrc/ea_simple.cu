@@ -11,8 +11,9 @@
 // which compute in x's dtype at any H % 128 == 0 (pallas_ea_block.py:912-
 // 923, 962). The engine kernels (ea_block_fwd.cu, ea_block_bwd.cu) stream
 // bf16 operands MN-major into wgmma, which takes tf32 only K-major, and one
-// pass of TF32 keeps three digits, so these are written for plain FFMA in
-// full float32 instead, on the product tile of simple.cuh.
+// pass of TF32 keeps three digits, so these take their products from the
+// tile of simple.cuh instead: float32 operands split into tf32 hi and lo
+// parts as they are loaded, 3xTF32 wgmma, float32 accuracy.
 //
 // What each computes is the engine kernels' function, cast point for cast
 // point: the chain of ops/ea_block.py's module docstring, step by step as
@@ -25,12 +26,12 @@
 // 'autodiff' are rows like any other. Each pass of the engine kernels
 // (FWD_PASSES, BWD_PASSES of ops/ea_block.py) is a few launches of four
 // pieces, every kernel's name carrying its pass (profiles):
-//  - the product tile (simple::gemm_kernel) with this file's epilogue
-//    `Epi`: gathered projection rows by slot (p_r[recv], p_s[send], p_p
+//  - the product tile (simple::gemm_kernel, 128-row tiles of two 64-row
+//    halves) with this file's epilogue `Epi`: gathered projection rows by slot (p_r[recv], p_s[send], p_p
 //    [send]; id < 0 adds nothing), the bias row or the mean's (v + cnt *
 //    b_p1) / max(cnt, 1), an f32 addend, a dropped addend (dz_e, dz_x), a
-//    relu mask from a stored tensor, relu, per-block column sums of the
-//    result (the bias gradients, cnt-weighted for b_p1), stores in f32
+//    relu mask from a stored tensor, relu, per-64-row-block column sums of
+//    the result (the bias gradients, cnt-weighted for b_p1), stores in f32
 //    and the element type, and the skip and dropout before the block's
 //    outputs;
 //  - run_sums_kernel: a warp a node, the f32 sum in slot order over its
@@ -49,10 +50,10 @@
 //
 // What bounds them on an H100: at the ea-virtual shape (224,650 valid slots
 // of E = 239,168, N = 51,712, H = 512) ops/ea_block.py::pass_flops counts
-// 597 GFLOP for #5 and 1,448 for #6: 8.9 and 21.6 ms at the 67 TFLOP/s
-// FFMA peak, bound by operations. This first version stores every
-// intermediate (the engine keeps the chain in shared memory) and its
-// product tile reaches a fraction of the FFMA peak (PERF.md has the times).
+// 597 GFLOP for #5 and 1,448 for #6 of float32 products, 3 tf32 products
+// each: 3.6 and 8.8 ms at the 495 TFLOP/s TF32 rate, bound by operations.
+// This version stores every intermediate (the engine keeps the chain in
+// shared memory; PERF.md has the times).
 
 #include "simple.cuh"
 
@@ -60,11 +61,10 @@ namespace ea_simple {
 
 using simple::bf16;
 using simple::Drop;
-using simple::GBM;
-using simple::GBN;
 using simple::Gemm;
 using simple::ld4;
 using simple::ld4c;
+using simple::Rows;
 using simple::st4;
 
 // the passes, named in every kernel they launch
@@ -79,7 +79,7 @@ struct bwd_weights {};
 constexpr int ENC_IN = 8;     // raw edge-feature lanes (zero-padded)
 constexpr int ENC_HID = 128;  // the edge encoder's padded hidden width
 constexpr int CHUNK = 2048;   // rows of a weight-gradient chunk
-constexpr int RB = 64;        // rows of a column-sum block (GBM)
+constexpr int RB = simple::HALF;  // rows of a column-sum block
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -102,9 +102,9 @@ __device__ __forceinline__ float dropped(const Drop& d, uint32_t rk, int col,
 // column c; every [rows, N] tensor of row stride ldc): v += g0[ids0[r]],
 // g1[ids1[r]] (id < 0: nothing); v = (v + cnt[r] * bias) / max(cnt[r], 1)
 // with cnt, else v += bias; v += add32; v += dropout(dadd) (d.on, rows
-// row0 + r); v = mask > 0 ? v : 0; relu; the block's column sums of v
-// (cnt[r] * v with cs_cnt) into colsum[blockIdx.x, N]; out_f = v, out_t =
-// T(v); out2 = T(dropout(v (+ skip))).
+// row0 + r); v = mask > 0 ? v : 0; relu; the column sums of v (cnt[r] * v
+// with cs_cnt) over each 64-row block b into colsum[b, N]; out_f = v, out_t
+// = T(v); out2 = T(dropout(v (+ skip))).
 template <typename T, class Pass>
 struct Epi {
   const T* g0;
@@ -128,102 +128,100 @@ struct Epi {
   Drop d;
   int row0;
 
+  // a batch of rows' loads are issued before any is used: the gathers
+  // and masks of BATCH rows in flight at once
   template <typename U>
   __device__ __forceinline__ void operator()(const Gemm& g,
-                                             float (&acc)[4][8], int m0,
-                                             int n0, int ty, int tx,
-                                             float (*red)[GBN]) const {
+                                             const Rows& f) const {
+    constexpr int B = simple::BATCH;
     const int mv = g.rows ? g.rows : g.m;
     const int ld = g.ldc;
-    float cs[8];
+    const int col = f.col();
+    float bb[4] = {0.f, 0.f, 0.f, 0.f};
+    if (bias) ld4(bias + col, bb);
+    float cs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int i0 = 0; i0 < RB / 4; i0 += B) {
+      int row[B];
+      bool ok[B];
+      float v[B][4], x0[B][4], x1[B][4], xa[B][4], xd[B][4], xm[B][4],
+          xs[B][4], cn[B];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) cs[j] = 0.f;
+      for (int u = 0; u < B; ++u) {
+        row[u] = f.row(i0 + u);
+        ok[u] = row[u] < mv;
+        f.sums(i0 + u, v[u]);
+        cn[u] = cnt && ok[u] ? cnt[row[u]] : 0.f;
+      }
+      gather(g0, ids0, ld0, row, ok, col, x0);
+      gather(g1, ids1, ld1, row, ok, col, x1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row >= mv) continue;
-      const int id0 = g0 ? ids0[row] : -1;
-      const int id1 = g1 ? ids1[row] : -1;
-      const float cn = cnt ? cnt[row] : 0.f;
-      const uint32_t rk =
-          d.on ? sage::row_key(d.s0, (uint32_t)(row0 + row)) : 0u;
-      const size_t ro = (size_t)row * ld;
+      for (int u = 0; u < B; ++u) {
+        const size_t ro = (size_t)row[u] * ld + col;
+        if (add32 && ok[u]) ld4c(add32 + ro, xa[u]);
+        if (dadd && ok[u]) ld4(dadd + ro, xd[u]);
+        if (mask && ok[u]) ld4(mask + ro, xm[u]);
+        if (out2 && skip && ok[u]) ld4(skip + ro, xs[u]);
+      }
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = n0 + half * 64 + tx * 4;
-        float v[4], t[4];
+      for (int u = 0; u < B; ++u) {
+        if (!ok[u]) continue;
+        const uint32_t rk =
+            d.on ? sage::row_key(d.s0, (uint32_t)(row0 + row[u])) : 0u;
+        const size_t ro = (size_t)row[u] * ld + col;
+        float* x = v[u];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = acc[i][half * 4 + j];
-        if (id0 >= 0) {
-          ld4(g0 + (size_t)id0 * ld0 + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += t[j];
+        for (int q = 0; q < 4; ++q) {
+          if (g0) x[q] += x0[u][q];
+          if (g1) x[q] += x1[u][q];
+          if (cnt) {
+            x[q] = (x[q] + cn[u] * bb[q]) / fmaxf(cn[u], 1.f);
+          } else {
+            x[q] += bb[q];
+          }
+          if (add32) x[q] += xa[u][q];
+          if (dadd) x[q] += d.on ? dropped(d, rk, col + q, xd[u][q])
+                                 : xd[u][q];
+          if (mask) x[q] = xm[u][q] > 0.f ? x[q] : 0.f;
+          if (relu) x[q] = fmaxf(x[q], 0.f);
+          if (colsum) cs[q] += cs_cnt ? cn[u] * x[q] : x[q];
         }
-        if (id1 >= 0) {
-          ld4(g1 + (size_t)id1 * ld1 + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += t[j];
-        }
-        if (cnt) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) t[j] = 0.f;
-          if (bias) ld4(bias + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = (v[j] + cn * t[j]) / fmaxf(cn, 1.f);
-        } else if (bias) {
-          ld4(bias + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += t[j];
-        }
-        if (add32) {
-          ld4c(add32 + ro + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += t[j];
-        }
-        if (dadd) {
-          ld4(dadd + ro + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] += d.on ? dropped(d, rk, col + j, t[j]) : t[j];
-        }
-        if (mask) {
-          ld4(mask + ro + col, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = t[j] > 0.f ? v[j] : 0.f;
-        }
-        if (relu) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = fmaxf(v[j], 0.f);
-        }
-        if (colsum) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cs[half * 4 + j] += cs_cnt ? cn * v[j] : v[j];
-        }
-        if (out_f) st4(out_f + ro + col, v);
-        if (out_t) st4(out_t + ro + col, v);
+        if (out_f) st4(out_f + ro, v[u]);
+        if (out_t) st4(out_t + ro, v[u]);
         if (out2) {
-          if (skip) {
-            ld4(skip + ro + col, t);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] += t[j];
+          for (int q = 0; q < 4; ++q) {
+            if (skip) x[q] += xs[u][q];
+            if (d.on) x[q] = dropped(d, rk, col + q, x[q]);
           }
-          if (d.on) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] = dropped(d, rk, col + j, v[j]);
-          }
-          st4(out2 + ro + col, v);
+          st4(out2 + ro, v[u]);
         }
       }
     }
-    if (colsum) {
-      // the block's 64 rows, in row order: 4 a thread, then 16 threads
+    // the 64-row block's column sums (a half past the rows has none)
+    if (colsum && f.base < mv)
+      simple::half_colsum(cs, f,
+                          colsum + (size_t)(f.base / RB) * g.n + f.n0);
+  }
+
+  // x[u] = gp[ids[row[u]]] at 4 columns (zeros for id < 0 or a row past
+  // the rows), the ids of the batch first, then its gathers
+  __device__ __forceinline__ void gather(const T* gp, const int* ids, int ldg,
+                                         const int (&row)[simple::BATCH],
+                                         const bool (&ok)[simple::BATCH],
+                                         int col,
+                                         float (&x)[simple::BATCH][4]) const {
+    if (!gp) return;
+    int id[simple::BATCH];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) red[ty][(j / 4) * 64 + tx * 4 + j % 4] = cs[j];
-      __syncthreads();
-      if (threadIdx.x < GBN) {
-        float s = 0.f;
-        for (int r = 0; r < GBM / 4; ++r) s += red[r][threadIdx.x];
-        colsum[(size_t)blockIdx.x * g.n + n0 + threadIdx.x] = s;
+    for (int u = 0; u < simple::BATCH; ++u) id[u] = ok[u] ? ids[row[u]] : -1;
+#pragma unroll
+    for (int u = 0; u < simple::BATCH; ++u) {
+      if (id[u] >= 0) {
+        ld4(gp + (size_t)id[u] * ldg + col, x[u]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[u][q] = 0.f;
       }
     }
   }
@@ -247,7 +245,7 @@ cudaError_t prod(const T* a0, int lda0, const T* b0, int ldb0, int k0,
   g.ldb1 = ldb1;
   g.k0 = g.kchunk = k0;
   g.k1 = k1;
-  g.m = (rows + GBM - 1) / GBM * GBM;
+  g.m = (rows + RB - 1) / RB * RB;
   g.rows = rows;
   g.n = n;
   g.ldc = ldc;
@@ -839,7 +837,7 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
 }
 
 bool shapes_ok(int n, int e, int h) {
-  return n > 0 && e > 0 && n % GBM == 0 && h > 0 && h % 128 == 0;
+  return n > 0 && e > 0 && n % RB == 0 && h > 0 && h % 128 == 0;
 }
 
 template <typename T>

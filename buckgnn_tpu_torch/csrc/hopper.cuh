@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's products: mbarriers, TMA
 // tensor copies (plain and multicast to a 2-block cluster), wgmma with its
 // shared-memory descriptors, cp.async row copies, named barriers and the
-// host-side tensor maps. Used by the product engine (engine.cuh) and the
-// split-K weight pass (atb.cuh).
+// host-side tensor maps. Used by the product engine (engine.cuh), the
+// split-K weight pass (atb.cuh) and the 3xTF32 product tile (simple.cuh).
 //
 // Layout: operand tiles in shared memory come in slices 32 bf16 deep along
 // K, in one of two swizzles:
@@ -19,6 +19,11 @@
 //    columns 32-63 of a chunk 64 bytes in (the swizzle is a function of
 //    the address, so TMA's and wgmma's agree).
 // Epilogues that write a K-major tile from registers use `sw64`.
+// tf32 operands (simple.cuh's 3xTF32 tile): wgmma takes them K-major only,
+// here in the 128-byte swizzle: a slice is [rows, 32] tf32 with 128-byte
+// rows; element (r, k) sits at r * 128 + ((k / 4) ^ (r & 7)) * 16 + (k %
+// 4) * 4 (`sw128`). Descriptor: SBO 1024 (8 rows), LBO unused; each k8
+// step starts 32 bytes further in.
 #pragma once
 
 #include <cuda.h>
@@ -34,6 +39,12 @@ typedef __nv_bfloat16 bf16;
 // byte offset of element (r, k) in a K-major 64-byte-swizzled slice
 __host__ __device__ constexpr uint32_t sw64(int r, int k) {
   return (uint32_t)(r * 64 + (((k >> 3) ^ ((r >> 1) & 3)) << 4) + (k & 7) * 2);
+}
+
+// byte offset of the 16-byte chunk ``c`` (tf32 k = 4c..4c+3) of row ``r``
+// in a K-major 128-byte-swizzled tf32 slice
+__host__ __device__ constexpr uint32_t sw128(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -212,6 +223,12 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr, int kk) {
   return desc(addr + kk * 2048, 4096, 1024, SW128_MODE);
 }
 
+// descriptor of a K-major 128-byte-swizzled tf32 slice at addr (k8 step
+// ``kk``)
+__device__ __forceinline__ uint64_t desc_k128(uint32_t addr, int kk) {
+  return desc(addr + kk * 32, 16, 1024, SW128_MODE);
+}
+
 // byte offset of column (M or N) ``c`` in an MN-major slice
 __host__ __device__ constexpr uint32_t mn_col(int c) {
   return (uint32_t)((c / 64) * 4096 + (c % 64) * 2);
@@ -361,6 +378,38 @@ __device__ __forceinline__ void wgmma(float (&d)[R], uint64_t da, uint64_t db,
     wgmma_n128<TA, TB>(d, da, db, scale_d);
   else
     wgmma_n256<TA, TB>(d, da, db, scale_d);
+}
+
+// d[64] (+)= A[64, 8] @ B[8, 128]: tf32 in (both K-major), f32 sums;
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the tf32 value nearest x (ties away from zero), in f32 bits with the low
+// 13 zero: the hi or lo part of a 3xTF32 operand
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
 // ---- the weight ring -----------------------------------------------------

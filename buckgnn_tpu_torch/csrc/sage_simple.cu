@@ -17,7 +17,8 @@
 // engine kernels (sage_layer_fwd.cu, sage_layer_bwd.cu, banded_matmul.cu)
 // stream bf16 x slabs and weights MN-major into wgmma, which takes tf32
 // operands K-major only, so they cannot be templated to float32; these
-// kernels are written for plain FFMA instead, in full float32 (no TF32).
+// kernels take their products from simple.cuh's tile instead, which splits
+// float32 operands for 3xTF32 wgmma as it loads them (float32 accuracy).
 //
 // What each computes is what the engine kernel computes (their headers say
 // it in full), with the same slab start s_t = clip(t*T - W/2, 0, N - (T+W)),
@@ -35,9 +36,10 @@
 //    acc. #4 alone; #1's phase 1 (agg = x_dtype(acc)); #2's band pass (dx =
 //    x_dtype(band @ dagg slab + dxp)).
 //  - gemm_kernel (simple.cuh, shared with ea_simple.cu): C = A0 @ op(B0)
-//    (+ A1 @ op(B1)) (+ bias) (+ add), f32 FFMA on 64 x 128 tiles, 256
-//    threads of 4 x 8 sums, 16-deep slices in shared memory with the next
-//    slice's loads in flight in registers. #1's out = agg @ W_l + x @ W_r
+//    (+ A1 @ op(B1)) (+ bias) (+ add) on the tensor cores in 3xTF32 (bf16
+//    operands in one tf32 pass), 128 x 128 tiles, a producer warpgroup
+//    splitting 32-deep slices into a ring, two wgmma warpgroups. #1's out
+//    = agg @ W_l + x @ W_r
 //    + b_l (f32); the backward's dagg = dout @ W_l^T and dxp = dout @
 //    W_r^T (+ dz_eff); dW = [agg | x]^T @ dout split over row chunks
 //    (blockIdx.z) into f32 partials that sum_parts adds in chunk order.
@@ -56,13 +58,12 @@
 // No float atomics: two runs give the same bits.
 //
 // What bounds them on an H100: at the flagship shape (N = 103,424, H = 512,
-// T + W = 320) #1 is 4 N H^2 = 108 GFLOP of f32 products (1.6 ms at the
-// 67 TFLOP/s FFMA peak) beside the band's few nonzeros a row, and the
-// backward twice that, so they are bound by operations; the band kernel
-// alone is bound by bytes (x, the band, acc and out). This first version
-// is simple: its product tile reaches a fraction of the FFMA peak (PERF.md
-// has the times), and it is first in line for a redesign (3xTF32 on the
-// tensor cores, or the engine's persistent ring).
+// T + W = 320) #1 is 4 N H^2 = 108 GFLOP of f32 products, 3 tf32 products
+// each (2.0 ms at the 495 TFLOP/s TF32 rate) beside the band's few nonzeros
+// a row, and the backward twice that, so they are bound by operations; the
+// band kernel alone is bound by bytes (x, the band, acc and out). The row
+// passes, the band and the code sums are separate launches that read and
+// write device memory (PERF.md has the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

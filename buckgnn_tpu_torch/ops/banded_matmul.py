@@ -21,8 +21,9 @@ alone: bf16 at H in ``ENGINE_WIDTHS`` takes ``csrc/banded_matmul.cu``
 (``csrc/banded.cuh::band_kernel``, on persistent clusters of the product
 engine), counted in ``ops/sage_layer.py::LAUNCHES["banded_matmul"]``;
 float32, and bf16 at every other H % 128 == 0, take
-``csrc/sage_simple.cu::band_simple`` (FFMA, a warp a row over the row's
-nonzero counts), counted in ``LAUNCHES["banded_matmul_simple"]``. The rule
+``csrc/sage_simple.cu::band_simple`` (f32 FMAs, a warp a row over the
+row's nonzero counts), counted in ``LAUNCHES["banded_matmul_simple"]``. The
+rule
 is static: a failed build or launch raises, it never sends a call to the
 other kernel. On CPU tensors the wrapper runs `banded_matmul_plain`, the
 plain PyTorch version with the TPU kernel's casts.
@@ -85,15 +86,54 @@ def variant_of(x: torch.Tensor, check) -> str:
 # message moves its row by about rms(x) per entry and fails it.
 KERNEL_BANDED_TOL = (1e-2, 8e-3)
 # The float32 variants against their float32 plain versions, as atol =
-# SIMPLE_F32_TOL * max|ref| (rtol 0): both sides sum the same float32
-# products in another order (f32 FFMA against the plain version's matmuls
-# with TF32 off), a sum of K terms rounding at about sqrt(K) * 2^-24 of its
-# terms' size. On an H100 at H 128-1024: z, y, agg, dx and the tables
-# (K <= 2H + T + W) at most 2.7e-6 of max|ref|; dW, whose sums run over N
-# rows (chunks of at most 2048, ops/sage_layer.py::_ksplit), reached
-# 7.7e-6 at H 1024 with 34,500-row chunks. A dropped bias, spill run,
-# star row or norm term moves entries by O(rms) and fails it.
+# SIMPLE_F32_TOL * max|ref| (rtol 0). The variants' products run on the
+# tensor cores in 3xTF32 (csrc/simple.cuh): each float32 operand x is split
+# into hi = tf32(x) and lo = tf32(x - hi), which keep about 2^-22 of x,
+# and the sums take hi.hi + hi.lo + lo.hi (`mm_3xtf32` models it); the
+# plain versions' matmuls run in float32 with TF32 off. Both sides then
+# sum nearly the same float32 products in another order, a sum of K terms
+# rounding at about sqrt(K) * 2^-24 of its terms' size. On an H100 (NVIDIA
+# H100 80GB HBM3, 700 W; chip_smoke.py phase 13) #1s-#4s's outputs (z, y,
+# agg, dx, the tables and dW over N rows in chunks, ops/sage_layer.py::
+# _ksplit) at H 128-1024 lay within 3.6e-6 of max|ref|; from a float64
+# evaluation of #3's plain version the kernel lay 1.1e-6 of max and the
+# float32 plain version 3.5e-6. One TF32 pass (hi.hi alone) keeps about
+# 2^-11 of each operand: on the card's operands of #3s's and #6s's
+# products it lay 2.8e-4 to 3.5e-4 of max, outside this gate. A dropped
+# bias, spill run, star row or norm term moves entries by O(rms) and fails
+# it.
 SIMPLE_F32_TOL = 1e-5
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to the nearest tf32 value (10 mantissa bits),
+    ties away from zero, as PTX ``cvt.rna.tf32.f32`` does on the card: half
+    a tf32 unit (0x1000) added to the magnitude bits, the low 13 bits
+    cleared. Subnormals round the same way, a value past the largest tf32
+    value below inf becomes inf, inf and nan pass unchanged. The product
+    tile's split (csrc/simple.cuh): hi = tf32_round(x), lo =
+    tf32_round(x - hi). For tests and chip_smoke.py; the port's kernels do
+    this on the card."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = (bits + 0x1000) & -0x2000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, lo: bool = True
+              ) -> torch.Tensor:
+    """a @ b (float32 [M, K] @ [K, N]) with the product tile's split
+    arithmetic: hi.hi + hi.lo + lo.hi of the operands' tf32 parts (lo.lo
+    left out), each product and the sums in float64, rounded once to
+    float32; with ``lo=False`` one TF32 pass, hi.hi alone. What the split
+    keeps of the operands, not the card's order of sums. For tests and
+    chip_smoke.py."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = ah.double() @ bh.double()
+    if lo:
+        al, bl = tf32_round(a.float() - ah), tf32_round(b.float() - bh)
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out.float()
 
 
 def variant_tol(ref: torch.Tensor, dtype: torch.dtype, bf16_tol,

@@ -69,8 +69,9 @@ kernel_variant``'s static rule on x's (dtype, H), the SAGE kernels' rule:
 bf16 at H in {128, 256, 512} takes the product engine's kernels
 (csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu), counted in ``LAUNCHES`` as
 "ea_block_fwd" / "ea_block_bwd"; float32 at every H % 128 == 0, and bf16
-at the other widths, take the FFMA variants of csrc/ea_simple.cu, counted
-as "ea_block_fwd_simple" / "ea_block_bwd_simple"; any other dtype or width
+at the other widths, take the variants of csrc/ea_simple.cu (products on
+csrc/simple.cuh's 3xTF32 tensor-core tile), counted as
+"ea_block_fwd_simple" / "ea_block_bwd_simple"; any other dtype or width
 raises a ValueError naming both. A failed build or launch raises: nothing
 gives way to another kernel or to the plain version. On CPU tensors they
 run the plain versions (`ea_block_fwd_plain`, `ea_block_bwd_plain`), which
@@ -147,24 +148,23 @@ KERNEL_BWD_TOL = {"dx": 1e-2, "de_win": 1e-2, "dw": 3e-2, "dx_row": 0.12,
 ROW_FLOOR = 0.1
 # The float32 variants (csrc/ea_simple.cu) against the float32 plain
 # versions. The forward takes bm.variant_tol's float32 gate, SIMPLE_F32_TOL
-# of max|ref| per entry (`variant_fwd_tol`): both sides sum the same f32
-# products in another order, and a relu input that lands on the other side
-# of zero moves its output by no more than its own rounding. On an H100
-# (NVIDIA H100 80GB HBM3, 700 W) over the card tests' 114 float32 cases
-# (H 128-1024, plain and encoder mode, skip on and off, dropout 0 and 0.1)
-# zx, ze, e1 and m1 lay within 1.4e-6 of max|plain|. The backward takes
-# the bf16 gates above, KERNEL_BWD_TOL: its error is a relu mask flip, as
-# in bf16. The node side's masks (g1, b1) and the encoder's are recomputed
-# from f32 sums in another order, and a pre-activation within their
-# rounding of zero flips one element by its whole cotangent. In the same
-# measurement 11 cases of 114 moved by one such flip, in either path: each
-# time one of the two lay within 1.1e-6 of a float64 evaluation of the
-# plain version and the other did not, the kernel at most 5.6e-4 from it
-# in dx's norm and the plain version 1.1e-3. The worst kernel-vs-plain
-# errors: dx 1.1e-3 by norm and 3.0% per row, de_win 2.1e-4 and 0.71%,
-# the weights 6.6e-3 (dW_b0), dbias 2.2e-3; without a flip dx lay within
-# 2.5e-5 (median 7.2e-7). At the ea-virtual-f32 shape: dx 2.1e-4, 3.0%
-# per row.
+# of max|ref| per entry (`variant_fwd_tol`): the variants' products run in
+# 3xTF32 on the tensor cores (csrc/simple.cuh), which keeps float32's
+# accuracy, so both sides sum nearly the same f32 products in another
+# order, and a relu input that lands on the other side of zero moves its
+# output by no more than its own rounding. On an H100 (NVIDIA H100 80GB
+# HBM3, 700 W; chip_smoke.py phase 14, H 128-1024, plain and encoder mode,
+# skip on and off, dropout 0 and 0.1) zx, ze, e1 and m1 lay within 2.3e-6
+# of max|plain|. The backward takes the bf16 gates above, KERNEL_BWD_TOL:
+# its error is a relu mask flip, as in bf16. The node side's masks (g1,
+# b1) and the encoder's are recomputed from f32 sums in another order, and
+# a pre-activation within their rounding of zero flips one element by its
+# whole cotangent, in either path: at the ea-virtual-f32 shape the
+# kernel's dx lay 7.4e-5 in norm from a float64 evaluation of the plain
+# version, the float32 plain version 1.5e-4. With the earlier FFMA tile 11
+# of the card tests' 114 float32 cases moved by one such flip, the worst
+# kernel-vs-plain errors dx 1.1e-3 by norm and 3.0% per row, de_win 2.1e-4
+# and 0.71%, the weights 6.6e-3 (dW_b0), dbias 2.2e-3.
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:

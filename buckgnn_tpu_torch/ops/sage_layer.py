@@ -30,8 +30,9 @@ PyTorch versions (`sage_layer_plain`, `sage_layer_bwd_plain`,
 launches is ops/banded_matmul.py::kernel_variant's static rule on (dtype,
 H): bf16 at H in {128, 256, 512} the product engine's
 (``sage_layer_fwd.cu``, ``sage_layer_bwd.cu``), float32 at any H % 128 ==
-0 and bf16 at the other widths ``sage_simple.cu``'s (FFMA, a few launches
-a call), each counted under its own name (``*_simple``).
+0 and bf16 at the other widths ``sage_simple.cu``'s (a few launches a
+call, the products on ``simple.cuh``'s 3xTF32 tensor-core tile), each
+counted under its own name (``*_simple``).
 `fused_sage_layer` is the layer as the model calls it: a
 ``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom
 VJP) with supernode-star threading through ghost tables (`star_source`)
@@ -553,11 +554,12 @@ def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
 
 def _ksplit(n: int, h: int) -> int:
     """Row chunks of the simple backward's dW products: at least two waves
-    of 64 x 128 tiles on 132 SMs, and chunks of at most 2048 rows, whose
-    sequential f32 sums stay short (at 34,500-row chunks dW's error reached
+    of the product tile's 128 x 128 tiles (csrc/simple.cuh, one block an SM)
+    on 132 SMs, and chunks of at most 2048 rows, whose sequential f32 sums
+    stay short (with the FFMA tile at 34,500-row chunks dW's error reached
     7.7e-6 of max|dW| at H 1024 on an H100); at most 64 chunks, none under
     64 rows."""
-    tiles = (h // 64) * (h // 128)
+    tiles = (h // 128) ** 2
     return max(1, min(64, max(-(-264 // tiles), -(-n // 2048)), n // _BM))
 
 

@@ -167,12 +167,18 @@ Phases, each fatal on failure:
      failing a wrong norm, a dropped bias, a forward without its spill
      term, a norm backward without its s term, a backward without the
      next layer's star and a band product without its spill messages;
-     the flagship-f32 and virtual-f32 cells served and trained (6 #1 per
-     forward; 6 #1 and 6 #2, or 6 #1, 6 #3 and 6 #4, per step; no engine
-     kernel), each against the plain path; each variant's time at its
-     float32 main path's shape beside its bound (f32 operations at 67
-     TFLOP/s against bytes), its plain version and the float32 torch
-     composition (TF32 off);
+     float32 kept (the products run in 3xTF32 on the tensor cores,
+     csrc/simple.cuh): #3's outputs at every float32 width within 1e-5 of
+     max|ref| of a float64 evaluation of its plain version, and at H 512
+     one TF32 pass (bm.mm_3xtf32 without its lo terms) of two of its
+     products on the card's operands outside that gate; the flagship-f32
+     and virtual-f32 cells served and trained (6 #1 per forward; 6 #1 and
+     6 #2, or 6 #1, 6 #3 and 6 #4, per step; no engine kernel), each
+     against the plain path, with the product tile's device ms and
+     TFLOP/s a step; each variant's time at its float32 main path's shape
+     beside its bound (3 tf32 products for each float32 one at 495
+     TFLOP/s, other f32 operations at 67, against bytes), its plain
+     version and the float32 torch composition (TF32 off);
  14. float32 and every H % 128 == 0 for the EA kernels (``ea_widths``):
      #5 and #6's simple variants (csrc/ea_simple.cu, the same rule)
      against their plain versions, each launch counted under its own
@@ -185,13 +191,17 @@ Phases, each fatal on failure:
      appended far rows' gradient included; the gates failing, at the
      float32 tolerance, a forward without its far senders, its cnt * b_p1
      term or its skip, a backward without its sender fold and a dW_sp
-     without the far slots; the same bits twice; the ea-virtual-f32 cell
+     without the far slots; the same bits twice; #6's float32 outputs on
+     the ea-virtual batch against a float64 evaluation of its plain
+     version at its gates, and one TF32 pass of two of its products
+     outside the float32 gate; the ea-virtual-f32 cell
      (EA_GNN_Shared in float32, H 512) served and trained (6 #5s per
      forward, 6 #5s and 6 #6s per step, no engine or SAGE kernel; the
      forward, the loss and its gradients against the plain path at
      PRED_TOL and GRAD_TOL), one line per pass of each variant from the
-     train step's profile, its step memory, and each variant's time
-     beside its bound, its plain version and the float32 composition.
+     train step's profile (with the product tile's own ms and TFLOP/s),
+     its step memory, and each variant's time beside its bound, its plain
+     version and the float32 composition.
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -224,7 +234,9 @@ from buckgnn_tpu_torch.ops import ea_block as eb
 from buckgnn_tpu_torch.ops import epilogue as ep
 from buckgnn_tpu_torch.ops import sage_layer as sl
 from buckgnn_tpu_torch.ops.banded import make_agg_context
-from buckgnn_tpu_torch.ops.dropout import dropout_scale, keep_mask
+from buckgnn_tpu_torch.ops.dropout import (
+    apply_dropout, dropout_scale, keep_mask,
+)
 from buckgnn_tpu_torch.utils import cuda_build
 
 # kernel vs plain (allclose-style, atol + rtol * |ref|), reasons beside
@@ -276,6 +288,7 @@ READOUT_SEED = 5
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM (data sheet)
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM (data sheet)
 PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores, H100 SXM (data sheet)
+PEAK_TF32 = 495e12  # dense TF32 tensor-core peak, H100 SXM (data sheet)
 TPU_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:231"
 TPU_BWD_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:706"
 TPU_TILE_KERNEL = "buckgnn_tpu/ops/pallas_sage_layer.py:600"
@@ -936,10 +949,12 @@ def nbytes_of(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(bf16_flops, f32_flops, nbytes):
+def bound(bf16_flops, f32_flops, nbytes, tf32_flops=0):
     """(bound ms, what bounds it): bf16 products at the tensor-core peak
-    plus f32 adds at the f32 peak, against the bytes at the HBM rate."""
-    t_ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    plus f32 adds at the f32 peak plus tf32 products at the TF32 peak,
+    against the bytes at the HBM rate."""
+    t_ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32
+             + tf32_flops / PEAK_TF32) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1461,8 +1476,9 @@ def ea_bounds(x, e, w, ctx, *, enc, train):
     operations, bwd operations) of one block call at these inputs: the
     products of the kernels' passes over valid slots
     (ops/ea_block.py::pass_flops; not the TPU's one-hot selection
-    products) at the peak of x's dtype (bf16 tensor cores, or the f32
-    FFMA peak of the float32 variants), against each input read once and
+    products) at the peak of x's dtype (bf16 tensor cores, or for the
+    float32 variants 3 tf32 products each at the TF32 peak, `tf32_passes`),
+    against each input read once and
     each output written once (valid slots only) at the HBM rate. ``train``
     adds the residuals e1 and m1 to the forward's writes."""
     n, h = x.shape
@@ -1480,8 +1496,11 @@ def ea_bounds(x, e, w, ctx, *, enc, train):
                  + nbytes_of(ctx.sorder, ctx.soff) + nh2
                  + (0 if enc else eh2) + 2 * wbytes + 11 * h * 4)
     f32 = x.dtype == torch.float32
-    fb = bound(0, f_fwd, fwd_bytes) if f32 else bound(f_fwd, 0, fwd_bytes)
-    bb = bound(0, f_bwd, bwd_bytes) if f32 else bound(f_bwd, 0, bwd_bytes)
+    tf = tf32_passes(x.dtype)
+    fb = (bound(0, 0, fwd_bytes, tf32_flops=tf * f_fwd) if f32
+          else bound(f_fwd, 0, fwd_bytes))
+    bb = (bound(0, 0, bwd_bytes, tf32_flops=tf * f_bwd) if f32
+          else bound(f_bwd, 0, bwd_bytes))
     return fb[0], fb[1], bb[0], bb[1], f_fwd, f_bwd
 
 
@@ -1494,27 +1513,34 @@ EA_PASS_KERNELS = {
     "bwd_weights": ("atb_kernel", "atb_reduce_kernel", "bias_reduce_kernel")}
 
 
-def pass_lines(kind, rows, kernels, flops, card, calls=None, **tags):
+def pass_lines(kind, rows, kernels, flops, card, calls=None, tile=None,
+               **tags):
     """One line per pass from a train step's profile rows (name, device ms
     per step, calls per step): device ms per step and per call (``calls``
     a step, else the pass's launches), the launches per step of the
     pass's first kernel, its operations per step (``flops`` by pass; none
-    for a reduction) and its achieved TFLOP/s."""
+    for a reduction) and its achieved TFLOP/s; with ``tile`` (a kernel
+    name) also the device ms of the pass's product tile alone and its
+    TFLOP/s on the pass's products."""
     for name, pats in kernels.items():
         hits = [r for r in rows if any(p in r[0] for p in pats)]
         ms = sum(r[1] for r in hits)
         launches = sum(r[2] for r in hits if pats[0] in r[0])
         per = calls or launches
         f = flops.get(name, 0)
-        print(json.dumps({
-            kind: name, **tags, "card": card, "device_ms_per_step": ms,
-            "ms_per_call": ms / per if per else None,
-            "launches_per_step": launches, "flops_per_step": f,
-            "tflop_per_s": f / ms / 1e9 if ms and f else None}))
+        line = {kind: name, **tags, "card": card, "device_ms_per_step": ms,
+                "ms_per_call": ms / per if per else None,
+                "launches_per_step": launches, "flops_per_step": f,
+                "tflop_per_s": f / ms / 1e9 if ms and f else None}
+        if tile is not None:
+            tms = sum(r[1] for r in hits if tile in r[0])
+            line.update(tile_ms_per_step=tms,
+                        tile_tflop_per_s=f / tms / 1e9 if tms and f else None)
+        print(json.dumps(line))
 
 
 def ea_pass_lines(rows, batch, card, layers=6, kernels=EA_PASS_KERNELS,
-                  **tags):
+                  tile=None, **tags):
     """`pass_lines` of #5 and #6 (or, with ``kernels``, their variants)
     from an ea-virtual train step: ``layers`` block calls a step, layer 0
     in encoder mode, the others not."""
@@ -1524,7 +1550,7 @@ def ea_pass_lines(rows, batch, card, layers=6, kernels=EA_PASS_KERNELS,
     plain, enc = (eb.pass_flops(n, ev, h, enc=m) for m in (False, True))
     pass_lines("ea_pass", rows, kernels,
                {k: (layers - 1) * plain[k] + enc[k] for k in kernels},
-               card, calls=layers, **tags)
+               card, calls=layers, tile=tile, **tags)
 
 
 # the kernel names of each pass of the fused SAGE kernels in a profile: #1
@@ -2939,6 +2965,148 @@ def vcaught(name, got, wrong, dtype, bf16_tol, frac=False):
                                                   frac))
 
 
+# ---- float32 kept: the 3xTF32 tile against float64, and one TF32 pass ----
+
+def f64_check(name, got, ref64, worst, key):
+    """A float32 output within SIMPLE_F32_TOL of max|ref64| of a float64
+    evaluation; its error as a share of max|ref64| into ``worst[key]``.
+    Returns the share."""
+    m = max(float(ref64.abs().max()), 1e-30)
+    err = check_close(f"{name}/f64", got, ref64, (bm.SIMPLE_F32_TOL * m, 0.0))
+    worst[key] = max(worst.get(key, 0.0), err / m)
+    return err / m
+
+
+def tf32_pass_check(name, a, b):
+    """On the card's operands of one product a @ b: the 3xTF32 split
+    (bm.mm_3xtf32) holds the float32 gate against the float64 product and
+    one TF32 pass (its hi.hi alone) breaks it, so the gate tells float32
+    from TF32. Returns the two errors as shares of max|a @ b|."""
+    ref = a.double() @ b.double()
+    m = float(ref.abs().max())
+    three, one = (float((bm.mm_3xtf32(a, b, lo=lo).double() - ref).abs()
+                        .max()) / m for lo in (True, False))
+    ok = three <= bm.SIMPLE_F32_TOL < one
+    print(json.dumps({"check": f"{name}/one-tf32-pass", "ok": ok,
+                      "shape": [*a.shape, b.shape[1]],
+                      "three_pass_err_over_max": three,
+                      "one_pass_err_over_max": one,
+                      "tol": bm.SIMPLE_F32_TOL}))
+    if not ok:
+        fail(f"{name}: the float32 gate does not tell 3xTF32 from one "
+             "TF32 pass")
+    return three, one
+
+
+def tile_plain_f64(args, kw):
+    """#3's plain function (sl.sage_layer_bwd_tile_plain, float32 inputs)
+    evaluated in float64, with its one cast, dout to x's dtype: (dout_c in
+    x's dtype, dagg, dxp, dW_l, dW_r, db_l) in float64."""
+    dz, y, inv, agg, x, w_l, w_r = args
+    dz_eff = dz.double()
+    rate = kw["rate"]
+    if rate > 0.0:
+        keep = keep_mask(kw["seed"], *dz.shape, rate, dz.device)
+        scale = float(np.float32(dropout_scale(rate)))
+        dz_eff = torch.where(keep, dz_eff * scale, 0.0)
+    y64 = y.double()
+    dy = torch.where(y64 > 0.0, dz_eff, 0.0)
+    s = (dy * y64).sum(dim=-1, keepdim=True)
+    dout = (dy - y64 * s) * inv.double().reshape(-1, 1)
+    dout_c = dout.to(x.dtype)
+    d = dout_c.double()
+    dxp = d @ w_r.double().t()
+    if kw["skip"]:
+        dxp = dxp + dz_eff
+    return (dout_c, d @ w_l.double().t(), dxp, agg.double().t() @ d,
+            x.double().t() @ d, dout.sum(dim=0))
+
+
+def tile_f64_checks(name, got, args, kw, rows, worst, one_pass):
+    """#3s's float32 outputs (dagg, dxp on ``rows``, dW_l, dW_r, db_l)
+    within SIMPLE_F32_TOL of max|ref| of `tile_plain_f64`, the plain
+    version's float32 outputs beside them (``worst``: the largest shares
+    of both); with ``one_pass``, `tf32_pass_check` on dagg's product and
+    on a 2,048-row chunk of dW_l's."""
+    ref = tile_plain_f64(args, kw)
+    plain = sl.sage_layer_bwd_tile_plain(*args, **kw)
+    for what, g, p, r in zip(TILE_NAMES, got, plain, ref[1:]):
+        if what in ("dagg", "dxp"):
+            g, p, r = g[rows], p[rows], r[rows]
+        f64_check(f"{name}/{what}", g, r, worst, "f32_err_over_max_f64")
+        pm = float(r.abs().max())
+        worst["plain_err_over_max_f64"] = max(
+            worst.get("plain_err_over_max_f64", 0.0),
+            float((p.double() - r).abs().max()) / pm)
+    if one_pass:
+        dout_c, w_l, agg = ref[0], args[5], args[3]
+        tf32_pass_check(f"{name}/dagg", dout_c, w_l.t())
+        tf32_pass_check(f"{name}/dw_l-chunk", agg[:2048].t().contiguous(),
+                        dout_c[:2048])
+
+
+@contextlib.contextmanager
+def ea_plain_f64():
+    """ops/ea_block.py's plain versions evaluated in float64 for the while:
+    their products, gathers and segment sums (float32 by design) in
+    float64; with float64 inputs every cast to x's dtype keeps float64."""
+    saved = eb._mm, eb._gathered, eb._segment
+
+    def gathered(p, ids):
+        pz = torch.cat([p, p.new_zeros((1, p.shape[1]))])
+        return pz[torch.where(ids < 0, p.shape[0], ids.long())].double()
+
+    def segment(v, ids, n):
+        keep = ids >= 0
+        out = torch.zeros((n, v.shape[1]), dtype=torch.float64,
+                          device=v.device)
+        out.index_add_(0, ids[keep].long(), v[keep].double())
+        return out
+
+    eb._mm = lambda a, b: a.double() @ b.double()
+    eb._gathered, eb._segment = gathered, segment
+    try:
+        yield
+    finally:
+        eb._mm, eb._gathered, eb._segment = saved
+
+
+def ea_f64_checks(label, batch, ctx, worst):
+    """#6s in float32 at H 512 (plain mode, skip, dropout 0.1) against the
+    float64 evaluation of its plain version (`ea_plain_f64`), at #6's gates
+    (a relu mask recomputed from float32 sums can flip against float64 as
+    against the float32 plain version: ops/ea_block.py), the plain float32
+    version's readings beside it; then `tf32_pass_check` on its first node
+    product, dropout(dz_x) @ W_b1^T, and on a 2,048-row chunk of the
+    weight pass's shape, x^T @ dropout(dz_x)."""
+    h = 512
+    x, e, w, bias = ea_case(batch, h, False, 160, torch.float32)
+    kw = dict(skip=True, rate=RATE, seed=SEED, enc=False)
+    _, _, e1s, m1s = eb.ea_block_fwd(x, e, w, bias, ctx, save_res=True, **kw)
+    g = torch.Generator(device=x.device).manual_seed(161)
+    dzx = torch.randn(x.shape, generator=g, device=x.device)
+    dze = torch.randn(e.shape, generator=g, device=x.device)
+    args = (dzx, dze, e1s, m1s, x, e, w, bias, ctx)
+    got = eb.ea_block_bwd(*args, **kw)
+    plain = eb.ea_block_bwd_plain(*args, **kw)
+    with ea_plain_f64():
+        ref = eb.ea_block_bwd_plain(
+            *(t.double() for t in args[:6]),
+            {k: v.double() for k, v in w.items()}, bias.double(), ctx, **kw)
+    name = f"{label}/f32/h{h}/plain/skip1/rate{RATE}"
+    ea_bwd_errors(f"{name}/f64", got, ref, ctx, h)
+    errs = eb.bwd_errors(got, ref, ctx)
+    perrs = eb.bwd_errors(plain, ref, ctx)
+    print(json.dumps({"check": f"{name}/f64/readings", "kernel": errs,
+                      "plain": perrs}))
+    worst["kernel_dx_rel_err_f64"] = errs["dx"]
+    worst["plain_dx_rel_err_f64"] = perrs["dx"]
+    dx2 = apply_dropout(dzx, SEED, RATE, row0=ctx.n_slots)
+    tf32_pass_check(f"{name}/dx2@wb1t", dx2, w["wb1"].t())
+    tf32_pass_check(f"{name}/dw-chunk", x[:2048].t().contiguous(),
+                    dx2[:2048])
+
+
 def variant_checks(label, batch, vbatch, sbatch, dtype, h, worst):
     """The four variants against their plain versions at (dtype, h) on the
     flagship batch (#1 serving with local windows and emit, training with
@@ -3024,6 +3192,9 @@ def variant_checks(label, batch, vbatch, sbatch, dtype, h, worst):
             note("sage_layer_bwd_tile_simple", vcheck(
                 f"{tag}/tile/rate{rate}/{what}", g, r, dtype,
                 sl.KERNEL_BWD_TOL[what], frac=True, worst=worst))
+        if dtype == torch.float32:
+            tile_f64_checks(f"{tag}/tile/rate{rate}", got, targs, tkw, vm,
+                            worst, one_pass=h == 512 and skip)
     for name, b, xb, spill, table, out in (
             ("virtual/spill1/acc1", vbatch, xv, True, False, dtype),
             ("virtual/spill1/acc1/f32-out", vbatch, xv, True, False,
@@ -3092,19 +3263,31 @@ def variant_gates(batch, vbatch, dtype, h):
             bm.KERNEL_BANDED_TOL, frac=True)
 
 
-def simple_bound(f32_flops, *ts, extra_bytes=0):
-    """(bound ms, what bounds it) of a simple variant: its f32 operations
-    at the FFMA peak against its operands read once and outputs written
-    once (``ts`` and ``extra_bytes``) at the HBM rate."""
-    return bound(0, f32_flops, nbytes_of(*ts) + extra_bytes)
+def tf32_passes(dtype):
+    """tf32 products per product of the simple variants' tile
+    (csrc/simple.cuh): 3xTF32 for float32 sources (lo.hi, hi.lo, hi.hi),
+    one pass for bf16 ones (a bf16 value is a tf32 value)."""
+    return 3 if dtype == torch.float32 else 1
+
+
+def simple_bound(prod_flops, f32_flops, *ts, dtype=torch.float32,
+                 extra_bytes=0):
+    """(bound ms, what bounds it) of a simple variant: its products on the
+    tensor cores, `tf32_passes` tf32 products each at the TF32 peak, and
+    its other f32 operations at the FFMA peak, against its operands read
+    once and outputs written once (``ts`` and ``extra_bytes``) at the HBM
+    rate."""
+    return bound(0, f32_flops, nbytes_of(*ts) + extra_bytes,
+                 tf32_flops=tf32_passes(dtype) * prod_flops)
 
 
 def variant_timings(fsetup, vfsetup, card):
     """Each variant at its float32 main path's shape, with the f32 cells'
     own weights: ms, its plain version's, the PyTorch float32 composition's
-    (TF32 off) and the bound (f32 operations at 67 TFLOP/s: the products
-    4 N H^2 a pass, the band's nonzero counts times H, the spill, table
-    and acc adds; against the bytes). Returns {kernel: numbers}."""
+    (TF32 off) and the bound (`simple_bound`: the products 4 N H^2 a pass
+    as 3 tf32 products each at 495 TFLOP/s; the band's nonzero counts
+    times H, the spill, table and acc adds at 67 TFLOP/s; against the
+    bytes). Returns {kernel: numbers}."""
     out = {}
     batch, model = fsetup["batch"], fsetup["state"].model
     with torch.no_grad():
@@ -3117,7 +3300,7 @@ def variant_timings(fsetup, vfsetup, card):
     band_ops = 2 * nnz * h
     ms = event_ms(lambda: sl.sage_layer_fwd(*args, **kw))
     bms, bby = simple_bound(
-        4 * n * h * h + band_ops + 2 * n * h, *args, kw["table"],
+        4 * n * h * h, band_ops + 2 * n * h, *args, kw["table"],
         kw["code"], kw["gwin"], kw["acc_code"],
         extra_bytes=x0.numel() * 4 + kw["table"].numel() * 4)
     out["sage_layer_fwd_simple"] = dict(
@@ -3131,7 +3314,7 @@ def variant_timings(fsetup, vfsetup, card):
     ms = event_ms(lambda: sl.sage_layer_bwd(*bargs, **bkw))
     keep = keep_mask(SEED, n, h, RATE, x0.device)
     bms, bby = simple_bound(
-        8 * n * h * h + band_ops + 2 * n * h, *bargs, bkw["table_prev"],
+        8 * n * h * h, band_ops + 2 * n * h, *bargs, bkw["table_prev"],
         bkw["code"], bkw["gwin"], bkw["acc_code"],
         extra_bytes=x0.numel() * 4 + (2 * h * h + h) * 4
         + 2 * bkw["t0"] * h * 4)
@@ -3150,7 +3333,7 @@ def variant_timings(fsetup, vfsetup, card):
     targs, tkw = tile_inputs(vbatch, xv, vweights, True, RATE, seed=41)
     ms = event_ms(lambda: sl.sage_layer_bwd_tile(*targs, **tkw))
     vkeep = keep_mask(SEED, n, h, RATE, xv.device)
-    bms, bby = simple_bound(8 * n * h * h, *targs,
+    bms, bby = simple_bound(8 * n * h * h, 0, *targs,
                             extra_bytes=2 * xv.numel() * 4
                             + (2 * h * h + h) * 4)
     out["sage_layer_bwd_tile_simple"] = dict(
@@ -3171,8 +3354,8 @@ def variant_timings(fsetup, vfsetup, card):
     ms = event_ms(lambda: bm.banded_matmul(*b_args, **b_kw))
     msgs = b_kw["spill_messages"]
     bms, bby = simple_bound(
-        2 * int((vband != 0).sum()) * h + msgs.numel() + n * h, vband, dagg,
-        dxp, msgs, b_kw["spill_offsets"], b_kw["spill_lo"],
+        0, 2 * int((vband != 0).sum()) * h + msgs.numel() + n * h, vband,
+        dagg, dxp, msgs, b_kw["spill_offsets"], b_kw["spill_lo"],
         b_kw["spill_hi"], extra_bytes=xv.numel() * 4)
     recv = vbatch.spill_receivers.long()
     out["banded_matmul_simple"] = dict(
@@ -3218,10 +3401,20 @@ def widths_phase(dev, card, setup, vsetup):
             ("virtual-f32", vsetup, {"sage_layer_fwd_simple": 1,
                                      "sage_layer_bwd_tile_simple": 1,
                                      "banded_matmul_simple": 1})):
+        rows = []
         summary, launches, train = unfused_cell(
             label, dev, card, "sage_layer_fwd_simple", kernels,
-            cell_data(base))
+            cell_data(base), rows_out=rows)
         print(json.dumps(summary))
+        # the product tile's share of the step: 6 layers of 4 N H^2 forward
+        # and 8 N H^2 backward float32 products
+        n, h = train["batch"].n_node_cap, 512
+        f = 6 * 12 * n * h * h
+        tms = sum(r[1] for r in rows if "gemm_kernel" in r[0])
+        print(json.dumps({"sage_tile": label, "card": card,
+                          "tile_ms_per_step": tms, "flops_per_step": f,
+                          "tile_tflop_per_s": f / tms / 1e9 if tms else None,
+                          "device_ms_per_step": sum(r[1] for r in rows)}))
         cells.append(summary)
         paths.update(launches)
         trains[label] = train
@@ -3303,9 +3496,9 @@ def ea_variant_timings(etrain, card):
     """#5's and #6's float32 variants at the ea-virtual-f32 cell's shape,
     with its model's own weights (layer 1: skip on; the forward also in
     training form and in layer 0's encoder mode): ms, the plain version's,
-    the PyTorch float32 composition's (TF32 off) and the bound (f32
-    operations at 67 TFLOP/s against the bytes, `ea_bounds`). Returns
-    {kernel: numbers}."""
+    the PyTorch float32 composition's (TF32 off) and the bound (3 tf32
+    products for each float32 one at 495 TFLOP/s against the bytes,
+    `ea_bounds`). Returns {kernel: numbers}."""
     batch, model = etrain["batch"], etrain["state"].model
     ctx = eb.make_ea_context(batch)
     fe = batch.win_edges.shape[2]
@@ -3403,6 +3596,7 @@ def ea_widths_phase(dev, card, esetup, etrain):
     t0 = time.perf_counter()
     checks("ea-widths/ea-virtual/f32/h512", ebatch, ectx, 150, torch.float32,
            512)
+    ea_f64_checks("ea-widths/ea-virtual", ebatch, ectx, worst)
     for dtype, h in ((torch.float32, 512), (torch.bfloat16, 384)):
         f, b = ea_variant_shards(ebatch, dtype, h)
         errs["ea_block_fwd_simple"] = max(errs["ea_block_fwd_simple"], f)
@@ -3426,8 +3620,8 @@ def ea_widths_phase(dev, card, esetup, etrain):
         {"ea_block_fwd_simple": 1, "ea_block_bwd_simple": 1},
         cell_data(etrain), rows_out=rows)
     print(json.dumps(summary))
-    ea_pass_lines(rows, train["batch"], card,
-                  kernels=EA_SIMPLE_PASS_KERNELS, cell="ea-virtual-f32")
+    ea_pass_lines(rows, train["batch"], card, kernels=EA_SIMPLE_PASS_KERNELS,
+                  tile="gemm_kernel", cell="ea-virtual-f32")
     times = ea_variant_timings(train, card)
     launches = paths["ea-virtual-f32_train"]
     replaces = {"ea_block_fwd_simple": TPU_EA_FWD_KERNEL,

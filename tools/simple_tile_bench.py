@@ -1,0 +1,111 @@
+"""Time the float32 / any-width variants' product tile alone on the card.
+
+    python3 tools/simple_tile_bench.py
+
+Builds ``tools/simple_tile_bench.cu`` (the tile of
+``buckgnn_tpu_torch/csrc/simple.cuh`` with its plain store epilogue) with
+nvcc into a scratch directory and runs C = op(A) @ op(B) at the products'
+shapes on the float32 main paths: a node product at the ea-virtual batch's
+51,712 rows, an edge product at its 239,168 slots (depth 512, both layouts
+of B), the flagship's forward pair as one depth-1,024 product at 103,424
+rows, and the weight pass's A^T @ B over 16 chunks of 2,048 rows. One JSON
+line a case and dtype: ms (CUDA events, 10 calls after a warm-up), the
+float32-product TFLOP/s, the largest error as a share of max|C| against a
+float64 product of the same operands, and the float32 cuBLAS product's ms
+(TF32 off) as a yardstick. Needs a card and nvcc.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CASES = [  # (name, M, N, K, A^T, B [N, K])
+    ("node x@W", 51712, 512, 512, False, False),
+    ("node x@W^T", 51712, 512, 512, False, True),
+    ("edge e@W^T", 239168, 512, 512, False, True),
+    ("flagship [agg|x]@[W_l;W_r]", 103424, 512, 1024, False, False),
+    ("weights x^T@dz", 512, 512, 2048 * 16, True, False),
+]
+
+
+def build(out_dir):
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "nvcc")
+    lib = os.path.join(out_dir, "libsimple_tile_bench.so")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib, os.path.join(HERE, "simple_tile_bench.cu")],
+                   check=True)
+    fn = ctypes.CDLL(lib).tile_gemm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def event_ms(fn, reps=10):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = build(tmp)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, m, n, k, ta, tb in CASES:
+                g = torch.Generator(device=dev).manual_seed(0)
+                a = torch.randn((k, m) if ta else (m, k), generator=g,
+                                device=dev).to(dtype)
+                b = torch.randn((n, k) if tb else (k, n), generator=g,
+                                device=dev).to(dtype)
+                nz = k // 2048 if ta else 1
+                c = torch.empty((nz, m, n), device=dev)
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def call():
+                    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
+                             k, a.shape[1], b.shape[1], int(ta), int(tb),
+                             int(dtype == torch.bfloat16), stream)
+                    if err:
+                        raise RuntimeError(f"tile launch failed: {err}")
+
+                ms = event_ms(call)
+                a64 = a.double().t() if ta else a.double()
+                b64 = b.double().t() if tb else b.double()
+                ref = a64 @ b64
+                got = c.double().sum(0)
+                af, bf = a.float(), b.float()
+                lib = event_ms(lambda: (af.t() if ta else af)
+                               @ (bf.t() if tb else bf))
+                print(json.dumps({
+                    "case": name, "dtype": str(dtype).split(".")[1],
+                    "m": m, "n": n, "k": k, "card": card, "ms": ms,
+                    "tflop_per_s": 2 * m * n * k / ms / 1e9,
+                    "err_over_max": float((got - ref).abs().max()
+                                          / ref.abs().max()),
+                    "cublas_f32_ms": lib}))
+                del a, b, c, ref, got, a64, b64, af, bf
+
+
+if __name__ == "__main__":
+    main()
