@@ -12,8 +12,13 @@
 // 923, 962). The engine kernels (ea_block_fwd.cu, ea_block_bwd.cu) stream
 // bf16 operands MN-major into wgmma, which takes tf32 only K-major, and one
 // pass of TF32 keeps three digits, so these take their products from the
-// tile of simple.cuh instead: float32 operands split into tf32 hi and lo
-// parts as they are loaded, 3xTF32 wgmma, float32 accuracy.
+// 3xTF32 tiles instead (float32 operands split into tf32 hi and lo parts,
+// float32 accuracy): every product whose B is a weight as stored (all of
+// #5's, and #6's recomputed forward chain: the node chain, the encoder and
+// e2, so that #6's relu masks are the bits #5 computed) on wtile.cuh's
+// weight tile, from the weights pre-split once a call into the scratch
+// (`WS`); the products with a transposed weight and the weight pass on
+// simple.cuh's gemm_kernel.
 //
 // What each computes is the engine kernels' function, cast point for cast
 // point: the chain of ops/ea_block.py's module docstring, step by step as
@@ -26,8 +31,10 @@
 // 'autodiff' are rows like any other. Each pass of the engine kernels
 // (FWD_PASSES, BWD_PASSES of ops/ea_block.py) is a few launches of four
 // pieces, every kernel's name carrying its pass (profiles):
-//  - the product tile (simple::gemm_kernel, 128-row tiles of two 64-row
-//    halves) with this file's epilogue `Epi`: gathered projection rows by slot (p_r[recv], p_s[send], p_p
+//  - the product tiles (simple::wtile_kernel and simple::gemm_kernel,
+//    128-row tiles of two 64-row halves) with this file's epilogue `Epi`,
+//    each product's instance compiled with its own terms only (`E_*`):
+//    gathered projection rows by slot (p_r[recv], p_s[send], p_p
 //    [send]; id < 0 adds nothing), the bias row or the mean's (v + cnt *
 //    b_p1) / max(cnt, 1), an f32 addend, a dropped addend (dz_e, dz_x), a
 //    relu mask from a stored tensor, relu, per-64-row-block column sums of
@@ -53,9 +60,10 @@
 // 597 GFLOP for #5 and 1,448 for #6 of float32 products, 3 tf32 products
 // each: 3.6 and 8.8 ms at the 495 TFLOP/s TF32 rate, bound by operations.
 // This version stores every intermediate (the engine keeps the chain in
-// shared memory; PERF.md has the times).
+// shared memory), and each tile's epilogue (the gathers above all) runs
+// beside no products (PERF.md has the times).
 
-#include "simple.cuh"
+#include "wtile.cuh"
 
 namespace ea_simple {
 
@@ -105,8 +113,22 @@ __device__ __forceinline__ float dropped(const Drop& d, uint32_t rk, int col,
 // row0 + r); v = mask > 0 ? v : 0; relu; the column sums of v (cnt[r] * v
 // with cs_cnt) over each 64-row block b into colsum[b, N]; out_f = v, out_t
 // = T(v); out2 = T(dropout(v (+ skip))).
-template <typename T, class Pass>
+// ``F`` names the terms a call site may set (E_* bits; null pointers still
+// skip theirs): the code of the others is compiled out, so that each
+// product's epilogue is as short as its work. The weight tile walks many
+// tiles a block, and there the code of every term in every product's
+// epilogue slowed #5 by about a third (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).
+enum : int {
+  E_G0 = 1, E_G1 = 2, E_CNT = 4, E_ADD = 8, E_DADD = 16, E_MASK = 32,
+  E_COLSUM = 64, E_OUTF = 128, E_OUTT = 256, E_OUT2 = 512, E_ALL = 1023
+};
+
+template <typename T, class Pass, int F = E_ALL>
 struct Epi {
+  __host__ __device__ static constexpr bool has(int f) {
+    return (F & f) != 0;
+  }
   const T* g0;
   const int* ids0;
   int ld0;
@@ -151,44 +173,46 @@ struct Epi {
         row[u] = f.row(i0 + u);
         ok[u] = row[u] < mv;
         f.sums(i0 + u, v[u]);
-        cn[u] = cnt && ok[u] ? cnt[row[u]] : 0.f;
+        cn[u] = has(E_CNT) && cnt && ok[u] ? cnt[row[u]] : 0.f;
       }
-      gather(g0, ids0, ld0, row, ok, col, x0);
-      gather(g1, ids1, ld1, row, ok, col, x1);
+      if constexpr (has(E_G0)) gather(g0, ids0, ld0, row, ok, col, x0);
+      if constexpr (has(E_G1)) gather(g1, ids1, ld1, row, ok, col, x1);
 #pragma unroll
       for (int u = 0; u < B; ++u) {
         const size_t ro = (size_t)row[u] * ld + col;
-        if (add32 && ok[u]) ld4c(add32 + ro, xa[u]);
-        if (dadd && ok[u]) ld4(dadd + ro, xd[u]);
-        if (mask && ok[u]) ld4(mask + ro, xm[u]);
-        if (out2 && skip && ok[u]) ld4(skip + ro, xs[u]);
+        if (has(E_ADD) && add32 && ok[u]) ld4c(add32 + ro, xa[u]);
+        if (has(E_DADD) && dadd && ok[u]) ld4(dadd + ro, xd[u]);
+        if (has(E_MASK) && mask && ok[u]) ld4(mask + ro, xm[u]);
+        if (has(E_OUT2) && out2 && skip && ok[u]) ld4(skip + ro, xs[u]);
       }
 #pragma unroll
       for (int u = 0; u < B; ++u) {
         if (!ok[u]) continue;
-        const uint32_t rk =
-            d.on ? sage::row_key(d.s0, (uint32_t)(row0 + row[u])) : 0u;
+        const uint32_t rk = (has(E_DADD) || has(E_OUT2)) && d.on
+                                ? sage::row_key(d.s0, (uint32_t)(row0 + row[u]))
+                                : 0u;
         const size_t ro = (size_t)row[u] * ld + col;
         float* x = v[u];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          if (g0) x[q] += x0[u][q];
-          if (g1) x[q] += x1[u][q];
-          if (cnt) {
+          if (has(E_G0) && g0) x[q] += x0[u][q];
+          if (has(E_G1) && g1) x[q] += x1[u][q];
+          if (has(E_CNT) && cnt) {
             x[q] = (x[q] + cn[u] * bb[q]) / fmaxf(cn[u], 1.f);
           } else {
             x[q] += bb[q];
           }
-          if (add32) x[q] += xa[u][q];
-          if (dadd) x[q] += d.on ? dropped(d, rk, col + q, xd[u][q])
-                                 : xd[u][q];
-          if (mask) x[q] = xm[u][q] > 0.f ? x[q] : 0.f;
+          if (has(E_ADD) && add32) x[q] += xa[u][q];
+          if (has(E_DADD) && dadd)
+            x[q] += d.on ? dropped(d, rk, col + q, xd[u][q]) : xd[u][q];
+          if (has(E_MASK) && mask) x[q] = xm[u][q] > 0.f ? x[q] : 0.f;
           if (relu) x[q] = fmaxf(x[q], 0.f);
-          if (colsum) cs[q] += cs_cnt ? cn[u] * x[q] : x[q];
+          if (has(E_COLSUM) && colsum)
+            cs[q] += cs_cnt ? cn[u] * x[q] : x[q];
         }
-        if (out_f) st4(out_f + ro, v[u]);
-        if (out_t) st4(out_t + ro, v[u]);
-        if (out2) {
+        if (has(E_OUTF) && out_f) st4(out_f + ro, v[u]);
+        if (has(E_OUTT) && out_t) st4(out_t + ro, v[u]);
+        if (has(E_OUT2) && out2) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             if (skip) x[q] += xs[u][q];
@@ -199,7 +223,7 @@ struct Epi {
       }
     }
     // the 64-row block's column sums (a half past the rows has none)
-    if (colsum && f.base < mv)
+    if (has(E_COLSUM) && colsum && f.base < mv)
       simple::half_colsum(cs, f,
                           colsum + (size_t)(f.base / RB) * g.n + f.n0);
   }
@@ -227,13 +251,12 @@ struct Epi {
   }
 };
 
-// out = the epilogue of A0 @ op(B0) (+ A1 @ op(B1)) over ``rows`` rows, N
-// columns, row stride ldc
-template <typename T, bool TB, class Pass>
-cudaError_t prod(const T* a0, int lda0, const T* b0, int ldb0, int k0,
-                 const T* a1, int lda1, const T* b1, int ldb1, int k1,
-                 int rows, int n, int ldc, const Epi<T, Pass>& epi,
-                 cudaStream_t st) {
+// out = the epilogue of A0 @ B0^T (+ A1 @ B1^T) over ``rows`` rows, N
+// columns, row stride ldc: a transposed weight, on simple.cuh's tile
+template <typename T, class E>
+cudaError_t prod_t(const T* a0, int lda0, const T* b0, int ldb0, int k0,
+                   const T* a1, int lda1, const T* b1, int ldb1, int k1,
+                   int rows, int n, int ldc, const E& epi, cudaStream_t st) {
   Gemm g = {};
   g.a0 = a0;
   g.b0 = b0;
@@ -249,14 +272,41 @@ cudaError_t prod(const T* a0, int lda0, const T* b0, int ldb0, int k0,
   g.rows = rows;
   g.n = n;
   g.ldc = ldc;
-  return simple::gemm<T, false, TB, Epi<T, Pass>>(g, 1, st, epi);
+  return simple::gemm<T, false, true, E>(g, 1, st, epi);
 }
 
-template <typename T, bool TB, class Pass>
-cudaError_t prod(const T* a, int lda, const T* b, int ldb, int k, int rows,
-                 int n, const Epi<T, Pass>& epi, cudaStream_t st) {
-  return prod<T, TB, Pass>(a, lda, b, ldb, k, nullptr, 0, nullptr, 0, 0, rows,
-                           n, n, epi, st);
+template <typename T, class E>
+cudaError_t prod_t(const T* a, int lda, const T* b, int ldb, int k, int rows,
+                   int n, const E& epi, cudaStream_t st) {
+  return prod_t<T>(a, lda, b, ldb, k, nullptr, 0, nullptr, 0, 0, rows, n, n,
+                   epi, st);
+}
+
+// out = the epilogue of A0 @ W0 (+ A1 @ W1) over ``rows`` rows, N columns,
+// row stride ldc: a weight as stored, ``w`` its pre-split [W0; W1]
+// (wtile.cuh), on the weight tile
+template <typename T, class E>
+cudaError_t wprod(const T* a0, int lda0, int k0, const T* a1, int lda1,
+                  int k1, const float* w, int rows, int n, int ldc,
+                  const E& epi, cudaStream_t st) {
+  Gemm g = {};
+  g.a0 = a0;
+  g.a1 = a1;
+  g.lda0 = lda0;
+  g.lda1 = lda1;
+  g.k0 = k0;
+  g.k1 = k1;
+  g.m = (rows + RB - 1) / RB * RB;
+  g.rows = rows;
+  g.n = n;
+  g.ldc = ldc;
+  return simple::wgemm<T, E>(g, w, st, epi);
+}
+
+template <typename T, class E>
+cudaError_t wprod(const T* a, int lda, int k, const float* w, int rows,
+                  int n, const E& epi, cudaStream_t st) {
+  return wprod<T>(a, lda, k, nullptr, 0, 0, w, rows, n, n, epi, st);
 }
 
 // out rows r < n (row stride ld_out) = T(the f32 sum, in slot order, of
@@ -408,10 +458,39 @@ size_t blocks(int rows) { return (size_t)(rows + RB - 1) / RB; }
 
 size_t chunks(int rows) { return (size_t)(rows + CHUNK - 1) / CHUNK; }
 
+// the pre-split weights (wtile.cuh) that a call's weight-tile products
+// read: every weight in the forward, the recomputed chain's in the
+// backward; null where not read
+struct WS {
+  float *wsp, *wer, *wee, *we1, *wpe, *wp1, *wg0, *wg1, *wb0, *wb1, *wen1,
+      *wen2;
+};
+
+template <typename T>
+void carve_ws(Carver& c, int h, int enc, bool fwd, WS* s) {
+  auto take = [&](int k, int n) {
+    return static_cast<float*>(c.take(simple::wsplit_floats<T>(k, n) * 4));
+  };
+  *s = {};
+  if (fwd) {
+    s->wsp = take(h, 2 * h);
+    float** sq[] = {&s->wer, &s->wee, &s->wpe, &s->wb1};
+    for (float** q : sq) *q = take(h, h);
+  }
+  float** sq[] = {&s->we1, &s->wp1, &s->wg1, &s->wb0};
+  for (float** q : sq) *q = take(h, h);
+  s->wg0 = take(2 * h, h);
+  if (enc) {
+    s->wen1 = take(ENC_HID, ENC_HID);
+    s->wen2 = take(ENC_HID, h);
+  }
+}
+
 template <typename T>
 struct FwdScratch {
   T *proj, *h1, *h2, *ein, *e2, *sm, *agg, *g1, *x1, *b1;
   float* x1f;
+  WS ws;
 };
 
 template <typename T>
@@ -431,6 +510,7 @@ size_t carve_fwd(unsigned char* base, int n, int e, int h, int enc,
   T** node[] = {&s->sm, &s->agg, &s->g1, &s->x1, &s->b1};
   for (T** q : node) *q = static_cast<T*>(c.take(nh));
   s->x1f = static_cast<float*>(c.take((size_t)n * h * 4));
+  carve_ws<T>(c, h, enc, true, &s->ws);
   return c.off;
 }
 
@@ -444,6 +524,7 @@ struct BwdScratch {
   float *dx2, *dxacc;  // [N, H]
   float *nsum, *esum;  // column-sum partials: 5 node rows, 6 slot rows
   float* part;         // weight-gradient partials
+  WS ws;
 };
 
 size_t part_floats(int n, int e, int h, int enc) {
@@ -481,6 +562,7 @@ size_t carve_bwd(unsigned char* base, int n, int e, int h, int enc,
   s->nsum = static_cast<float*>(c.take(5 * blocks(n) * h * 4));
   s->esum = static_cast<float*>(c.take(6 * blocks(e) * h * 4));
   s->part = static_cast<float*>(c.take(part_floats(n, e, h, enc) * 4));
+  carve_ws<T>(c, h, enc, false, &s->ws);
   return c.off;
 }
 
@@ -491,6 +573,28 @@ struct W {
   const T *wer, *wee, *wsp, *we1, *wpe, *wp1, *wg0, *wg1, *wb0, *wb1, *wen0,
       *wen1, *wen2;
 };
+
+// the pre-split of every weight that ``s`` holds a place for
+template <typename T>
+simple::WJobs ws_jobs(const W<T>& w, const WS& s, int h) {
+  simple::WJobs js = {};
+  auto job = [&](const T* b, int ldb, int k, int n, float* out) {
+    if (out) simple::add_wjob<T>(&js, b, ldb, k, nullptr, 0, 0, n, out);
+  };
+  job(w.wsp, 2 * h, h, 2 * h, s.wsp);
+  job(w.wer, h, h, h, s.wer);
+  job(w.wee, h, h, h, s.wee);
+  job(w.we1, h, h, h, s.we1);
+  job(w.wpe, h, h, h, s.wpe);
+  job(w.wp1, h, h, h, s.wp1);
+  job(w.wg0, h, 2 * h, h, s.wg0);
+  job(w.wg1, h, h, h, s.wg1);
+  job(w.wb0, h, h, h, s.wb0);
+  job(w.wb1, h, h, h, s.wb1);
+  job(w.wen1, ENC_HID, ENC_HID, ENC_HID, s.wen1);
+  job(w.wen2, h, ENC_HID, h, s.wen2);
+  return js;
+}
 
 struct Geo {
   const int *send, *recv, *rlo, *rhi, *sorder, *soff;
@@ -505,52 +609,51 @@ struct Geo {
 
 // h1, h2 and e_in = T(h2 @ W_en2 + b10) of the encoder mode
 template <typename T, class Pass>
-cudaError_t encoder(const T* raw, const W<T>& w, const float* bias, T* h1,
-                    T* h2, T* ein, int e, int h, cudaStream_t st) {
+cudaError_t encoder(const T* raw, const W<T>& w, const WS& ws,
+                    const float* bias, T* h1, T* h2, T* ein, int e, int h,
+                    cudaStream_t st) {
   TRY((enc_first<T, Pass>(raw, w.wen0, bias + 8 * h, h1, e, st)));
-  Epi<T, Pass> ep = {};
+  Epi<T, Pass, E_OUTT> ep = {};
   ep.bias = bias + 9 * h;
   ep.relu = 1;
   ep.out_t = h2;
-  TRY((prod<T, false, Pass>(h1, ENC_HID, w.wen1, ENC_HID, ENC_HID, e, ENC_HID,
-                            ep, st)));
+  TRY((wprod<T>(h1, ENC_HID, ENC_HID, ws.wen1, e, ENC_HID, ep, st)));
   ep = {};
   ep.bias = bias + 10 * h;
   ep.out_t = ein;
-  return prod<T, false, Pass>(h2, ENC_HID, w.wen2, h, ENC_HID, e, h, ep, st);
+  return wprod<T>(h2, ENC_HID, ENC_HID, ws.wen2, e, h, ep, st);
 }
 
 // the node chain's agg, g1, x1 (and x1f) and b1 from sm
 template <typename T, class Pass>
-cudaError_t node_chain(const T* x, const T* sm, const W<T>& w,
+cudaError_t node_chain(const T* x, const T* sm, const WS& ws,
                        const float* bias, const float* cnt, T* agg, T* g1,
                        float* x1f, T* x1, T* b1, int n, int h,
                        cudaStream_t st) {
-  Epi<T, Pass> ep = {};
   // agg = T((sm @ W_p1 + cnt * b_p1) / max(cnt, 1))
-  ep.cnt = cnt;
-  ep.bias = bias + 3 * h;
-  ep.out_t = agg;
-  TRY((prod<T, false, Pass>(sm, h, w.wp1, h, h, n, h, ep, st)));
+  Epi<T, Pass, E_CNT | E_OUTT> ap = {};
+  ap.cnt = cnt;
+  ap.bias = bias + 3 * h;
+  ap.out_t = agg;
+  TRY((wprod<T>(sm, h, h, ws.wp1, n, h, ap, st)));
   // g1 = T(relu(x @ W_g0[:H] + agg @ W_g0[H:] + b_g0))
-  ep = {};
+  Epi<T, Pass, E_OUTT> ep = {};
   ep.bias = bias + 4 * h;
   ep.relu = 1;
   ep.out_t = g1;
-  TRY((prod<T, false, Pass>(x, h, w.wg0, h, h, agg, h,
-                            w.wg0 + (size_t)h * h, h, h, n, h, h, ep, st)));
+  TRY((wprod<T>(x, h, h, agg, h, h, ws.wg0, n, h, h, ep, st)));
   // x1f = g1 @ W_g1 + b_g1, x1 = T(x1f)
-  ep = {};
-  ep.bias = bias + 5 * h;
-  ep.out_f = x1f;
-  ep.out_t = x1;
-  TRY((prod<T, false, Pass>(g1, h, w.wg1, h, h, n, h, ep, st)));
+  Epi<T, Pass, E_OUTF | E_OUTT> xp = {};
+  xp.bias = bias + 5 * h;
+  xp.out_f = x1f;
+  xp.out_t = x1;
+  TRY((wprod<T>(g1, h, h, ws.wg1, n, h, xp, st)));
   // b1 = T(relu(x1 @ W_b0 + b_b0))
   ep = {};
   ep.bias = bias + 6 * h;
   ep.relu = 1;
   ep.out_t = b1;
-  return prod<T, false, Pass>(x1, h, w.wb0, h, h, n, h, ep, st);
+  return wprod<T>(x1, h, h, ws.wb0, n, h, ep, st);
 }
 
 template <typename T>
@@ -573,23 +676,24 @@ cudaError_t fwd(const FwdArgs<T>& a, cudaStream_t st) {
   FwdScratch<T> s;
   carve_fwd<T>(a.scratch, n, e, h, a.enc, &s);
 
-  // pass 1: p = T(x @ [W_sp | W_er]) [N, 3H]
-  Epi<T, fwd_proj> pp = {};
+  // pass 1: every weight pre-split, then p = T(x @ [W_sp | W_er]) [N, 3H]
+  TRY((simple::wsplit<T, fwd_proj>(ws_jobs<T>(w, s.ws, h), st)));
+  Epi<T, fwd_proj, E_OUTT> pp = {};
   pp.out_t = s.proj;
-  TRY((prod<T, false, fwd_proj>(a.x, h, w.wsp, 2 * h, h, nullptr, 0, nullptr,
-                                0, 0, n, 2 * h, 3 * h, pp, st)));
+  TRY((wprod<T>(a.x, h, h, nullptr, 0, 0, s.ws.wsp, n, 2 * h, 3 * h, pp,
+                st)));
   pp.out_t = s.proj + 2 * h;
-  TRY((prod<T, false, fwd_proj>(a.x, h, w.wer, h, h, nullptr, 0, nullptr, 0,
-                                0, n, h, 3 * h, pp, st)));
+  TRY((wprod<T>(a.x, h, h, nullptr, 0, 0, s.ws.wer, n, h, 3 * h, pp, st)));
 
   // pass 2: the edge chain
   const T* ein = a.e_in;
   if (a.enc) {
-    TRY((encoder<T, fwd_edge>(a.e_in, w, bias, s.h1, s.h2, s.ein, e, h, st)));
+    TRY((encoder<T, fwd_edge>(a.e_in, w, s.ws, bias, s.h1, s.h2, s.ein, e, h,
+                              st)));
     ein = s.ein;
   }
   // e1 = T(relu(e_in @ W_ee + p_r[recv] + p_s[send] + b_e0))
-  Epi<T, fwd_edge> ep = {};
+  Epi<T, fwd_edge, E_G0 | E_G1 | E_OUTT> ep = {};
   ep.g0 = s.proj + 2 * h;
   ep.ids0 = a.geo.recv;
   ep.ld0 = 3 * h;
@@ -599,39 +703,39 @@ cudaError_t fwd(const FwdArgs<T>& a, cudaStream_t st) {
   ep.bias = bias;
   ep.relu = 1;
   ep.out_t = a.e1s;
-  TRY((prod<T, false, fwd_edge>(ein, h, w.wee, h, h, e, h, ep, st)));
+  TRY((wprod<T>(ein, h, h, s.ws.wee, e, h, ep, st)));
   // e2f = e1 @ W_e1 + b_e1: e2 = T(e2f), ze = T(dropout(e2f (+ e_in)))
-  ep = {};
-  ep.bias = bias + h;
-  ep.out_t = s.e2;
-  ep.skip = a.skip ? ein : nullptr;
-  ep.out2 = a.ze;
-  ep.d = a.d;
-  TRY((prod<T, false, fwd_edge>(a.e1s, h, w.we1, h, h, e, h, ep, st)));
+  Epi<T, fwd_edge, E_OUTT | E_OUT2> e2p = {};
+  e2p.bias = bias + h;
+  e2p.out_t = s.e2;
+  e2p.skip = a.skip ? ein : nullptr;
+  e2p.out2 = a.ze;
+  e2p.d = a.d;
+  TRY((wprod<T>(a.e1s, h, h, s.ws.we1, e, h, e2p, st)));
   // m1 = T(relu(e2 @ W_pe + p_p[send] + b_p0))
-  ep = {};
-  ep.g1 = s.proj + h;
-  ep.ids1 = a.geo.send;
-  ep.ld1 = 3 * h;
-  ep.bias = bias + 2 * h;
-  ep.relu = 1;
-  ep.out_t = a.m1s;
-  TRY((prod<T, false, fwd_edge>(s.e2, h, w.wpe, h, h, e, h, ep, st)));
+  Epi<T, fwd_edge, E_G1 | E_OUTT> mp = {};
+  mp.g1 = s.proj + h;
+  mp.ids1 = a.geo.send;
+  mp.ld1 = 3 * h;
+  mp.bias = bias + 2 * h;
+  mp.relu = 1;
+  mp.out_t = a.m1s;
+  TRY((wprod<T>(s.e2, h, h, s.ws.wpe, e, h, mp, st)));
 
   // pass 3: the node chain; sm = T(each node's run of m1 rows)
   TRY((run_sums<T, fwd_node>(a.m1s, h, a.geo.rlo, a.geo.rhi, nullptr, s.sm, h,
                              n, h, st)));
-  TRY((node_chain<T, fwd_node>(a.x, s.sm, w, bias, a.geo.cnt, s.agg, s.g1,
-                               s.x1f, s.x1, s.b1, n, h, st)));
+  TRY((node_chain<T, fwd_node>(a.x, s.sm, s.ws, bias, a.geo.cnt, s.agg,
+                               s.g1, s.x1f, s.x1, s.b1, n, h, st)));
   // zx = T(dropout(x1f + b1 @ W_b1 + b_b1 (+ x))), node rows E..E+N-1
-  Epi<T, fwd_node> np = {};
+  Epi<T, fwd_node, E_ADD | E_OUT2> np = {};
   np.bias = bias + 7 * h;
   np.add32 = s.x1f;
   np.skip = a.skip ? a.x : nullptr;
   np.out2 = a.zx;
   np.d = a.d;
   np.row0 = e;
-  return prod<T, false, fwd_node>(s.b1, h, w.wb1, h, h, n, h, np, st);
+  return wprod<T>(s.b1, h, h, s.ws.wb1, n, h, np, st);
 }
 
 template <typename T>
@@ -662,13 +766,15 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   float* esum[6];  // bias rows 0-2, 8-10
   for (int i = 0; i < 6; ++i) esum[i] = s.esum + i * ebk;
 
-  // ---- pass 1: node side: recompute sm, agg, g1, x1, b1, then beta,
-  // gamma, the mean and phi's second layer backward
+  // ---- pass 1: node side: the recomputed chain's weights pre-split,
+  // recompute sm, agg, g1, x1, b1 (on the forward's tile: the same relu
+  // masks), then beta, gamma, the mean and phi's second layer backward
+  TRY((simple::wsplit<T, bwd_node1>(ws_jobs<T>(w, s.ws, h), st)));
   TRY((run_sums<T, bwd_node1>(a.m1s, h, a.geo.rlo, a.geo.rhi, nullptr, s.sm,
                               h, n, h, st)));
   // x1f is not needed: dxacc's buffer holds it until dxacc is written
-  TRY((node_chain<T, bwd_node1>(a.x, s.sm, w, bias, a.geo.cnt, s.agg, s.g1,
-                                s.dxacc, s.x1, s.b1, n, h, st)));
+  TRY((node_chain<T, bwd_node1>(a.x, s.sm, s.ws, bias, a.geo.cnt, s.agg,
+                                s.g1, s.dxacc, s.x1, s.b1, n, h, st)));
   // dx2 = dropout(dz_x) (f32), dx2c = T(dx2); b_b1's column sums
   TRY((ew<T, bwd_node1>(a.dzx, nullptr, nullptr, a.d, e, s.dx2, s.dx2c,
                         nsum[4], n, h, st)));
@@ -677,24 +783,24 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   np.mask = s.b1;
   np.colsum = nsum[3];
   np.out_t = s.dzb;
-  TRY((prod<T, true, bwd_node1>(s.dx2c, h, w.wb1, h, h, n, h, np, st)));
+  TRY((prod_t<T>(s.dx2c, h, w.wb1, h, h, n, h, np, st)));
   // dx1 = dx2 + dzb @ W_b0^T, dx1c = T(dx1); b_g1
   np = {};
   np.add32 = s.dx2;
   np.colsum = nsum[2];
   np.out_t = s.dx1c;
-  TRY((prod<T, true, bwd_node1>(s.dzb, h, w.wb0, h, h, n, h, np, st)));
+  TRY((prod_t<T>(s.dzb, h, w.wb0, h, h, n, h, np, st)));
   // dzg = T(where(g1 > 0, dx1c @ W_g1^T, 0)); b_g0
   np = {};
   np.mask = s.g1;
   np.colsum = nsum[1];
   np.out_t = s.dzg;
-  TRY((prod<T, true, bwd_node1>(s.dx1c, h, w.wg1, h, h, n, h, np, st)));
+  TRY((prod_t<T>(s.dx1c, h, w.wg1, h, h, n, h, np, st)));
   // dxacc = dzg @ W_g0[:H]^T (+ dx2 with the skip), f32
   np = {};
   np.add32 = a.skip ? s.dx2 : nullptr;
   np.out_f = s.dxacc;
-  TRY((prod<T, true, bwd_node1>(s.dzg, h, w.wg0, h, h, n, h, np, st)));
+  TRY((prod_t<T>(s.dzg, h, w.wg0, h, h, n, h, np, st)));
   // dagg = (dzg @ W_g0[H:]^T) / max(cnt, 1), daggc = T(dagg); b_p1 sums
   // cnt * dagg
   np = {};
@@ -702,41 +808,41 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   np.colsum = nsum[0];
   np.cs_cnt = 1;
   np.out_t = s.daggc;
-  TRY((prod<T, true, bwd_node1>(s.dzg, h, w.wg0 + (size_t)h * h, h, h, n, h,
-                                np, st)));
+  TRY((prod_t<T>(s.dzg, h, w.wg0 + (size_t)h * h, h, h, n, h,
+                            np, st)));
   // dsm = T(daggc @ W_p1^T)
   np = {};
   np.out_t = s.dsm;
-  TRY((prod<T, true, bwd_node1>(s.daggc, h, w.wp1, h, h, n, h, np, st)));
+  TRY((prod_t<T>(s.daggc, h, w.wp1, h, h, n, h, np, st)));
 
   // ---- pass 2: slot side
   const T* ein = a.e_in;
   if (a.enc) {
-    TRY((encoder<T, bwd_edge>(a.e_in, w, bias, s.hen1, s.hen2, s.ein, e, h,
-                              st)));
+    TRY((encoder<T, bwd_edge>(a.e_in, w, s.ws, bias, s.hen1, s.hen2, s.ein, e,
+                              h, st)));
     ein = s.ein;
   }
   // e2 = T(e1 @ W_e1 + b_e1), for dW_pe
-  Epi<T, bwd_edge> ep = {};
-  ep.bias = bias + h;
-  ep.out_t = s.e2;
-  TRY((prod<T, false, bwd_edge>(a.e1s, h, w.we1, h, h, e, h, ep, st)));
+  Epi<T, bwd_edge, E_OUTT> e2p = {};
+  e2p.bias = bias + h;
+  e2p.out_t = s.e2;
+  TRY((wprod<T>(a.e1s, h, h, s.ws.we1, e, h, e2p, st)));
   // dzm = T(where(m1 > 0, dsm[recv], 0)); b_p0
   TRY((ew<T, bwd_edge>(s.dsm, a.geo.recv, a.m1s, none, 0, nullptr, s.dzm,
                        esum[2], e, h, st)));
   // de2 = dropout(dz_e) + dzm @ W_pe^T, de2c = T(de2); b_e1
-  ep = {};
+  Epi<T, bwd_edge> ep = {};
   ep.dadd = a.dze;
   ep.d = a.d;
   ep.colsum = esum[1];
   ep.out_t = s.de2c;
-  TRY((prod<T, true, bwd_edge>(s.dzm, h, w.wpe, h, h, e, h, ep, st)));
+  TRY((prod_t<T>(s.dzm, h, w.wpe, h, h, e, h, ep, st)));
   // de1 = T(where(e1 > 0, de2c @ W_e1^T, 0)); b_e0
   ep = {};
   ep.mask = a.e1s;
   ep.colsum = esum[0];
   ep.out_t = s.de1;
-  TRY((prod<T, true, bwd_edge>(s.de2c, h, w.we1, h, h, e, h, ep, st)));
+  TRY((prod_t<T>(s.de2c, h, w.we1, h, h, e, h, ep, st)));
   // deo = de1 @ W_ee^T (+ dropout(dz_e) with the skip): de_win = T(deo),
   // or in encoder mode deoc = T(deo), b_en2, and the encoder's backward
   ep = {};
@@ -748,22 +854,21 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   } else {
     ep.out_t = a.de_win;
   }
-  TRY((prod<T, true, bwd_edge>(s.de1, h, w.wee, h, h, e, h, ep, st)));
+  TRY((prod_t<T>(s.de1, h, w.wee, h, h, e, h, ep, st)));
   if (a.enc) {
     // dz2 = T(where(h2 > 0, deoc @ W_en2^T, 0)) [E, 128]; b_en1
     ep = {};
     ep.mask = s.hen2;
     ep.colsum = esum[4];
     ep.out_t = s.dz2;
-    TRY((prod<T, true, bwd_edge>(s.deoc, h, w.wen2, h, h, e, ENC_HID, ep,
-                                 st)));
+    TRY((prod_t<T>(s.deoc, h, w.wen2, h, h, e, ENC_HID, ep, st)));
     // dz1 = T(where(h1 > 0, dz2 @ W_en1^T, 0)); b_en0
     ep = {};
     ep.mask = s.hen1;
     ep.colsum = esum[3];
     ep.out_t = s.dz1;
-    TRY((prod<T, true, bwd_edge>(s.dz2, ENC_HID, w.wen1, ENC_HID, ENC_HID, e,
-                                 ENC_HID, ep, st)));
+    TRY((prod_t<T>(s.dz2, ENC_HID, w.wen1, ENC_HID, ENC_HID, e,
+                             ENC_HID, ep, st)));
   }
 
   // ---- pass 3: the receiver and sender folds into dx
@@ -777,8 +882,8 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   Epi<T, bwd_node2> xp = {};
   xp.add32 = s.dxacc;
   xp.out_t = a.dx;
-  TRY((prod<T, true, bwd_node2>(s.rde1, h, w.wer, h, h, s.snode, 2 * h,
-                                w.wsp, 2 * h, 2 * h, n, h, h, xp, st)));
+  TRY((prod_t<T>(s.rde1, h, w.wer, h, h, s.snode, 2 * h, w.wsp,
+                            2 * h, 2 * h, n, h, h, xp, st)));
 
   // ---- pass 4: the weight gradients and the bias rows
   struct Job {

@@ -2,7 +2,8 @@
 // tensor copies (plain and multicast to a 2-block cluster), wgmma with its
 // shared-memory descriptors, cp.async row copies, named barriers and the
 // host-side tensor maps. Used by the product engine (engine.cuh), the
-// split-K weight pass (atb.cuh) and the 3xTF32 product tile (simple.cuh).
+// split-K weight pass (atb.cuh) and the 3xTF32 product tiles (simple.cuh,
+// wtile.cuh).
 //
 // Layout: operand tiles in shared memory come in slices 32 bf16 deep along
 // K, in one of two swizzles:
@@ -19,11 +20,13 @@
 //    columns 32-63 of a chunk 64 bytes in (the swizzle is a function of
 //    the address, so TMA's and wgmma's agree).
 // Epilogues that write a K-major tile from registers use `sw64`.
-// tf32 operands (simple.cuh's 3xTF32 tile): wgmma takes them K-major only,
-// here in the 128-byte swizzle: a slice is [rows, 32] tf32 with 128-byte
-// rows; element (r, k) sits at r * 128 + ((k / 4) ^ (r & 7)) * 16 + (k %
-// 4) * 4 (`sw128`). Descriptor: SBO 1024 (8 rows), LBO unused; each k8
-// step starts 32 bytes further in.
+// tf32 operands (the 3xTF32 tiles of simple.cuh and wtile.cuh): wgmma
+// takes them K-major only, here in the 128-byte swizzle: a slice is [rows,
+// 32] tf32 with 128-byte rows; element (r, k) sits at r * 128 + ((k / 4) ^
+// (r & 7)) * 16 + (k % 4) * 4 (`sw128`), as a TMA box of 32 f32 wide lands
+// with CU_TENSOR_MAP_SWIZZLE_128B (`make_map_f32`). Descriptor: SBO 1024 (8
+// rows), LBO unused; each k8 step starts 32 bytes further in. A may come
+// from registers instead (`wgmma_tf32_rs_n128`, RS mode).
 #pragma once
 
 #include <cuda.h>
@@ -268,6 +271,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d[16] (+)= A[64, 16] @ B[16, 32]: bf16 in, f32 sums; scale_d 0
 // overwrites d. TA / TB: 1 for an MN-major operand, 0 for K-major.
 template <int TA, int TB>
@@ -404,6 +413,34 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64] (+)= A[64, 8] @ B[8, 128]: tf32 in, A from registers (a: this
+// thread's fragment, rows 16 w + l / 4 (+ 8) of warp w, lane l, at depths
+// l % 4 (a[0], a[1]) and l % 4 + 4 (a[2], a[3]); tf32 bits in b32), B K-major
+// in shared memory; scale_d 0 overwrites d. The registers of ``a`` are read
+// after the call returns: they stay unchanged until wg_wait (fence_regs).
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(db));
+}
+
 // the tf32 value nearest x (ties away from zero), in f32 bits with the low
 // 13 zero: the hi or lo part of a 3xTF32 operand
 __device__ __forceinline__ float tf32_rna(float x) {
@@ -470,6 +507,24 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer,
             box_inner == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                             : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D f32 tensor map over rows of ``inner`` elements (``outer`` rows,
+// row stride ``ld`` elements), boxes of [box_outer, 32] with the 128-byte
+// swizzle: a box lands K-major as sw128 lays out a tf32 slice; reads past
+// the end fill zeros. False on failure.
+inline bool make_map_f32(CUtensorMap* map, const float* ptr, int inner,
+                         int outer, int ld, int box_outer) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -35,41 +35,45 @@
 //    Sums run in the plain version's order of terms: band, spill, table,
 //    acc. #4 alone; #1's phase 1 (agg = x_dtype(acc)); #2's band pass (dx =
 //    x_dtype(band @ dagg slab + dxp)).
-//  - gemm_kernel (simple.cuh, shared with ea_simple.cu): C = A0 @ op(B0)
-//    (+ A1 @ op(B1)) (+ bias) (+ add) on the tensor cores in 3xTF32 (bf16
-//    operands in one tf32 pass), 128 x 128 tiles, a producer warpgroup
-//    splitting 32-deep slices into a ring, two wgmma warpgroups. #1's out
-//    = agg @ W_l + x @ W_r
-//    + b_l (f32); the backward's dagg = dout @ W_l^T and dxp = dout @
-//    W_r^T (+ dz_eff); dW = [agg | x]^T @ dout split over row chunks
-//    (blockIdx.z) into f32 partials that sum_parts adds in chunk order.
+//  - the two product tiles, on the tensor cores in 3xTF32 (bf16 operands in
+//    one tf32 pass), 128 x 128 tiles of C: #1's out = agg @ W_l + x @ W_r +
+//    b_l (f32) on wtile.cuh's weight tile, [W_l; W_r] pre-split once a call
+//    into the wrapper's scratch (``wsplit``), A and the weight's parts by
+//    TMA, A's fragments from registers; the backward's dagg = dout @ W_l^T
+//    and dxp = dout @ W_r^T (+ dz_eff), and dW = [agg | x]^T @ dout split
+//    over row chunks (blockIdx.z) into f32 partials that sum_parts adds in
+//    chunk order, on simple.cuh's gemm_kernel (a producer warpgroup
+//    splitting 32-deep slices into a ring, two wgmma warpgroups).
 //  - row passes, one warp per row, looping over the row's columns, so any
 //    H fits: #1's epilogue (sum of squares, inv, y, relu, skip, dropout,
 //    z) and the backward's norm backward (dz_eff with the next layer's
 //    star and the dropout mask, dy, s = rowsum(dy * y), dout). The row-wide
 //    norm is split from the products because a row of H = 1024 f32 sums
 //    does not fit one block's registers beside a product tile.
-//  - code_sums: per 64-row block, the sums of a [N, H] tensor's rows by
+//  - code sums: per 64-row block, the sums of a [N, H] tensor's rows by
 //    code (each code's rows in row order), the partials that
 //    sage_common.cuh::table_reduce_kernel adds in block order: #1's emitted
-//    table (of z), #2's own table (of dagg), #3's (of dagg, global codes).
-//    colsum_* adds db = colsum(dout) the same way, in two fixed-order
-//    passes.
+//    table (of z) by code_sums_once_kernel, one pass over the block's rows
+//    into per-code sums in shared memory; #2's own table (of dagg) and #3's
+//    (of dagg, global codes) by code_sums_kernel, a pass over the rows for
+//    each code (the same adds in the same order: the same bits). colsum_*
+//    adds db = colsum(dout) the same way, in two fixed-order passes.
 // No float atomics: two runs give the same bits.
 //
 // What bounds them on an H100: at the flagship shape (N = 103,424, H = 512,
 // T + W = 320) #1 is 4 N H^2 = 108 GFLOP of f32 products, 3 tf32 products
-// each (2.0 ms at the 495 TFLOP/s TF32 rate) beside the band's few nonzeros
-// a row, and the backward twice that, so they are bound by operations; the
-// band kernel alone is bound by bytes (x, the band, acc and out). The row
-// passes, the band and the code sums are separate launches that read and
-// write device memory (PERF.md has the times).
+// each (0.66 ms at the 495 TFLOP/s TF32 rate) beside the band's few
+// nonzeros a row, and the backward twice that, so they are bound by
+// operations; the band kernel alone is bound by bytes (x, the band, acc and
+// out), the code sums by z's bytes and the partials'. The row passes, the
+// band and the code sums are separate launches that read and write device
+// memory (PERF.md has the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "simple.cuh"
+#include "wtile.cuh"
 
 namespace simple {
 
@@ -340,6 +344,59 @@ __global__ void __launch_bounds__(128) code_sums_kernel(
   }
 }
 
+// the same partials in one pass over the block's rows (#1's emitted table):
+// each row added into its code's sum in shared memory, so each code's rows
+// are still summed in row order from zero, the same adds as
+// code_sums_kernel's; ncode * 128 floats of shared memory
+template <typename T>
+__global__ void __launch_bounds__(128) code_sums_once_kernel(
+    const T* v, const int* codes, float* part, int ncode, int h) {
+  extern __shared__ float sums[];  // [ncode, 128]
+  __shared__ int sc[CB];
+  const int b = blockIdx.x;
+  const int col = blockIdx.y * 128 + threadIdx.x;
+  if (threadIdx.x < CB) sc[threadIdx.x] = codes[b * CB + threadIdx.x];
+  for (int c = 0; c < ncode; ++c) sums[c * 128 + threadIdx.x] = 0.f;
+  __syncthreads();
+  const T* vb = v + (size_t)b * CB * h + col;
+#pragma unroll 8
+  for (int r = 0; r < CB; ++r) {
+    const float x = to_f(__ldg(vb + (size_t)r * h));
+    const int c = sc[r];
+    if (c >= 0 && c < ncode) sums[c * 128 + threadIdx.x] += x;
+  }
+  float* out = part + (size_t)b * ncode * h + col;
+  for (int c = 0; c < ncode; ++c)
+    out[(size_t)c * h] = sums[c * 128 + threadIdx.x];
+}
+
+template <typename T>
+cudaError_t code_sums_once(const T* v, const int* codes, float* part,
+                           int ncode, int n, int h, cudaStream_t st) {
+  const int bytes = ncode * 128 * 4;
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        code_sums_once_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return e;
+  }
+  code_sums_once_kernel<T><<<dim3(n / CB, h / 128), 128, bytes, st>>>(
+      v, codes, part, ncode, h);
+  return cudaGetLastError();
+}
+
+// table_reduce's fixed order over the tiles whose window holds each table
+// row, from the partials by block
+cudaError_t table_reduce(const float* part, const int* gwin, float* table,
+                         int n, int h, int tile, int gw, int t0, int tg,
+                         cudaStream_t st) {
+  dim3 grid((h + 255) / 256, tg);
+  sage::table_reduce_kernel<<<grid, 256, 0, st>>>(part, gwin, table,
+                                                  n / tile, tile / CB, gw,
+                                                  t0, h);
+  return cudaGetLastError();
+}
+
 // the table of a code sum: partials by block, then table_reduce's fixed
 // order over the tiles whose window holds each table row
 template <typename T>
@@ -350,11 +407,7 @@ cudaError_t table_sum(const T* v, const int* codes, const int* gwin,
                                                              ncode, h);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dim3 grid((h + 255) / 256, tg);
-  sage::table_reduce_kernel<<<grid, 256, 0, st>>>(part, gwin, table,
-                                                  n / tile, tile / CB, gw,
-                                                  t0, h);
-  return cudaGetLastError();
+  return table_reduce(part, gwin, table, n, h, tile, gw, t0, tg, st);
 }
 
 constexpr int COL_ROWS = 256;  // rows of a column-sum chunk
@@ -388,7 +441,7 @@ struct FwdArgs {
   const int8_t* band;
   const int *code, *gwin, *acc_code, *off, *lo, *hi;
   void *agg, *z, *y, *ftab;
-  float *out32, *inv, *partial;
+  float *out32, *inv, *partial, *wsplit;
   int n, h, tile, width, gw, t0, tg, n_spill, has_super, has_spill, skip,
       emit;
   Drop d;
@@ -421,20 +474,25 @@ cudaError_t fwd(const FwdArgs& a, cudaStream_t st) {
   p.t0 = a.t0;
   cudaError_t e = launch_band<T, T>(p, st);
   if (e != cudaSuccess) return e;
+  // [W_l; W_r] pre-split, then out = agg @ W_l + x @ W_r + b_l on the weight
+  // tile
+  WJobs js = {};
+  add_wjob<T>(&js, static_cast<const T*>(a.w_l), a.h, a.h,
+              static_cast<const T*>(a.w_r), a.h, a.h, a.h, a.wsplit);
+  e = wsplit<T>(js, st);
+  if (e != cudaSuccess) return e;
   Gemm g = {};
   g.a0 = a.agg;
-  g.b0 = a.w_l;
   g.a1 = a.x;
-  g.b1 = a.w_r;
-  g.lda0 = g.ldb0 = g.lda1 = g.ldb1 = a.h;
-  g.k0 = g.k1 = g.kchunk = a.h;
+  g.lda0 = g.lda1 = a.h;
+  g.k0 = g.k1 = a.h;
   g.m = a.n;
   g.n = a.h;
   g.bias = a.b_l;
   g.c = a.out32;
   g.ldc = a.h;
   g.c_f32 = 1;
-  e = gemm<T, false, false>(g, 1, st);
+  e = wgemm<T>(g, a.wsplit, st);
   if (e != cudaSuccess) return e;
   fwd_rows_kernel<T><<<(a.n + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
                        st>>>(a.out32, static_cast<const T*>(a.x),
@@ -442,9 +500,12 @@ cudaError_t fwd(const FwdArgs& a, cudaStream_t st) {
                              a.inv, a.n, a.h, a.skip, a.d);
   e = cudaGetLastError();
   if (e != cudaSuccess || !a.emit) return e;
-  return table_sum<T>(static_cast<const T*>(a.z), a.acc_code, a.gwin,
-                      a.partial, static_cast<float*>(a.ftab), a.n, a.h,
-                      a.tile, a.gw, a.t0, a.tg, 2 * a.gw, st);
+  // the emitted table of z: the code sums in one pass over each block
+  e = code_sums_once<T>(static_cast<const T*>(a.z), a.acc_code, a.partial,
+                        2 * a.gw, a.n, a.h, st);
+  if (e != cudaSuccess) return e;
+  return table_reduce(a.partial, a.gwin, static_cast<float*>(a.ftab), a.n,
+                      a.h, a.tile, a.gw, a.t0, a.tg, st);
 }
 
 struct BwdArgs {
@@ -562,7 +623,8 @@ extern "C" int sage_fwd_simple(
     const void* b_l, const void* table, const void* code, const void* gwin,
     const void* acc_code, const void* msgs, const void* spill_off,
     const void* spill_lo, const void* spill_hi, void* agg, void* out32,
-    void* z, void* y, void* inv, void* partial, void* ftab, int n, int h,
+    void* z, void* y, void* inv, void* partial, void* ftab, void* wsplit,
+    int n, int h,
     int tile, int width, int gw, int t0, int tg, int has_super, int skip,
     int emit, int n_spill, int has_spill, int dropout, unsigned int thr,
     unsigned int s0, unsigned int s1, float scale, int bf16_in,
@@ -588,6 +650,7 @@ extern "C" int sage_fwd_simple(
   a.inv = static_cast<float*>(inv);
   a.partial = static_cast<float*>(partial);
   a.ftab = ftab;
+  a.wsplit = static_cast<float*>(wsplit);
   a.n = n;
   a.h = h;
   a.tile = tile;
@@ -662,3 +725,44 @@ extern "C" int sage_bwd_simple(
                        : simple::bwd<float>(a, st));
 }
 
+// The weight tile alone (tests, tools/simple_tile_bench.py): wsplit [parts,
+// n, k0 + k1] f32 = the pre-split of [W0; W1] (W0 [k0, n], W1 [k1, n], row
+// stride ldw; w1 null when k1 is 0)
+extern "C" int wtile_split(const void* w0, const void* w1, int ldw, int k0,
+                           int k1, int n, void* wsplit, int bf16_in,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  simple::WJobs js = {};
+  float* out = static_cast<float*>(wsplit);
+  if (bf16_in) {
+    simple::add_wjob<simple::bf16>(
+        &js, static_cast<const simple::bf16*>(w0), ldw, k0,
+        static_cast<const simple::bf16*>(w1), ldw, k1, n, out);
+    return (int)simple::wsplit<simple::bf16>(js, st);
+  }
+  simple::add_wjob<float>(&js, static_cast<const float*>(w0), ldw, k0,
+                          static_cast<const float*>(w1), ldw, k1, n, out);
+  return (int)simple::wsplit<float>(js, st);
+}
+
+// c [m, n] f32 = a0 @ W0 (+ a1 @ W1) on the weight tile, from wsplit
+// (wtile_split), rows of a0 and a1 ``lda`` apart
+extern "C" int wtile_gemm(const void* a0, const void* a1, int lda, int k0,
+                          int k1, int m, int n, const void* wsplit, void* c,
+                          int bf16_in, void* stream) {
+  simple::Gemm g = {};
+  g.a0 = a0;
+  g.a1 = a1;
+  g.lda0 = g.lda1 = lda;
+  g.k0 = k0;
+  g.k1 = k1;
+  g.m = m;
+  g.n = n;
+  g.c = c;
+  g.ldc = n;
+  g.c_f32 = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(wsplit);
+  return (int)(bf16_in ? simple::wgemm<simple::bf16>(g, w, st)
+                       : simple::wgemm<float>(g, w, st));
+}

@@ -2,6 +2,12 @@
 // (sage_simple.cu: #1-#4; ea_simple.cu: #5, #6): element access in float32
 // or bf16, the dropout words' row pass helpers and the product tile.
 //
+// Which tile takes which product: wtile.cuh's weight tile every product
+// whose B is a weight as stored ([K, N]: #1's [agg | x] @ [W_l; W_r], all
+// of #5's, #6's recomputed forward chain), from weights pre-split once a
+// call; this file's gemm_kernel the products whose B is a transposed weight
+// (the backward's dout @ W^T) and the weight passes (A^T @ B, `atb`).
+//
 // gemm_kernel: C = A0 @ op(B0) (+ A1 @ op(B1)), then an epilogue, on the
 // tensor cores in 3xTF32. One pass of TF32 keeps about 2^-11 of each
 // operand, too little for the float32 gate (ops/banded_matmul.py::

@@ -136,6 +136,71 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, lo: bool = True
     return out.float()
 
 
+# The weight tile (csrc/wtile.cuh), which runs the variants' products whose
+# B is a weight as stored ([K, N]), takes the weight pre-split once a call:
+# its tf32 parts (hi and lo in float32, the value in bf16) transposed to
+# [parts, N, K], each 32-deep slice of K in the order WTILE_DEPTH (position
+# p holds depth WTILE_DEPTH[p]), the order in which a consumer thread's
+# A fragment comes from two whole 16-byte loads a row.
+WTILE_DEPTH = tuple(4 * (p % 4) + 16 * ((p % 8) // 4) + p // 8
+                    for p in range(32))
+
+
+def presplit_floats(dtype: torch.dtype, k: int, n: int) -> int:
+    """float32 values of a [k, n] weight in ``dtype`` pre-split for the
+    weight tile: two parts in float32, one in bf16."""
+    return (2 if dtype == torch.float32 else 1) * k * n
+
+
+def _slice_order(k: int) -> torch.Tensor:
+    """The depth at each position of K = k, slice by slice."""
+    d = torch.tensor(WTILE_DEPTH)
+    return (torch.arange(k) // 32 * 32 + d.repeat(k // 32)).long()
+
+
+def presplit_plain(w0: torch.Tensor, w1: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """The weight tile's pre-split of [w0; w1] ([k0, N] and [k1, N] in
+    float32 or bf16, (k0 + k1) % 32 == 0) as csrc/wtile.cuh::wsplit_kernel
+    writes it: [parts, N, K] float32, part 0 hi = tf32_round(w) and (float32)
+    part 1 lo = tf32_round(w - hi), or (bf16) the one part w, each slice's
+    depths in WTILE_DEPTH order."""
+    w = w0 if w1 is None else torch.cat([w0, w1])
+    wt = w.float()[_slice_order(w.shape[0])].t().contiguous()
+    if w.dtype != torch.float32:
+        return wt[None]
+    hi = tf32_round(wt)
+    return torch.stack([hi, tf32_round(wt - hi)])
+
+
+def presplit_parts(p: torch.Tensor) -> torch.Tensor:
+    """The pre-split layout mapped back: [parts, K, N] in depth order."""
+    inv = torch.argsort(_slice_order(p.shape[2]))
+    return p[:, :, inv].transpose(1, 2)
+
+
+def weight_tile_plain(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """a @ W (a [M, K] float32 or bf16, ``p`` W's `presplit_plain`) with the
+    weight tile's arithmetic: a's depths in the same order, each 32-deep
+    slice's lo.hi + hi.lo + hi.hi (bf16: hi.hi) summed in float64 and
+    rounded to float32 (the tensor cores' slice sum), the slices added to
+    float32 sums in order. For tests."""
+    k = a.shape[1]
+    ap = a.float()[:, _slice_order(k)]
+    ah = tf32_round(ap)
+    al = tf32_round(ap - ah)
+    out = torch.zeros((a.shape[0], p.shape[1]), dtype=torch.float32)
+    for k0 in range(0, k, 32):
+        s = slice(k0, k0 + 32)
+        bh = p[0, :, s].double().t()
+        sl = ah[:, s].double() @ bh
+        if p.shape[0] == 2:
+            sl = (sl + al[:, s].double() @ bh
+                  + ah[:, s].double() @ p[1, :, s].double().t())
+        out = out + sl.float()
+    return out
+
+
 def variant_tol(ref: torch.Tensor, dtype: torch.dtype, bf16_tol,
                 frac: bool = True) -> tuple[float, float]:
     """(atol, rtol) of a kernel-vs-plain gate on inputs of ``dtype``:

@@ -31,8 +31,10 @@ launches is ops/banded_matmul.py::kernel_variant's static rule on (dtype,
 H): bf16 at H in {128, 256, 512} the product engine's
 (``sage_layer_fwd.cu``, ``sage_layer_bwd.cu``), float32 at any H % 128 ==
 0 and bf16 at the other widths ``sage_simple.cu``'s (a few launches a
-call, the products on ``simple.cuh``'s 3xTF32 tensor-core tile), each
-counted under its own name (``*_simple``).
+call, the products on the 3xTF32 tensor-core tiles: the forward's [agg |
+x] @ [W_l; W_r] on ``wtile.cuh``'s weight tile from the weights pre-split
+into a scratch the wrapper allocates, the backward's on ``simple.cuh``'s
+tile), each counted under its own name (``*_simple``).
 `fused_sage_layer` is the layer as the model calls it: a
 ``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom
 VJP) with supernode-star threading through ghost tables (`star_source`)
@@ -51,7 +53,7 @@ from buckgnn_tpu_torch.graph.batch import (
 from buckgnn_tpu_torch.ops import segment
 from buckgnn_tpu_torch.ops.banded_matmul import (
     banded_matmul, check_band, check_engine, check_operands, check_spill,
-    slab_starts, spill_term_plain, variant_of,
+    presplit_floats, slab_starts, spill_term_plain, variant_of,
 )
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
@@ -340,13 +342,16 @@ def _launch(x, w_l, b_l, w_r, band, *, tile, width, table, code, gwin, gw,
     else:
         name = "sage_fwd_simple"
         out32 = torch.empty((n, h), **f32)
+        # [W_l; W_r] pre-split for the weight tile (csrc/wtile.cuh)
+        wsplit = torch.empty((presplit_floats(x.dtype, 2 * h, h),), **f32)
         fn = cuda_build.load("sage_simple").sage_fwd_simple
-        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 13
                        + [ctypes.c_uint32] * 3
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         args = operands + (
             _ptr(agg), _ptr(out32), _ptr(z), _ptr(y), _ptr(inv),
-            _ptr(partial), _ptr(ftab), n, h, tile, width, gw, t0, tg,
+            _ptr(partial), _ptr(ftab), _ptr(wsplit), n, h, tile, width, gw,
+            t0, tg,
             int(has_super), int(skip), int(emit), n_spill,
             int(has_spill)) + dropout + (int(x.dtype == torch.bfloat16),)
     fn.restype = ctypes.c_int

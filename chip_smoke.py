@@ -167,15 +167,19 @@ Phases, each fatal on failure:
      failing a wrong norm, a dropped bias, a forward without its spill
      term, a norm backward without its s term, a backward without the
      next layer's star and a band product without its spill messages;
-     float32 kept (the products run in 3xTF32 on the tensor cores,
-     csrc/simple.cuh): #3's outputs at every float32 width within 1e-5 of
+     float32 kept (the products run in 3xTF32 on the tensor cores: #1's on
+     csrc/wtile.cuh's weight tile, the backward's on csrc/simple.cuh's
+     gemm_kernel): #3's outputs at every float32 width within 1e-5 of
      max|ref| of a float64 evaluation of its plain version, and at H 512
      one TF32 pass (bm.mm_3xtf32 without its lo terms) of two of its
      products on the card's operands outside that gate; the flagship-f32
      and virtual-f32 cells served and trained (6 #1 per forward; 6 #1 and
      6 #2, or 6 #1, 6 #3 and 6 #4, per step; no engine kernel), each
-     against the plain path, with the product tile's device ms and
-     TFLOP/s a step; each variant's time at its float32 main path's shape
+     against the plain path, with each product tile's device ms and
+     TFLOP/s a step (``sage_tile``: wtile_kernel on the forward's products,
+     gemm_kernel on the backward's; the weights' pre-split and #1's code
+     sums beside them); #1's float32 variant twice the same bits; each
+     variant's time at its float32 main path's shape
      beside its bound (3 tf32 products for each float32 one at 495
      TFLOP/s, other f32 operations at 67, against bytes), its plain
      version and the float32 torch composition (TF32 off);
@@ -191,7 +195,8 @@ Phases, each fatal on failure:
      appended far rows' gradient included; the gates failing, at the
      float32 tolerance, a forward without its far senders, its cnt * b_p1
      term or its skip, a backward without its sender fold and a dW_sp
-     without the far slots; the same bits twice; #6's float32 outputs on
+     without the far slots; the same bits twice (also at float32 H 512 on
+     the ea-virtual batch, plain and encoder mode); #6's float32 outputs on
      the ea-virtual batch against a float64 evaluation of its plain
      version at its gates, and one TF32 pass of two of its products
      outside the float32 gate; the ea-virtual-f32 cell
@@ -199,7 +204,9 @@ Phases, each fatal on failure:
      forward, 6 #5s and 6 #6s per step, no engine or SAGE kernel; the
      forward, the loss and its gradients against the plain path at
      PRED_TOL and GRAD_TOL), one line per pass of each variant from the
-     train step's profile (with the product tile's own ms and TFLOP/s),
+     train step's profile (with each product tile's own ms and TFLOP/s:
+     wtile_kernel for the products of weights as stored, gemm_kernel for
+     the transposed weights and the weight pass, `ea_tile_flops`),
      its step memory, and each variant's time beside its bound, its plain
      version and the float32 composition.
 Prints JSON lines (serving and training numbers, then the kernel table),
@@ -1513,15 +1520,15 @@ EA_PASS_KERNELS = {
     "bwd_weights": ("atb_kernel", "atb_reduce_kernel", "bias_reduce_kernel")}
 
 
-def pass_lines(kind, rows, kernels, flops, card, calls=None, tile=None,
+def pass_lines(kind, rows, kernels, flops, card, calls=None, tiles=None,
                **tags):
     """One line per pass from a train step's profile rows (name, device ms
     per step, calls per step): device ms per step and per call (``calls``
     a step, else the pass's launches), the launches per step of the
     pass's first kernel, its operations per step (``flops`` by pass; none
-    for a reduction) and its achieved TFLOP/s; with ``tile`` (a kernel
-    name) also the device ms of the pass's product tile alone and its
-    TFLOP/s on the pass's products."""
+    for a reduction) and its achieved TFLOP/s; with ``tiles`` ({kernel
+    name: operations by pass}) also each product tile's own device ms in
+    the pass and its TFLOP/s on its products there."""
     for name, pats in kernels.items():
         hits = [r for r in rows if any(p in r[0] for p in pats)]
         ms = sum(r[1] for r in hits)
@@ -1532,25 +1539,53 @@ def pass_lines(kind, rows, kernels, flops, card, calls=None, tile=None,
                 "ms_per_call": ms / per if per else None,
                 "launches_per_step": launches, "flops_per_step": f,
                 "tflop_per_s": f / ms / 1e9 if ms and f else None}
-        if tile is not None:
+        for tile, tflops in (tiles or {}).items():
             tms = sum(r[1] for r in hits if tile in r[0])
-            line.update(tile_ms_per_step=tms,
-                        tile_tflop_per_s=f / tms / 1e9 if tms and f else None)
+            tf = tflops.get(name, 0)
+            line.update({f"{tile}_ms_per_step": tms,
+                         f"{tile}_tflop_per_s":
+                         tf / tms / 1e9 if tms and tf else None})
         print(json.dumps(line))
 
 
+def ea_tile_flops(n, ev, h, enc):
+    """The variants' product operations by pass and tile: the weight tile
+    (csrc/wtile.cuh: every product whose B is a weight as stored, the
+    forward's and the backward's recomputed chain) and simple.cuh's
+    gemm_kernel (the transposed weights, the weight pass); the encoder's
+    K = 8 first layer runs on neither."""
+    c, hh = eb.ENC_HID, h * h
+    ew = (c * c + c * h) if enc else 0  # the encoder's two tile layers
+    total = eb.pass_flops(n, ev, h, enc=enc)
+    wtile = {"fwd_proj": 2 * n * 3 * hh, "fwd_edge": 2 * ev * (3 * hh + ew),
+             "fwd_node": 2 * n * 6 * hh, "bwd_node1": 2 * n * 5 * hh,
+             "bwd_edge": 2 * ev * (hh + ew)}
+    first = 2 * ev * eb.ENC_IN * c if enc else 0  # the K = 8 layer
+    gemm = {"bwd_node1": total["bwd_node1"] - wtile["bwd_node1"],
+            "bwd_edge": total["bwd_edge"] - wtile["bwd_edge"] - first,
+            "bwd_node2": total["bwd_node2"],
+            "bwd_weights": total["bwd_weights"] - first}
+    return {"wtile_kernel": wtile, "gemm_kernel": gemm}
+
+
 def ea_pass_lines(rows, batch, card, layers=6, kernels=EA_PASS_KERNELS,
-                  tile=None, **tags):
+                  tiles=False, **tags):
     """`pass_lines` of #5 and #6 (or, with ``kernels``, their variants)
     from an ea-virtual train step: ``layers`` block calls a step, layer 0
-    in encoder mode, the others not."""
+    in encoder mode, the others not; with ``tiles`` each product tile's
+    own ms and TFLOP/s (`ea_tile_flops`)."""
     ctx = eb.make_ea_context(batch)
     n, ev = batch.n_node_cap, int((ctx.recv >= 0).sum())
     h = 512
     plain, enc = (eb.pass_flops(n, ev, h, enc=m) for m in (False, True))
+    by_tile = None
+    if tiles:
+        tp, te = (ea_tile_flops(n, ev, h, m) for m in (False, True))
+        by_tile = {t: {k: (layers - 1) * tp[t].get(k, 0) + te[t].get(k, 0)
+                       for k in kernels} for t in tp}
     pass_lines("ea_pass", rows, kernels,
                {k: (layers - 1) * plain[k] + enc[k] for k in kernels},
-               card, calls=layers, tile=tile, **tags)
+               card, calls=layers, tiles=by_tile, **tags)
 
 
 # the kernel names of each pass of the fused SAGE kernels in a profile: #1
@@ -3212,6 +3247,26 @@ def variant_checks(label, batch, vbatch, sbatch, dtype, h, worst):
     return errs
 
 
+def simple_fwd_deterministic(batch, h=512):
+    """No float atomics: two calls of #1's float32 variant (the weight
+    tile, the one-pass code sums) give the same bits, serving with emit
+    and training at dropout 0.1."""
+    x = seeded_x(batch, h, 77, torch.float32)
+    w = check_weights(h, x, batch.node_mask, seed=78, dtype=torch.float32)
+    args, kw, _ = layer_inputs(batch, x, w, True, True, True)
+    targs, tkw, _ = layer_inputs(batch, x, w, False, False, True)
+    tkw = dict(tkw, save_res=True, rate=RATE, seed=SEED)
+    outs = [[sl.sage_layer_fwd(*args, **kw), sl.sage_layer_fwd(*targs, **tkw)]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    flat = [[t for o in run for t in o if t is not None] for run in outs]
+    same = all(torch.equal(a, b) for a, b in zip(*flat))
+    print(json.dumps({"check": f"widths/f32/h{h}/sage_layer_fwd_simple/"
+                      "deterministic", "ok": same}))
+    if not same:
+        fail("two calls of #1's float32 variant gave different bits")
+
+
 def variant_gates(batch, vbatch, dtype, h):
     """The variant gates fail plain versions with a fault, each held
     against the variant's own output: a norm over 7/8 of the sum of
@@ -3391,6 +3446,7 @@ def widths_phase(dev, card, setup, vsetup):
                           "s": time.perf_counter() - t0}))
     for dtype, h in ((torch.float32, 384), (torch.bfloat16, 640)):
         variant_gates(batch, vbatch, dtype, h)
+    simple_fwd_deterministic(batch)
     print(json.dumps({"widths": "float32 error over max|plain|",
                       "card": card, **worst}))
 
@@ -3406,15 +3462,23 @@ def widths_phase(dev, card, setup, vsetup):
             label, dev, card, "sage_layer_fwd_simple", kernels,
             cell_data(base), rows_out=rows)
         print(json.dumps(summary))
-        # the product tile's share of the step: 6 layers of 4 N H^2 forward
-        # and 8 N H^2 backward float32 products
+        # each product tile's share of the step: 6 layers of 4 N H^2
+        # forward float32 products on the weight tile and 8 N H^2 backward
+        # ones on gemm_kernel; the weights' pre-split and the forward's
+        # code sums
         n, h = train["batch"].n_node_cap, 512
-        f = 6 * 12 * n * h * h
-        tms = sum(r[1] for r in rows if "gemm_kernel" in r[0])
-        print(json.dumps({"sage_tile": label, "card": card,
-                          "tile_ms_per_step": tms, "flops_per_step": f,
-                          "tile_tflop_per_s": f / tms / 1e9 if tms else None,
-                          "device_ms_per_step": sum(r[1] for r in rows)}))
+        line = {"sage_tile": label, "card": card,
+                "device_ms_per_step": sum(r[1] for r in rows)}
+        for tile, f in (("wtile_kernel", 6 * 4 * n * h * h),
+                        ("gemm_kernel", 6 * 8 * n * h * h)):
+            tms = sum(r[1] for r in rows if tile in r[0])
+            line.update({f"{tile}_ms_per_step": tms,
+                         f"{tile}_flops_per_step": f,
+                         f"{tile}_tflop_per_s": f / tms / 1e9 if tms
+                         else None})
+        for k in ("wsplit_kernel", "code_sums_once_kernel"):
+            line[f"{k}_ms_per_step"] = sum(r[1] for r in rows if k in r[0])
+        print(json.dumps(line))
         cells.append(summary)
         paths.update(launches)
         trains[label] = train
@@ -3611,6 +3675,9 @@ def ea_widths_phase(dev, card, esetup, etrain):
     ea_deterministic(f"ea-widths/{ragged[2][0]}", ragged[2][1], ragged[2][2],
                      cases=((torch.float32, 384, True, False),
                             (torch.bfloat16, 640, False, True)))
+    ea_deterministic("ea-widths/ea-virtual", ebatch, ectx,
+                     cases=((torch.float32, 512, False, True),
+                            (torch.float32, 512, True, False)))
     print(json.dumps({"ea_widths": "cell shape, shards, gates", "card": card,
                       "s": time.perf_counter() - t0, **worst}))
 
@@ -3621,7 +3688,7 @@ def ea_widths_phase(dev, card, esetup, etrain):
         cell_data(etrain), rows_out=rows)
     print(json.dumps(summary))
     ea_pass_lines(rows, train["batch"], card, kernels=EA_SIMPLE_PASS_KERNELS,
-                  tile="gemm_kernel", cell="ea-virtual-f32")
+                  tiles=True, cell="ea-virtual-f32")
     times = ea_variant_timings(train, card)
     launches = paths["ea-virtual-f32_train"]
     replaces = {"ea_block_fwd_simple": TPU_EA_FWD_KERNEL,

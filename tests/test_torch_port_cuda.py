@@ -1754,3 +1754,117 @@ def test_ea_simple_gates_catch_faults(dtype, h, which):
                 or errs["dx_row"] > eb.bwd_tol("dx_row")), (fault, errs)
         if fault == "no-far-fold":
             assert errs["dwsp"] > eb.bwd_tol("dwsp"), errs
+
+
+# ---- the weight tile (csrc/wtile.cuh) ----------------------------------
+
+
+def _wtile_lib():
+    import ctypes
+
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("sage_simple")
+    lib.wtile_split.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p])
+    lib.wtile_gemm.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p] * 2
+                               + [ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.wtile_split, lib.wtile_gemm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _wsplit(w0, w1=None):
+    """sage_simple.cu::wtile_split of [w0; w1] on the card."""
+    k0, n = w0.shape
+    k1 = 0 if w1 is None else w1.shape[0]
+    out = torch.empty((bm.presplit_floats(w0.dtype, k0 + k1, n),),
+                      dtype=torch.float32, device=w0.device)
+    err = _wtile_lib().wtile_split(
+        w0.data_ptr(), 0 if w1 is None else w1.data_ptr(), n, k0, k1, n,
+        out.data_ptr(), int(w0.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_split: CUDA error {err}"
+    torch.cuda.synchronize()
+    return out.view(-1, n, k0 + k1)
+
+
+def _wgemm(a0, a1, p, n):
+    """sage_simple.cu::wtile_gemm: a0 @ W0 (+ a1 @ W1) from the pre-split
+    ``p``, f32."""
+    m, k0 = a0.shape
+    k1 = 0 if a1 is None else a1.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a0.device)
+    err = _wtile_lib().wtile_gemm(
+        a0.data_ptr(), 0 if a1 is None else a1.data_ptr(), k0, k0, k1, m, n,
+        p.data_ptr(), c.data_ptr(), int(a0.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_gemm: CUDA error {err}"
+    torch.cuda.synchronize()
+    return c
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("stacked", [False, True])
+def test_wtile_split_matches_plain_layout_bit_for_bit(dtype, h, stacked):
+    """The pre-split kernel's buffer is `bm.presplit_plain`'s, bit for bit,
+    for a [H, H] weight and #1's stacked [W_l; W_r]."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(h)
+    w0 = torch.randn((h, h), generator=g, device=dev).to(dtype)
+    w1 = (torch.randn((h, h), generator=g, device=dev).to(dtype)
+          if stacked else None)
+    got = _wsplit(w0, w1)
+    want = bm.presplit_plain(w0.cpu(), None if w1 is None else w1.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("m", [64, 1000, 4099])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_wtile_matches_3xtf32_on_cuda(dtype, h, m, stacked):
+    """The weight tile at ragged M (a partial 64-row half, a partial
+    128-row tile, more tiles than SMs at H 1024) against `bm.mm_3xtf32`
+    (float32) or the one-pass product (bf16) of the same operands, within
+    the float32 gate of max|ref| (bf16: the products are exact, so the
+    same gate holds)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + h)
+    a0 = torch.randn((m, h), generator=g, device=dev).to(dtype)
+    w0 = (torch.randn((h, h), generator=g, device=dev) / h ** 0.5).to(dtype)
+    a1 = w1 = None
+    if stacked:
+        a1 = torch.randn((m, h), generator=g, device=dev).to(dtype)
+        w1 = (torch.randn((h, h), generator=g, device=dev)
+              / h ** 0.5).to(dtype)
+    got = _wgemm(a0, a1, _wsplit(w0, w1), h)
+    a = a0 if a1 is None else torch.cat([a0, a1], 1)
+    w = w0 if w1 is None else torch.cat([w0, w1])
+    ref = bm.mm_3xtf32(a.float(), w.float(), lo=dtype == torch.float32)
+    atol = bm.SIMPLE_F32_TOL * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+def test_wtile_is_deterministic():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((5000, 512), generator=g, device=dev)
+    p = _wsplit(torch.randn((512, 512), generator=g, device=dev))
+    assert torch.equal(_wgemm(a, None, p, 512), _wgemm(a, None, p, 512))
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 512),
+                                     (torch.float32, 384),
+                                     (torch.bfloat16, 640)])
+def test_simple_emitted_table_matches_plain_table(dtype, h):
+    """#1's variant's emitted table (the one-pass code sums, then
+    table_reduce) against the plain table of its own z, within the float32
+    gate (bf16: the engine's table gate)."""
+    dev = _card()
+    b, args, kw = _simple_layer(dev, dtype, h, "local_emit", seed=h + 9)
+    z, ftab = sl.sage_layer_fwd(*args, **dict(kw, skip=True))
+    ref = sl.emit_table_plain(z, kw["acc_code"], kw["gwin"],
+                              kw["gw"], kw["t0"], kw["tile"])
+    _vclose(ftab, ref, dtype, sl.KERNEL_TABLE_TOL, what="table")

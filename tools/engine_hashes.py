@@ -1,14 +1,19 @@
-"""Hashes of the bf16 product-engine kernels' outputs, for the tree ROOT.
+"""Hashes of kernels' outputs, for the tree ROOT.
 
     python3 tools/engine_hashes.py [ROOT]
 
 Runs, from the ``buckgnn_tpu_torch`` and ``chip_smoke.py`` of ROOT (the
-repository by default), #1 and #2 on the flagship batch (local star
-windows, the next layer's star, skip, dropout 0.1) and #5 and #6 on the
-ea-virtual batch and on a small ragged EA batch (plain mode with the skip,
-encoder mode; dropout 0.1), all in bf16 at H 512 with seeded weights, and
-prints one JSON line of sha256 prefixes of their outputs. Two trees that
-print the same line computed the same bits. Needs a card.
+repository by default), the bf16 product-engine kernels: #1 and #2 on the
+flagship batch (local star windows, the next layer's star, skip, dropout
+0.1) and #5 and #6 on the ea-virtual batch and on a small ragged EA batch
+(plain mode with the skip, encoder mode; dropout 0.1), in bf16 at H 512;
+and the float32 variants that run no weight-tile product, on inputs that
+no other kernel made: #2s on the flagship batch (the next layer's star,
+skip, dropout 0.1), #3s on the virtual batch (skip, dropout 0.1) and #4s
+as the split backward calls it there (spill, acc), in float32 at H 512,
+from seeded residuals. Prints one JSON line of sha256 prefixes of their
+outputs. Two trees that print the same line computed the same bits. Needs
+a card.
 """
 
 import hashlib
@@ -25,8 +30,11 @@ import torch  # noqa: E402
 import buckgnn_tpu_torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from buckgnn_tpu_torch.bench import build_serve_setup  # noqa: E402
+from buckgnn_tpu_torch.graph.batch import star_table_geometry  # noqa: E402
+from buckgnn_tpu_torch.ops import banded_matmul as bm  # noqa: E402
 from buckgnn_tpu_torch.ops import ea_block as eb  # noqa: E402
 from buckgnn_tpu_torch.ops import sage_layer as sl  # noqa: E402
+from buckgnn_tpu_torch.ops.banded import make_agg_context  # noqa: E402
 from buckgnn_tpu_torch.utils import cuda_build  # noqa: E402
 
 assert buckgnn_tpu_torch.__file__.startswith(ROOT), buckgnn_tpu_torch.__file__
@@ -41,9 +49,58 @@ def digest(ts):
     return h.hexdigest()[:16]
 
 
+def residuals(batch, h, seed):
+    """Seeded float32 stand-ins for a forward's residuals and the
+    backward's cotangent: dz, y (relu'd unit rows), inv, agg, x and the
+    weights, none made by a kernel."""
+    dev = batch.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = batch.n_node_cap
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    y = torch.relu(rand(n, h))
+    y = y / y.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    inv = torch.rand((n,), generator=g, device=dev) + 0.5
+    x = cs.seeded_x(batch, h, seed + 1, torch.float32)
+    w_l, _, w_r = cs.check_weights(h, x, batch.node_mask, seed + 2,
+                                   torch.float32)
+    return rand(n, h), y, inv, rand(n, h), x, w_l, w_r
+
+
+def simple_hashes(dev, out, h=512):
+    """#2s, #3s and #4s in float32 on seeded inputs."""
+    fb = build_serve_setup(device=dev)["batch"]
+    dz, y, inv, agg, x, w_l, w_r = residuals(fb, h, 21)
+    code, gwin, gw, acc = sl.star_codes(fb)
+    t0, tg = star_table_geometry(fb.n_graph_cap)
+    g = torch.Generator(device=dev).manual_seed(22)
+    bkw = dict(tile=fb.band_tile, width=fb.band_width, code=code, gwin=gwin,
+               gw=gw, t0=t0, acc_code=acc, has_super=True, skip=True,
+               rate=cs.RATE, seed=cs.SEED,
+               table_prev=torch.randn((tg, h), generator=g, device=dev) * 8)
+    band = make_agg_context(fb).band
+    out["sage_bwd_simple"] = digest(sl.sage_layer_bwd(
+        dz, y, inv, agg, x, w_l, w_r, band, **bkw))
+    vb = build_serve_setup(device=dev, config="virtual")["batch"]
+    dz, y, inv, agg, x, w_l, w_r = residuals(vb, h, 31)
+    _, tg = star_table_geometry(vb.n_graph_cap)
+    tkw = dict(tile=vb.band_tile, skip=True, rate=cs.RATE, seed=cs.SEED,
+               tg=tg, acc_code=vb.gacc if vb.has_supernode_edges else None)
+    tile = sl.sage_layer_bwd_tile(dz, y, inv, agg, x, w_l, w_r, **tkw)
+    out["sage_bwd_tile_simple"] = digest(tile)
+    args, kw = cs.banded_inputs(vb, agg, 32, True, False, True)
+    kw["out_dtype"] = torch.float32
+    out["band_simple"] = digest([bm.banded_matmul(*args, **kw)])
+    torch.cuda.synchronize()
+    out["simple_launches"] = {k: v for k, v in sl.LAUNCHES.items()
+                              if v and k.endswith("_simple")}
+
+
 def main():
     cuda_build.build_all(["sage_layer_fwd", "sage_layer_bwd", "ea_block_fwd",
-                          "ea_block_bwd"])
+                          "ea_block_bwd", "sage_simple"])
     dev = torch.device("cuda", 0)
     out = {}
     setup = build_serve_setup(device=dev)
@@ -80,6 +137,7 @@ def main():
                 "fwd": digest(f),
                 "bwd": digest([dx, de, dbias] + [dw[k] for k in sorted(dw)])}
     out["ea_launches"] = {k: v for k, v in eb.LAUNCHES.items() if v}
+    simple_hashes(dev, out)
     print(json.dumps({"root": ROOT, "hashes": out}))
 
 

@@ -1,6 +1,8 @@
 // C entry for tools/simple_tile_bench.py: the product tile of
 // buckgnn_tpu_torch/csrc/simple.cuh alone, C[z] = op(A) @ op(B) in f32
 // (split-K chunks of 2,048 rows for A^T, as the weight pass runs them).
+// The weight tile (wtile.cuh) is timed through sage_simple.cu's own
+// entries.
 #include "../buckgnn_tpu_torch/csrc/simple.cuh"
 
 template <typename T, bool TA, bool TB>

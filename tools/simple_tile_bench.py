@@ -1,18 +1,23 @@
-"""Time the float32 / any-width variants' product tile alone on the card.
+"""Time the float32 / any-width variants' two product tiles alone on the card.
 
     python3 tools/simple_tile_bench.py
 
 Builds ``tools/simple_tile_bench.cu`` (the tile of
 ``buckgnn_tpu_torch/csrc/simple.cuh`` with its plain store epilogue) with
-nvcc into a scratch directory and runs C = op(A) @ op(B) at the products'
-shapes on the float32 main paths: a node product at the ea-virtual batch's
-51,712 rows, an edge product at its 239,168 slots (depth 512, both layouts
-of B), the flagship's forward pair as one depth-1,024 product at 103,424
-rows, and the weight pass's A^T @ B over 16 chunks of 2,048 rows. One JSON
-line a case and dtype: ms (CUDA events, 10 calls after a warm-up), the
-float32-product TFLOP/s, the largest error as a share of max|C| against a
-float64 product of the same operands, and the float32 cuBLAS product's ms
-(TF32 off) as a yardstick. Needs a card and nvcc.
+nvcc into a scratch directory, loads the weight tile of ``wtile.cuh``
+through ``sage_simple.cu``'s entries (``wtile_split``, ``wtile_gemm``),
+and runs C = op(A) @
+op(B) at the products' shapes on the float32 main paths: a node product at
+the ea-virtual batch's 51,712 rows, an edge product at its 239,168 slots
+(depth 512, both layouts of B), the flagship's forward pair as one
+depth-1,024 product (512 + 512) at 103,424 rows, and the weight pass's A^T
+@ B over 16 chunks of 2,048 rows. One JSON line a case, dtype and tile
+("gemm": simple.cuh's gemm_kernel; "wtile": the weight tile, for B a
+weight as stored, with the pre-split's own ms beside it): ms (CUDA events,
+10 calls after a warm-up), the float32-product TFLOP/s, the largest error
+as a share of max|C| against a float64 product of the same operands, and
+the float32 cuBLAS product's ms (TF32 off) as a yardstick. Needs a card
+and nvcc.
 """
 
 import ctypes
@@ -28,6 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = [  # (name, M, N, K, A^T, B [N, K])
     ("node x@W", 51712, 512, 512, False, False),
     ("node x@W^T", 51712, 512, 512, False, True),
+    ("edge e@W", 239168, 512, 512, False, False),
     ("edge e@W^T", 239168, 512, 512, False, True),
     ("flagship [agg|x]@[W_l;W_r]", 103424, 512, 1024, False, False),
     ("weights x^T@dz", 512, 512, 2048 * 16, True, False),
@@ -47,6 +53,28 @@ def build(out_dir):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     return fn
+
+
+def weight_tile():
+    """sage_simple.cu's (wtile_split, wtile_gemm), from the package."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from buckgnn_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("sage_simple")
+    lib.wtile_split.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p])
+    lib.wtile_gemm.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p] * 2
+                               + [ctypes.c_int, ctypes.c_void_p])
+    for f in (lib.wtile_split, lib.wtile_gemm):
+        f.restype = ctypes.c_int
+    return lib.wtile_split, lib.wtile_gemm
+
+
+def checked(err, what):
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def event_ms(fn, reps=10):
@@ -69,6 +97,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     dev = torch.device("cuda")
+    split_fn, wgemm_fn = weight_tile()
     with tempfile.TemporaryDirectory() as tmp:
         fn = build(tmp)
         for dtype in (torch.float32, torch.bfloat16):
@@ -81,30 +110,44 @@ def main():
                 nz = k // 2048 if ta else 1
                 c = torch.empty((nz, m, n), device=dev)
                 stream = torch.cuda.current_stream().cuda_stream
-
-                def call():
-                    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
-                             k, a.shape[1], b.shape[1], int(ta), int(tb),
-                             int(dtype == torch.bfloat16), stream)
-                    if err:
-                        raise RuntimeError(f"tile launch failed: {err}")
-
-                ms = event_ms(call)
+                bf16 = int(dtype == torch.bfloat16)
                 a64 = a.double().t() if ta else a.double()
                 b64 = b.double().t() if tb else b.double()
                 ref = a64 @ b64
-                got = c.double().sum(0)
                 af, bf = a.float(), b.float()
                 lib = event_ms(lambda: (af.t() if ta else af)
                                @ (bf.t() if tb else bf))
-                print(json.dumps({
-                    "case": name, "dtype": str(dtype).split(".")[1],
-                    "m": m, "n": n, "k": k, "card": card, "ms": ms,
-                    "tflop_per_s": 2 * m * n * k / ms / 1e9,
-                    "err_over_max": float((got - ref).abs().max()
-                                          / ref.abs().max()),
-                    "cublas_f32_ms": lib}))
-                del a, b, c, ref, got, a64, b64, af, bf
+                tiles = {"gemm": lambda: checked(fn(
+                    a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                    a.shape[1], b.shape[1], int(ta), int(tb), bf16, stream),
+                    "gemm_kernel")}
+                extra = {}
+                if not (ta or tb):
+                    ws = torch.empty(((2 - bf16) * k * n,), device=dev)
+
+                    def split():
+                        checked(split_fn(b.data_ptr(), 0, n, k, 0, n,
+                                         ws.data_ptr(), bf16, stream),
+                                "wsplit_kernel")
+
+                    split()
+                    extra["wsplit_ms"] = event_ms(split)
+                    tiles["wtile"] = lambda: checked(wgemm_fn(
+                        a.data_ptr(), 0, k, k, 0, m, n, ws.data_ptr(),
+                        c.data_ptr(), bf16, stream), "wtile_kernel")
+                for tile, call in tiles.items():
+                    ms = event_ms(call)
+                    got = c.double().sum(0)
+                    print(json.dumps({
+                        "case": name, "dtype": str(dtype).split(".")[1],
+                        "tile": tile, "m": m, "n": n, "k": k, "card": card,
+                        "ms": ms, "tflop_per_s": 2 * m * n * k / ms / 1e9,
+                        "err_over_max": float((got - ref).abs().max()
+                                              / ref.abs().max()),
+                        "cublas_f32_ms": lib,
+                        **(extra if tile == "wtile" else {})}))
+                    del got
+                del a, b, c, ref, a64, b64, af, bf
 
 
 if __name__ == "__main__":
