@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's products: mbarriers, TMA
 // tensor copies (plain and multicast to a 2-block cluster), wgmma with its
-// shared-memory descriptors, cp.async row copies, named barriers and the
-// host-side tensor maps. Used by the product engine (engine.cuh), the
-// split-K weight pass (atb.cuh) and the 3xTF32 product tiles (simple.cuh,
-// wtile.cuh).
+// shared-memory descriptors, cp.async row copies, 1-D bulk copies, named
+// barriers and the host-side tensor maps. Used by the product engine
+// (engine.cuh), the split-K weight pass (atb.cuh), the 3xTF32 product tiles
+// (simple.cuh, wtile.cuh) and the float32 band kernel (sage_simple.cu).
 //
 // Layout: operand tiles in shared memory come in slices 32 bf16 deep along
 // K, in one of two swizzles:
@@ -26,7 +26,11 @@
 // (r & 7)) * 16 + (k % 4) * 4 (`sw128`), as a TMA box of 32 f32 wide lands
 // with CU_TENSOR_MAP_SWIZZLE_128B (`make_map_f32`). Descriptor: SBO 1024 (8
 // rows), LBO unused; each k8 step starts 32 bytes further in. A may come
-// from registers instead (`wgmma_tf32_rs_n128`, RS mode).
+// from registers instead (`wgmma_tf32_rs_n128`, RS mode). An operand read
+// transposed (wtile.cuh's A^T) comes in row-major boxes of [32 k, 128
+// bytes] in the same swizzle, k-rows of 128 bytes: element (k, m) at k *
+// 128 + ((m * size / 16) ^ (k & 7)) * 16 + (m * size) % 16 (`make_map_f32`
+// with a 32-row box, or `make_map` with a 64-wide bf16 box).
 #pragma once
 
 #include <cuda.h>
@@ -154,6 +158,19 @@ __device__ __forceinline__ void tma_load_mc(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
       "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) contiguous bytes from device memory at
+// ``src`` into this block's shared memory at ``dst`` (both 16-byte
+// aligned), the barrier told of them: a 1-D bulk copy (the band kernel's
+// slab rows)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

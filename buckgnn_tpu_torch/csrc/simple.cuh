@@ -3,10 +3,11 @@
 // or bf16, the dropout words' row pass helpers and the product tile.
 //
 // Which tile takes which product: wtile.cuh's weight tile every product
-// whose B is a weight as stored ([K, N]: #1's [agg | x] @ [W_l; W_r], all
-// of #5's, #6's recomputed forward chain), from weights pre-split once a
-// call; this file's gemm_kernel the products whose B is a transposed weight
-// (the backward's dout @ W^T) and the weight passes (A^T @ B, `atb`).
+// of the SAGE variants (#1's [agg | x] @ [W_l; W_r], #2s's and #3s's
+// dagg | dxp = dout @ [W_l^T | W_r^T] and their weight pass [agg | x]^T
+// @ dout) and every product of #5 and of #6's recomputed forward chain,
+// from B pre-split once a call; this file's gemm_kernel #6's transposed
+// weights (dz @ W^T) and its weight passes (A^T @ B, `atb_rows`).
 //
 // gemm_kernel: C = A0 @ op(B0) (+ A1 @ op(B1)), then an epilogue, on the
 // tensor cores in 3xTF32. One pass of TF32 keeps about 2^-11 of each
@@ -36,7 +37,7 @@
 // type, reads them a row at a time (`Rows`: a warp a row, 4 columns a
 // lane), BATCH rows' loads in flight at once: `Store` (bias in the element
 // type, an f32 add, a store in f32 or the element type, split-K partials
-// by blockIdx.z) or a caller's own, which sums columns over its 64 rows
+// by chunk, `Rows::z`: here blockIdx.z) or a caller's own, which sums columns over its 64 rows
 // with `half_colsum`. Rows of A and C past ``rows`` read as zeros and are
 // not stored, and a split-K chunk's depth past the product's end reads as
 // zeros, so M and the slot-row depths of A^T @ B need not be whole tiles;
@@ -46,7 +47,7 @@
 // through L1, against the tensor cores' 3 tf32 products for each float32
 // one at 495 TFLOP/s (165 TFLOP/s of float32 products); PERF.md has the
 // rates.
-// atb: dW = A^T @ B over a row range in chunks (blockIdx.z) into f32
+// atb_rows: dW = A^T @ B over a row range in chunks (blockIdx.z) into f32
 // partials that sum_parts adds in chunk order. No float atomics: two runs
 // give the same bits.
 
@@ -170,6 +171,7 @@ struct Rows {
   int w, lane;
   float* red;        // the warpgroup's [4, 128] f32 scratch
   int bar;           // its named barrier (128 threads)
+  int z;             // the split-K chunk whose partial these sums are
   __device__ __forceinline__ int row(int i) const { return base + w + 4 * i; }
   __device__ __forceinline__ int col() const { return n0 + 4 * lane; }
   __device__ __forceinline__ void sums(int i, float (&v)[4]) const {
@@ -194,8 +196,8 @@ __device__ __forceinline__ void half_colsum(const float (&cs)[4],
 }
 
 // The plain epilogue: (+ bias) (+ add), stored in f32 (split-K partials
-// by blockIdx.z) or T. ``Tag`` names the caller's pass in the kernel's
-// name (profiles).
+// by chunk, `Rows::z`) or T. ``Tag`` names the caller's pass in the
+// kernel's name (profiles).
 template <class Tag = void>
 struct Store {
   template <typename T>
@@ -224,7 +226,7 @@ struct Store {
           if (g.add) v[u][q] += a[u][q];
         }
         if (g.c_f32) {
-          st4(static_cast<float*>(g.c) + blockIdx.z * g.zstride +
+          st4(static_cast<float*>(g.c) + f.z * g.zstride +
                   (size_t)row * g.ldc + col, v[u]);
         } else {
           st4(static_cast<T*>(g.c) + (size_t)row * g.ldc + col, v[u]);
@@ -438,7 +440,7 @@ __global__ void __launch_bounds__(GTHREADS, 1) gemm_kernel(Gemm g, Epi epi) {
   const Rows f = {stg, m0 + c * HALF, n0, w, lane,
                   reinterpret_cast<float*>(smem) + 2 * HALF * STG +
                       c * 4 * GBN,
-                  bar};
+                  bar, (int)blockIdx.z};
   epi.template operator()<T>(g, f);
 }
 
@@ -491,15 +493,6 @@ cudaError_t atb_rows(const T* a, int lda, int m, const T* b, int ldb, int n,
   sum_parts_kernel<Tag><<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
       part, dw, nz, count);
   return cudaGetLastError();
-}
-
-// dw [H, H] = a^T @ b over n rows in ksplit chunks (whole 64-row blocks)
-template <typename T>
-cudaError_t atb(const T* a, const T* b, float* part, float* dw, int n, int h,
-                int ksplit, cudaStream_t st) {
-  int kchunk = (n + ksplit - 1) / ksplit;
-  kchunk = (kchunk + HALF - 1) / HALF * HALF;
-  return atb_rows<T>(a, h, h, b, h, h, n, kchunk, part, dw, st);
 }
 
 }  // namespace simple

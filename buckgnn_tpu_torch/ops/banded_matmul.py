@@ -21,9 +21,10 @@ alone: bf16 at H in ``ENGINE_WIDTHS`` takes ``csrc/banded_matmul.cu``
 (``csrc/banded.cuh::band_kernel``, on persistent clusters of the product
 engine), counted in ``ops/sage_layer.py::LAUNCHES["banded_matmul"]``;
 float32, and bf16 at every other H % 128 == 0, take
-``csrc/sage_simple.cu::band_simple`` (f32 FMAs, a warp a row over the
-row's nonzero counts), counted in ``LAUNCHES["banded_matmul_simple"]``. The
-rule
+``csrc/sage_simple.cu::band_simple`` (a block a tile and 256 bytes of
+columns: the slab staged once in shared memory, then f32 FMAs, a warp a
+row over the row's nonzero counts), counted in
+``LAUNCHES["banded_matmul_simple"]``. The rule
 is static: a failed build or launch raises, it never sends a call to the
 other kernel. On CPU tensors the wrapper runs `banded_matmul_plain`, the
 plain PyTorch version with the TPU kernel's casts.
@@ -137,56 +138,85 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, lo: bool = True
 
 
 # The weight tile (csrc/wtile.cuh), which runs the variants' products whose
-# B is a weight as stored ([K, N]), takes the weight pre-split once a call:
-# its tf32 parts (hi and lo in float32, the value in bf16) transposed to
-# [parts, N, K], each 32-deep slice of K in the order WTILE_DEPTH (position
-# p holds depth WTILE_DEPTH[p]), the order in which a consumer thread's
-# A fragment comes from two whole 16-byte loads a row.
+# B is a weight (as stored, or transposed: the backward's dout @ W^T), takes
+# B pre-split once a call: its tf32 parts (hi and lo in float32, the value
+# in bf16) as [parts, N, K] (K-major), each 32-deep slice of K in the order
+# WTILE_DEPTH (position p holds depth WTILE_DEPTH[p]), the order in which a
+# consumer thread's A fragment comes from two whole 16-byte loads a row.
 WTILE_DEPTH = tuple(4 * (p % 4) + 16 * ((p % 8) // 4) + p // 8
                     for p in range(32))
+# The weight pass (dW = A^T @ dout on the same tile, A read transposed out
+# of row-major boxes) takes dout pre-split the same way over its N rows, in
+# the order WTILE_TDEPTH: column j of wgmma step kk holds depth 8 kk + 2 (j
+# % 4) + j // 4, so the four depths a quarter warp reads at once lie in
+# k-rows of four swizzle phases, on distinct banks.
+WTILE_TDEPTH = tuple(8 * (p // 8) + 2 * (p % 4) + (p % 8) // 4
+                     for p in range(32))
+
+
+def _pad32(k: int) -> int:
+    return -(-k // 32) * 32
 
 
 def presplit_floats(dtype: torch.dtype, k: int, n: int) -> int:
-    """float32 values of a [k, n] weight in ``dtype`` pre-split for the
-    weight tile: two parts in float32, one in bf16."""
-    return (2 if dtype == torch.float32 else 1) * k * n
+    """float32 values of a [k, n] B in ``dtype`` pre-split for the weight
+    tile (k rounded up to 32): two parts in float32, one in bf16."""
+    return (2 if dtype == torch.float32 else 1) * _pad32(k) * n
 
 
-def _slice_order(k: int) -> torch.Tensor:
-    """The depth at each position of K = k, slice by slice."""
-    d = torch.tensor(WTILE_DEPTH)
+def _slice_order(k: int, order=WTILE_DEPTH) -> torch.Tensor:
+    """The depth at each position of K = k (a multiple of 32), slice by
+    slice."""
+    d = torch.tensor(order)
     return (torch.arange(k) // 32 * 32 + d.repeat(k // 32)).long()
 
 
-def presplit_plain(w0: torch.Tensor, w1: torch.Tensor | None = None
-                   ) -> torch.Tensor:
-    """The weight tile's pre-split of [w0; w1] ([k0, N] and [k1, N] in
-    float32 or bf16, (k0 + k1) % 32 == 0) as csrc/wtile.cuh::wsplit_kernel
-    writes it: [parts, N, K] float32, part 0 hi = tf32_round(w) and (float32)
-    part 1 lo = tf32_round(w - hi), or (bf16) the one part w, each slice's
-    depths in WTILE_DEPTH order."""
-    w = w0 if w1 is None else torch.cat([w0, w1])
-    wt = w.float()[_slice_order(w.shape[0])].t().contiguous()
-    if w.dtype != torch.float32:
+def presplit_plain(w0: torch.Tensor, w1: torch.Tensor | None = None,
+                   order=WTILE_DEPTH) -> torch.Tensor:
+    """The weight tile's pre-split of B = [w0; w1] ([k0, N] and [k1, N] in
+    float32 or bf16) as csrc/wtile.cuh::wsplit_kernel writes it: [parts, N,
+    K] float32 (K = k0 + k1 rounded up to 32, depths past k0 + k1 zero),
+    part 0 hi = tf32_round(w) and (float32) part 1 lo = tf32_round(w - hi),
+    or (bf16) the one part w, each slice's depths in ``order``
+    (WTILE_DEPTH; the weight pass's dout WTILE_TDEPTH)."""
+    w = (w0 if w1 is None else torch.cat([w0, w1])).float()
+    k = _pad32(w.shape[0])
+    if k > w.shape[0]:
+        w = torch.cat([w, w.new_zeros((k - w.shape[0], w.shape[1]))])
+    wt = w[_slice_order(k, order)].t().contiguous()
+    if w0.dtype != torch.float32:
         return wt[None]
     hi = tf32_round(wt)
     return torch.stack([hi, tf32_round(wt - hi)])
 
 
-def presplit_parts(p: torch.Tensor) -> torch.Tensor:
+def presplit_t_plain(w0: torch.Tensor, w1: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """The pre-split of B = [w0^T | w1^T] for weights w0 [n0, K], w1 [n1,
+    K] as stored (the backward's dagg | dxp = dout @ [W_l^T | W_r^T]), as
+    wsplit_kernel writes it from W's rows: `presplit_plain` of that B."""
+    b = w0.t() if w1 is None else torch.cat([w0.t(), w1.t()], 1)
+    return presplit_plain(b)
+
+
+def presplit_parts(p: torch.Tensor, order=WTILE_DEPTH) -> torch.Tensor:
     """The pre-split layout mapped back: [parts, K, N] in depth order."""
-    inv = torch.argsort(_slice_order(p.shape[2]))
+    inv = torch.argsort(_slice_order(p.shape[2], order))
     return p[:, :, inv].transpose(1, 2)
 
 
-def weight_tile_plain(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """a @ W (a [M, K] float32 or bf16, ``p`` W's `presplit_plain`) with the
-    weight tile's arithmetic: a's depths in the same order, each 32-deep
-    slice's lo.hi + hi.lo + hi.hi (bf16: hi.hi) summed in float64 and
-    rounded to float32 (the tensor cores' slice sum), the slices added to
-    float32 sums in order. For tests."""
-    k = a.shape[1]
-    ap = a.float()[:, _slice_order(k)]
+def weight_tile_plain(a: torch.Tensor, p: torch.Tensor, order=WTILE_DEPTH
+                      ) -> torch.Tensor:
+    """a @ B (a [M, K] float32 or bf16, ``p`` B's `presplit_plain` in
+    ``order``) with the weight tile's arithmetic: a's depths in the same
+    order, each 32-deep slice's lo.hi + hi.lo + hi.hi (bf16: hi.hi) summed
+    in float64 and rounded to float32 (the tensor cores' slice sum), the
+    slices added to float32 sums in order. For tests."""
+    k = p.shape[2]
+    a = a.float()
+    if a.shape[1] < k:
+        a = torch.cat([a, a.new_zeros((a.shape[0], k - a.shape[1]))], 1)
+    ap = a[:, _slice_order(k, order)]
     ah = tf32_round(ap)
     al = tf32_round(ap - ah)
     out = torch.zeros((a.shape[0], p.shape[1]), dtype=torch.float32)
@@ -198,6 +228,22 @@ def weight_tile_plain(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
             sl = (sl + al[:, s].double() @ bh
                   + ah[:, s].double() @ p[1, :, s].double().t())
         out = out + sl.float()
+    return out
+
+
+def weight_pass_plain(a: torch.Tensor, p: torch.Tensor, kchunk: int
+                      ) -> torch.Tensor:
+    """a^T @ B (a [rows, M], ``p`` B [rows, N]'s `presplit_plain` in
+    WTILE_TDEPTH) as the weight pass computes it: chunks of ``kchunk`` rows
+    (a multiple of 32), each chunk's partial on the weight tile's
+    arithmetic (`weight_tile_plain`), the partials added to zero in chunk
+    order in float32 (sum_parts). For tests."""
+    rows = a.shape[0]
+    out = torch.zeros((a.shape[1], p.shape[1]), dtype=torch.float32)
+    for r0 in range(0, rows, kchunk):
+        r1 = min(rows, r0 + kchunk)
+        out = out + weight_tile_plain(
+            a[r0:r1].t(), p[:, :, r0:r0 + _pad32(r1 - r0)], WTILE_TDEPTH)
     return out
 
 

@@ -31,10 +31,11 @@ launches is ops/banded_matmul.py::kernel_variant's static rule on (dtype,
 H): bf16 at H in {128, 256, 512} the product engine's
 (``sage_layer_fwd.cu``, ``sage_layer_bwd.cu``), float32 at any H % 128 ==
 0 and bf16 at the other widths ``sage_simple.cu``'s (a few launches a
-call, the products on the 3xTF32 tensor-core tiles: the forward's [agg |
-x] @ [W_l; W_r] on ``wtile.cuh``'s weight tile from the weights pre-split
-into a scratch the wrapper allocates, the backward's on ``simple.cuh``'s
-tile), each counted under its own name (``*_simple``).
+call, the products on ``wtile.cuh``'s 3xTF32 tensor-core tile: the
+forward's [agg | x] @ [W_l; W_r] and the backward's dout @ [W_l^T |
+W_r^T] from the weights pre-split, and its weight pass [agg | x]^T @ dout
+from dout pre-split, into scratch the wrapper allocates), each counted
+under its own name (``*_simple``).
 `fused_sage_layer` is the layer as the model calls it: a
 ``torch.autograd.Function`` (the JAX package's ``_fused_layer`` custom
 VJP) with supernode-star threading through ghost tables (`star_source`)
@@ -558,13 +559,16 @@ def _launch_bwd(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
 
 
 def _ksplit(n: int, h: int) -> int:
-    """Row chunks of the simple backward's dW products: at least two waves
-    of the product tile's 128 x 128 tiles (csrc/simple.cuh, one block an SM)
-    on 132 SMs, and chunks of at most 2048 rows, whose sequential f32 sums
-    stay short (with the FFMA tile at 34,500-row chunks dW's error reached
-    7.7e-6 of max|dW| at H 1024 on an H100); at most 64 chunks, none under
-    64 rows."""
-    tiles = (h // 128) ** 2
+    """Row chunks of the simple backward's weight pass, [dW_l; dW_r] =
+    [agg | x]^T @ dout on csrc/wtile.cuh's tile (A read transposed): its
+    work items, a chunk times one of the (2H / 128) x (H / 128) tiles of
+    [dW_l; dW_r], are walked by one persistent block an SM, so at least two
+    items an SM on 132 SMs; and chunks of at most 2,048 rows, whose f32 sums
+    of 32-deep slice sums stay within the float32 gate (the tensor cores'
+    own sums are not rounded to nearest; at 34,500-row chunks dW's error
+    reached 7.7e-6 of max|dW| at H 1024 on an H100); at most 64 chunks, none
+    under 64 rows."""
+    tiles = 2 * (h // 128) ** 2
     return max(1, min(64, max(-(-264 // tiles), -(-n // 2048)), n // _BM))
 
 
@@ -574,7 +578,9 @@ def _simple_bwd_call(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
     """One call of sage_simple.cu::sage_bwd_simple, the merged backward
     with ``band``, the split backward's tile kernel without: (dagg, dxp,
     dx, dW_l, dW_r, db_l, own table); dx None without band, the table None
-    without ``acc_code`` (``ncode`` codes a 64-row block)."""
+    without ``acc_code`` (``ncode`` codes a 64-row block). Its scratch:
+    [W_l^T | W_r^T] and dout pre-split for the weight tile, [dW_l; dW_r]'s
+    chunk partials, db's and the table's partials."""
     from buckgnn_tpu_torch.utils import cuda_build
 
     n, h = x.shape
@@ -584,8 +590,10 @@ def _simple_bwd_call(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
     dx = torch.empty_like(x) if band is not None else None
     dout32 = torch.empty((n, h), **f32) if x.dtype != torch.float32 else None
     dzeff = torch.empty((n, h), **f32) if skip else None
+    wsplit = torch.empty((presplit_floats(x.dtype, h, 2 * h),), **f32)
+    dsplit = torch.empty((presplit_floats(x.dtype, n, h),), **f32)
     ksplit = _ksplit(n, h)
-    dw_part = torch.empty((ksplit, h, h), **f32)
+    dw_part = torch.empty((2, ksplit, h, h), **f32)
     dwl, dwr = torch.empty((h, h), **f32), torch.empty((h, h), **f32)
     db_part = torch.empty((-(-n // 256), h), **f32)
     dbl = torch.empty((h,), **f32)
@@ -596,7 +604,7 @@ def _simple_bwd_call(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
     drop, thr, s0, s1, scale = _dropout_args(rate, seed)
     fn = cuda_build.load("sage_simple").sage_bwd_simple
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 11
                    + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_int,
                                               ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -605,9 +613,9 @@ def _simple_bwd_call(dz, y, inv, agg, x, w_l, w_r, band, *, tile, width,
              _ptr(acc_code), _ptr(dout), _ptr(dout32), _ptr(dzeff),
              _ptr(dagg), _ptr(dxp), _ptr(dx), _ptr(dw_part), _ptr(dwl),
              _ptr(dwr), _ptr(db_part), _ptr(dbl), _ptr(t_part), _ptr(town),
-             n, h, tile, width, gw, t0, tg, int(acc_code is not None),
-             int(skip), ksplit, drop, thr, s0, s1, scale,
-             int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+             _ptr(wsplit), _ptr(dsplit), n, h, tile, width, gw, t0, tg,
+             int(acc_code is not None), int(skip), ksplit, drop, thr, s0, s1,
+             scale, int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sage_bwd_simple launch failed: CUDA error {err}")
     return dagg, dxp, dx, dwl, dwr, dbl, town

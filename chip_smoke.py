@@ -167,18 +167,19 @@ Phases, each fatal on failure:
      failing a wrong norm, a dropped bias, a forward without its spill
      term, a norm backward without its s term, a backward without the
      next layer's star and a band product without its spill messages;
-     float32 kept (the products run in 3xTF32 on the tensor cores: #1's on
-     csrc/wtile.cuh's weight tile, the backward's on csrc/simple.cuh's
-     gemm_kernel): #3's outputs at every float32 width within 1e-5 of
+     float32 kept (the products run in 3xTF32 on the tensor cores, on
+     csrc/wtile.cuh's weight tile): #3's outputs at every float32 width within 1e-5 of
      max|ref| of a float64 evaluation of its plain version, and at H 512
      one TF32 pass (bm.mm_3xtf32 without its lo terms) of two of its
      products on the card's operands outside that gate; the flagship-f32
      and virtual-f32 cells served and trained (6 #1 per forward; 6 #1 and
      6 #2, or 6 #1, 6 #3 and 6 #4, per step; no engine kernel), each
-     against the plain path, with each product tile's device ms and
-     TFLOP/s a step (``sage_tile``: wtile_kernel on the forward's products,
-     gemm_kernel on the backward's; the weights' pre-split and #1's code
-     sums beside them); #1's float32 variant twice the same bits; each
+     against the plain path, with each product pass's device ms and
+     TFLOP/s a step (``sage_tile``: the forward's product, the backward's
+     dagg | dxp and its weight pass, all on wtile_kernel; the pre-splits,
+     the weight pass's partial sums and the code sums beside them; it
+     fails if a SAGE product ran on gemm_kernel); #1's float32 variant
+     twice the same bits; each
      variant's time at its float32 main path's shape
      beside its bound (3 tf32 products for each float32 one at 495
      TFLOP/s, other f32 operations at 67, against bytes), its plain
@@ -3426,6 +3427,17 @@ def variant_timings(fsetup, vfsetup, card):
     return out
 
 
+# the float32 SAGE step's product passes and the pieces beside them, by
+# the substrings of their kernels' names (csrc/wtile.cuh, sage_simple.cu)
+SAGE_TILE_PASSES = {"fwd_tile": ("wtile_kernel", "Store"),
+                    "dagg_dxp": ("wtile_kernel", "DaggDxp"),
+                    "weight_pass": ("wtile_kernel", "DwParts")}
+SAGE_TILE_PIECES = {"wsplit_weights": ("wsplit_kernel", "void"),
+                    "asplit_dout": ("asplit_kernel",),
+                    "weight_pass_sums": ("sum_parts_kernel", "DwParts"),
+                    "code_sums_once": ("code_sums_once_kernel",)}
+
+
 def widths_phase(dev, card, setup, vsetup):
     """Phase 13: kernels #1-#4's float32 and any-width variants
     (csrc/sage_simple.cu) against their plain versions at every (dtype, H)
@@ -3462,23 +3474,28 @@ def widths_phase(dev, card, setup, vsetup):
             label, dev, card, "sage_layer_fwd_simple", kernels,
             cell_data(base), rows_out=rows)
         print(json.dumps(summary))
-        # each product tile's share of the step: 6 layers of 4 N H^2
-        # forward float32 products on the weight tile and 8 N H^2 backward
-        # ones on gemm_kernel; the weights' pre-split and the forward's
-        # code sums
+        # each product pass's share of the step, by the kernel that runs
+        # it: 6 layers of 4 N H^2 float32 products a pass, the forward's
+        # [agg | x] @ [W_l; W_r], the backward's dagg | dxp and its weight
+        # pass, each on wtile_kernel (its epilogue names the pass); the
+        # pre-splits (the weights', dout's), the weight pass's partial
+        # sums and the code sums beside them
         n, h = train["batch"].n_node_cap, 512
         line = {"sage_tile": label, "card": card,
                 "device_ms_per_step": sum(r[1] for r in rows)}
-        for tile, f in (("wtile_kernel", 6 * 4 * n * h * h),
-                        ("gemm_kernel", 6 * 8 * n * h * h)):
-            tms = sum(r[1] for r in rows if tile in r[0])
-            line.update({f"{tile}_ms_per_step": tms,
-                         f"{tile}_flops_per_step": f,
-                         f"{tile}_tflop_per_s": f / tms / 1e9 if tms
+        for name, pats in SAGE_TILE_PASSES.items():
+            tms = sum(r[1] for r in rows if all(p in r[0] for p in pats))
+            f = 6 * 4 * n * h * h
+            line.update({f"{name}_ms_per_step": tms,
+                         f"{name}_flops_per_step": f,
+                         f"{name}_tflop_per_s": f / tms / 1e9 if tms
                          else None})
-        for k in ("wsplit_kernel", "code_sums_once_kernel"):
-            line[f"{k}_ms_per_step"] = sum(r[1] for r in rows if k in r[0])
+        for name, pats in SAGE_TILE_PIECES.items():
+            line[f"{name}_ms_per_step"] = sum(
+                r[1] for r in rows if all(p in r[0] for p in pats))
         print(json.dumps(line))
+        if any("gemm_kernel" in r[0] for r in rows):
+            fail(f"{label}: a SAGE product ran on gemm_kernel")
         cells.append(summary)
         paths.update(launches)
         trains[label] = train

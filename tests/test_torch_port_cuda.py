@@ -1771,7 +1771,17 @@ def _wtile_lib():
     lib.wtile_gemm.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p] * 2
                                + [ctypes.c_int, ctypes.c_void_p])
-    for fn in (lib.wtile_split, lib.wtile_gemm):
+    lib.wtile_split_t.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                  + [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p])
+    lib.wtile_split_act.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p])
+    lib.wtile_gemm_at.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                  + [ctypes.c_void_p] * 4
+                                  + [ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.wtile_split, lib.wtile_gemm, lib.wtile_split_t,
+               lib.wtile_split_act, lib.wtile_gemm_at):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1868,3 +1878,295 @@ def test_simple_emitted_table_matches_plain_table(dtype, h):
     ref = sl.emit_table_plain(z, kw["acc_code"], kw["gwin"],
                               kw["gw"], kw["t0"], kw["tile"])
     _vclose(ftab, ref, dtype, sl.KERNEL_TABLE_TOL, what="table")
+
+
+# ---- the backward's routes on the weight tile (#2s, #3s) -----------------
+
+
+def _wsplit_t(w0, w1=None):
+    """sage_simple.cu::wtile_split_t: the pre-split of [W0^T | W1^T] (W
+    [n, k] as stored), [parts, n0 + n1, k]."""
+    n0, k = w0.shape
+    n1 = 0 if w1 is None else w1.shape[0]
+    out = torch.empty((bm.presplit_floats(w0.dtype, k, n0 + n1),),
+                      dtype=torch.float32, device=w0.device)
+    err = _wtile_lib().wtile_split_t(
+        w0.data_ptr(), 0 if w1 is None else w1.data_ptr(), n0, n1, k,
+        out.data_ptr(), int(w0.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_split_t: CUDA error {err}"
+    torch.cuda.synchronize()
+    return out.view(-1, n0 + n1, k)
+
+
+def _wsplit_act(b):
+    """sage_simple.cu::wtile_split_act: b [rows, n]'s pre-split in
+    WTILE_TDEPTH order, [parts, n, rows rounded up to 32]."""
+    rows, n = b.shape
+    out = torch.empty((bm.presplit_floats(b.dtype, rows, n),),
+                      dtype=torch.float32, device=b.device)
+    err = _wtile_lib().wtile_split_act(
+        b.data_ptr(), rows, n, out.data_ptr(), int(b.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_split_act: CUDA error {err}"
+    torch.cuda.synchronize()
+    return out.view(-1, n, -(-rows // 32) * 32)
+
+
+def _weight_pass(a0, a1, d, kchunk):
+    """sage_simple.cu::wtile_gemm_at: (a0^T @ d, a1^T @ d) f32 on the
+    weight tile in chunks of kchunk rows, from d's pre-split."""
+    rows, m0 = a0.shape
+    n = d.shape[1]
+    nz = -(-rows // kchunk)
+    part = torch.empty((2, nz, m0, n), dtype=torch.float32, device=a0.device)
+    c0, c1 = (torch.empty((m0, n), dtype=torch.float32, device=a0.device)
+              for _ in range(2))
+    p = _wsplit_act(d)
+    err = _wtile_lib().wtile_gemm_at(
+        a0.data_ptr(), 0 if a1 is None else a1.data_ptr(), m0, n, rows,
+        kchunk, p.data_ptr(), part.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+        int(a0.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_gemm_at: CUDA error {err}"
+    torch.cuda.synchronize()
+    return c0, (None if a1 is None else c1)
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+def test_wtile_split_t_matches_plain_layout_bit_for_bit(dtype, h):
+    """The transposed weights' pre-split kernel ([W_l^T | W_r^T] from W's
+    rows) writes `bm.presplit_t_plain`'s buffer, bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(h + 1)
+    w_l, w_r = (torch.randn((h, h), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    got = _wsplit_t(w_l, w_r)
+    want = bm.presplit_t_plain(w_l.cpu(), w_r.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("rows", [1000, 4160])
+def test_wtile_split_act_matches_plain_layout_bit_for_bit(dtype, h, rows):
+    """dout's pre-split kernel (WTILE_TDEPTH order over the rows, the
+    depths past a ragged row count zero) writes `bm.presplit_plain`'s
+    buffer, bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(rows + h)
+    d = torch.randn((rows, h), generator=g, device=dev).to(dtype)
+    got = _wsplit_act(d)
+    want = bm.presplit_plain(d.cpu(), order=bm.WTILE_TDEPTH)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("m", [1000, 4099])
+def test_wtile_transposed_weights_match_3xtf32_on_cuda(dtype, h, m):
+    """dout @ [W_l^T | W_r^T], the dagg | dxp launch's product, on the
+    weight tile from the transposed pre-split at ragged M, against
+    `bm.mm_3xtf32` (float32) or the one-pass product (bf16) of the same
+    operands within the float32 gate of max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + h + 5)
+    dout = torch.randn((m, h), generator=g, device=dev).to(dtype)
+    w_l, w_r = ((torch.randn((h, h), generator=g, device=dev) / h ** 0.5)
+                .to(dtype) for _ in range(2))
+    got = _wgemm(dout, None, _wsplit_t(w_l, w_r), 2 * h)
+    ref = bm.mm_3xtf32(dout.float(), torch.cat([w_l, w_r]).float().t(),
+                       lo=dtype == torch.float32)
+    atol = bm.SIMPLE_F32_TOL * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("rows,kchunk", [(1000, 256), (4160, 2048)])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_weight_pass_matches_3xtf32_on_cuda(dtype, h, rows, kchunk, stacked):
+    """[agg | x]^T @ dout on the weight tile with A read transposed, in row
+    chunks (a ragged last chunk, depths past the rows read as zeros),
+    against `bm.mm_3xtf32` (bf16: one pass) of the same operands within
+    the float32 gate of max|ref|, each half of a stacked pass too."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(rows + h + kchunk)
+    a0, a1, d = (torch.randn((rows, h), generator=g, device=dev).to(dtype)
+                 for _ in range(3))
+    c0, c1 = _weight_pass(a0, a1 if stacked else None, d, kchunk)
+    lo = dtype == torch.float32
+    for a, c in ((a0, c0), (a1, c1)) if stacked else ((a0, c0),):
+        ref = bm.mm_3xtf32(a.float().t().contiguous(), d.float(), lo=lo)
+        atol = bm.SIMPLE_F32_TOL * float(ref.abs().max())
+        torch.testing.assert_close(c, ref, atol=atol, rtol=0)
+
+
+def test_weight_pass_is_deterministic():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    a0, a1, d = (torch.randn((6000, 512), generator=g, device=dev)
+                 for _ in range(3))
+    first = _weight_pass(a0, a1, d, 2048)
+    second = _weight_pass(a0, a1, d, 2048)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_simple_backward_is_deterministic():
+    """#2s and #3s, whose products now run on the weight tile with chunked
+    partials: the same bits twice."""
+    dev = _card()
+    _, bargs, bkw = _simple_bwd_case(dev, torch.float32, 512, "local", True,
+                                     True, 0.1)
+    b, args, kw = _simple_layer(dev, torch.float32, 384, "local", seed=8,
+                                spill="super")
+    _, _, y, inv, agg = sl.sage_layer_fwd(*args, **dict(
+        kw, skip=True, save_res=True, rate=0.1, seed=SEED))
+    dz = _inputs(b.n_node_cap, 384, dev, 12, torch.float32)[0]
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    targs = (dz, y, inv, agg, args[0], args[1], args[3])
+    tkw = dict(tile=b.band_tile, skip=True, rate=0.1, seed=SEED,
+               acc_code=b.gacc, tg=tg)
+    outs = [list(sl.sage_layer_bwd(*bargs, **bkw))
+            + list(sl.sage_layer_bwd_tile(*targs, **tkw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, c in zip(*outs):
+        assert torch.equal(x, c)
+
+
+def _band_exact(band, x, *, tile, width, out_dtype, spill_offsets=None,
+                spill_lo=None, spill_hi=None, spill_messages=None, gcode=None,
+                table=None, acc=None):
+    """The band product with the band kernel's order of operations, for a
+    bit-for-bit comparison: per row and column, fmaf(count, x, sum) over the
+    row's nonzero counts in ascending depth (an fma emulated in float64:
+    the product of an int8 count and a float32 value is exact there, and so
+    is its sum with a float32 of a near exponent), then the row's spill run
+    summed on its own in message order, then the table row, then acc, one
+    cast at the end."""
+    n, h = x.shape
+    nt, s = n // tile, tile + width
+    starts = bm.slab_starts(n, tile, width, x.device)
+    xs = x[starts[:, None] + torch.arange(s, device=x.device)].float()
+    b = band.reshape(nt, tile, s)
+    out = torch.zeros((nt, tile, h), dtype=torch.float32, device=x.device)
+    for k in range(s):
+        c = b[:, :, k:k + 1].float()
+        new = (out.double() + c.double() * xs[:, k:k + 1].double()).float()
+        out = torch.where(c != 0, new, out)
+    out = out.reshape(n, h)
+    if spill_offsets is not None:
+        es = spill_messages.shape[0]
+        win = (spill_offsets[:-1].long() // tb.SPILL_ALIGN
+               * tb.SPILL_ALIGN).clamp(0, es - tb.SPILL_CHUNK)
+        wrow = win.repeat_interleave(tile)
+        lo, hi = spill_lo.reshape(n).long(), spill_hi.reshape(n).long()
+        sp = torch.zeros((n, h), dtype=torch.float32, device=x.device)
+        for m in range(tb.SPILL_CHUNK):
+            on = ((m >= lo) & (m < hi))[:, None]
+            msg = spill_messages[(wrow + m).clamp(max=es - 1)].float()
+            sp = torch.where(on, sp + msg, sp)
+        out = torch.where((hi > lo)[:, None], out + sp, out)
+    if table is not None:
+        code = gcode.reshape(n).long()
+        on = (code >= 0) & (code < table.shape[0])
+        row = table[code.clamp(0, table.shape[0] - 1)].float()
+        out = torch.where(on[:, None], out + row, out)
+    if acc is not None:
+        out = out + acc.float()
+    return out.to(out_dtype)
+
+
+# geometries of the band kernel's bit check: (tile, width, N / 64 odd) of
+# the cluster tests (T + W = 112, the last pair's second block empty) and
+# the split backward's (128, 64)
+BAND_BIT_GEOS = {"t64": (64, 48, False), "t64_odd": (64, 48, True),
+                 "t128": (128, 64, None)}
+
+
+@pytest.mark.parametrize("geo", sorted(BAND_BIT_GEOS))
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 128),
+                                     (torch.float32, 512),
+                                     (torch.bfloat16, 384)])
+@pytest.mark.parametrize("spill,table,acc", [
+    (True, True, True), (False, False, True), (True, False, False),
+    (False, False, False)])
+def test_simple_band_keeps_its_bits_on_cuda(geo, dtype, h, spill, table,
+                                            acc):
+    """#4's variant (the slab staged once a block; #1s's phase 1 and #2s's
+    band pass) gives the bits of its order of operations (`_band_exact`),
+    the order the warp-a-row kernel before it summed in, so the parent's
+    bits, on the supernode + spill batch at the cluster tests' geometries
+    (clamped first and last slabs, N / 64 odd); in x's dtype and float32
+    out."""
+    dev = _card()
+    tile, width, odd = BAND_BIT_GEOS[geo]
+    b = _spill_batch(dev, "super", (tile, width, odd))
+    rng = np.random.default_rng(h + tile + width)
+    n = b.n_node_cap
+    _, tg = tb.star_table_geometry(b.n_graph_cap)
+    x, a = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    tab = torch.from_numpy(rng.normal(size=(tg, h)).astype(np.float32)).to(
+        dev, dtype)
+    opts = dict(spill=_spill_kw(b, x), table=dict(gcode=b.gcode, table=tab),
+                acc=dict(acc=a))
+    band = make_agg_context(b).band
+    for out_dtype in (dtype, torch.float32):
+        kw = dict(tile=tile, width=width, out_dtype=out_dtype,
+                  **_options(opts, spill, table, acc))
+        got = _counted("banded_matmul_simple",
+                       lambda: bm.banded_matmul(band, x, **kw))
+        want = _band_exact(band, x, **kw)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (
+            float((got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_simple_band_walks_many_tiles_bit_for_bit(out_dtype):
+    """`test_banded_kernel_walks_many_tile_pairs_on_cuda`'s geometry (tile
+    256, width 64, more tiles than twice the SMs) on #4's variant in
+    float32 at H 384: the bits of `_band_exact`, twice."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile, width, h = 256, 64, 384
+    n = tile * ((2 * sms + 2) * 128 // tile + 1)
+    rng = np.random.default_rng(29)
+    band = torch.from_numpy(rng.integers(0, 3, size=(n, tile + width))
+                            .astype(np.int8)).to(dev)
+    x, acc = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    kw = dict(tile=tile, width=width, out_dtype=out_dtype, acc=acc)
+    got = bm.banded_matmul(band, x, **kw)
+    again = bm.banded_matmul(band, x, **kw)
+    torch.cuda.synchronize()
+    want = _band_exact(band, x, **kw)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 256),
+                                     (torch.bfloat16, 384)])
+@pytest.mark.parametrize("tile,width", [(512, 448), (512, 64)])
+def test_simple_band_streams_long_slabs_bit_for_bit(dtype, h, tile, width):
+    """Tile 512: at width 448 the slab (960 rows) is more than a block
+    stages at once, so it streams in pieces, the block's rows 16 at a time;
+    at width 64 (576 rows) it is staged whole at one block an SM. With the
+    table and acc terms, the bits of `_band_exact`."""
+    dev = _card()
+    n = 4 * tile
+    rng = np.random.default_rng(tile + width + h)
+    band = torch.from_numpy((rng.integers(0, 3, size=(n, tile + width))
+                             * (rng.random((n, tile + width)) < 0.05))
+                            .astype(np.int8)).to(dev)
+    x, acc = (torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+              .to(dev, dtype) for _ in range(2))
+    tg = 24
+    table = torch.from_numpy(rng.normal(size=(tg, h)).astype(np.float32)).to(
+        dev, dtype)
+    gcode = torch.from_numpy(rng.integers(0, tg + 1, size=(n,)).astype(
+        np.int32)).to(dev)
+    kw = dict(tile=tile, width=width, out_dtype=dtype, acc=acc, gcode=gcode,
+              table=table)
+    got = _counted("banded_matmul_simple",
+                   lambda: bm.banded_matmul(band, x, **kw))
+    want = _band_exact(band, x, **kw)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))

@@ -1,5 +1,5 @@
-"""Time the float32 variants #1s, #5s and #6s and their float32 cells under
-one copy of the port, on one CUDA card.
+"""Time the float32 variants #1s-#6s and their float32 cells under one copy
+of the port, on one CUDA card.
 
     python3 tools/simple_variant_timing.py ROOT
 
@@ -8,13 +8,22 @@ time (an unpacked ``git archive`` of a commit, or this checkout). Run it
 once per copy, in turns on one card (parent, change, change, parent),
 to compare two versions. It builds the kernels, then on the
 cells' own weights prints one JSON line a measurement:
-- ``kernel``: ms a call (CUDA events, 20 calls after 3) of #1s at
+- ``kernel``: ms a call (CUDA events, 20 calls after 3; for #2s-#4s
+  also the host's ms to enqueue a call, ``host_ms``) of #1s at
   flagship-f32 (emit and skip, as ``chip_smoke.py::variant_timings``
-  calls it) and of #5s and #6s at ea-virtual-f32 (layer 1, skip; the
+  calls it), of #2s there (the next layer's star, skip, dropout 0.1), of
+  #3s (skip, dropout 0.1) and #4s (spill, acc: the split backward's call)
+  at virtual-f32, and of #5s and #6s at ea-virtual-f32 (layer 1, skip; the
   backward at dropout 0.1), then the call's device ms by piece from
-  ``torch.profiler`` over 5 calls: for #1s the band (phase 1), the
-  product tile, the weights' pre-split, the row pass, the code sums and
-  the table reduction; for #5s and #6s each pass (kernel names carry
+  ``torch.profiler`` over 5 calls, and every kernel's (``by_kernel``): for
+  #1s the band (phase 1), the product tile, the weights' pre-split, the
+  row pass, the code sums and the table reduction; for #2s and #3s the
+  row pass, the weights' and dout's pre-splits, dagg | dxp, the weight
+  pass (its products and partials' sums; a tree whose weight pass runs on
+  gemm_kernel sums its partials in ``sum_parts_kernel<void>``, counted
+  under colsum there), colsum, the own table and (#2s) the band pass,
+  with the TFLOP/s of float32 products of dagg | dxp and of the weight
+  pass; for #5s and #6s each pass (kernel names carry
   ``ea_simple::<pass>``) with its product tiles' ms and their TFLOP/s of
   float32 products (`pass_flops`; the tiles: ``gemm_kernel`` of
   simple.cuh, ``wtile_kernel`` of wtile.cuh);
@@ -25,12 +34,22 @@ cells' own weights prints one JSON line a measurement:
 import json
 import os
 import sys
+import time
 
 SAGE_PIECES = {"band": ("band_kernel",), "tile": ("gemm_kernel",
                                                   "wtile_kernel"),
                "wsplit": ("wsplit_kernel",), "rows": ("fwd_rows_kernel",),
                "code_sums": ("code_sums",),
                "table_reduce": ("table_reduce_kernel",)}
+BWD_PIECES = {
+    "rows": ("bwd_rows_kernel",),
+    "wsplit": ("wsplit_kernel<float, void>",),
+    "dout_split": ("asplit_kernel",),
+    "dagg_dxp": ("DaggDxp", "gemm_kernel<float, false, true"),
+    "weights": ("DwParts", "gemm_kernel<float, true, false"),
+    "colsum": ("colsum_part_kernel", "sum_parts_kernel<void>"),
+    "own_table": ("code_sums", "table_reduce_kernel"),
+    "band": ("band_kernel",)}
 TILES = ("gemm_kernel", "wtile_kernel")
 
 
@@ -48,6 +67,7 @@ def main():
     from buckgnn_tpu_torch.bench import (
         build_train_setup, run_serve_bench, run_train_bench,
     )
+    from buckgnn_tpu_torch.ops import banded_matmul as bm
     from buckgnn_tpu_torch.ops import ea_block as eb
     from buckgnn_tpu_torch.ops import sage_layer as sl
     from buckgnn_tpu_torch.utils import cuda_build
@@ -63,6 +83,21 @@ def main():
         cs.step_profile("", fn, 1.0, card, steps=calls, rows_out=rows)
         return rows
 
+    def by_kernel(rows):
+        """device ms a call by kernel name"""
+        return {r[0][:90]: r[1] for r in rows if r[1] > 0.001}
+
+    def host_ms(fn, calls=50):
+        """host ms a call to enqueue ``fn`` (no synchronize inside)"""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / calls
+
     # #1s at flagship-f32
     train = build_train_setup(device=dev, config="flagship-f32")
     batch, model = train["batch"], train["state"].model
@@ -77,8 +112,51 @@ def main():
     print(json.dumps({"kernel": "sage_layer_fwd_simple", **tag, "ms": ms,
                       "device_ms_by_piece": by,
                       "tile_tflop_per_s": 4 * n * h * h / by["tile"] / 1e9}))
-    del args, kw, x0, weights, model, batch
-    cells = {"flagship-f32": train}
+
+    # #2s at flagship-f32, #3s and #4s at virtual-f32
+    bargs, bkw, _ = cs.bwd_inputs(batch, x0, weights, True, True, True,
+                                  cs.RATE, seed=5)
+    bwd_cases = [("sage_layer_bwd_simple", n,
+                  lambda: sl.sage_layer_bwd(*bargs, **bkw))]
+    vtrain = build_train_setup(device=dev, config="virtual-f32")
+    vbatch, vmodel = vtrain["batch"], vtrain["state"].model
+    with torch.no_grad():
+        xv = vmodel.node_encoder(vbatch.nodes)
+        vweights = vmodel.shared_graphsage_block.fused_weights(xv.dtype)
+    nv = xv.shape[0]
+    targs, tkw = cs.tile_inputs(vbatch, xv, vweights, True, cs.RATE,
+                                seed=41)
+    bwd_cases.append(("sage_layer_bwd_tile_simple", nv,
+                      lambda: sl.sage_layer_bwd_tile(*targs, **tkw)))
+    for name, rows_n, fn in bwd_cases:
+        ms = cs.event_ms(fn)
+        rows = profiled(fn)
+        by = {k: pieces(rows, v) for k, v in BWD_PIECES.items()}
+        f = 4 * rows_n * h * h
+        print(json.dumps({
+            "kernel": name, **tag, "ms": ms, "host_ms": host_ms(fn),
+            "device_ms_by_piece": by,
+            "dagg_dxp_tflop_per_s": f / by["dagg_dxp"] / 1e9
+            if by["dagg_dxp"] else None,
+            "weights_tflop_per_s": f / by["weights"] / 1e9
+            if by["weights"] else None, "by_kernel": by_kernel(rows)}))
+    dagg, dxp = sl.sage_layer_bwd_tile(*targs, **tkw)[:2]
+    b_kw = dict(tile=vbatch.band_tile, width=vbatch.band_width,
+                out_dtype=xv.dtype, acc=dxp,
+                spill_offsets=vbatch.spill_offsets,
+                spill_lo=vbatch.spill_lo, spill_hi=vbatch.spill_hi,
+                spill_messages=dagg[vbatch.spill_senders.long()])
+    vband = cs.make_agg_context(vbatch).band
+    ms = cs.event_ms(lambda: bm.banded_matmul(vband, dagg, **b_kw))
+    rows = profiled(lambda: bm.banded_matmul(vband, dagg, **b_kw))
+    print(json.dumps({"kernel": "banded_matmul_simple", **tag, "ms": ms,
+                      "host_ms": host_ms(
+                          lambda: bm.banded_matmul(vband, dagg, **b_kw)),
+                      "by_kernel": by_kernel(rows)}))
+    del bargs, bkw, targs, tkw, dagg, dxp, b_kw, vband, xv, vweights
+    del vmodel
+    del vbatch, args, kw, x0, weights, model, batch
+    cells = {"flagship-f32": train, "virtual-f32": vtrain}
 
     # #5s and #6s at ea-virtual-f32
     etrain = build_train_setup(device=dev, config="ea-virtual-f32")
