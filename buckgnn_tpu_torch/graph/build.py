@@ -17,7 +17,9 @@ GraphCreate.py:371-377 / Normalizer.py:319-323).
 
 Hot loops are vectorized NumPy instead of the reference's per-node Python
 loop (GraphCreate.py:178-332, the ETL bottleneck). A NumPy copy of
-buckgnn_tpu/graph/build.py, kept here so the port needs no JAX.
+buckgnn_tpu/graph/build.py, kept here so the port needs no JAX; the C++
+library of utils/native.py extracts the edges and orders the nodes when
+it is built.
 """
 
 from __future__ import annotations
@@ -42,7 +44,19 @@ __all__ = ["find_boundary_nodes", "build_graph", "shell_edges",
 def shell_edges(mesh: MeshModel) -> tuple[np.ndarray, np.ndarray]:
     """All element-perimeter edges (undirected, as sorted index pairs) with
     occurrence counts. Quad perimeters + tria perimeters
-    (find_boundary_nodes, GraphCreate.py:124-133)."""
+    (find_boundary_nodes, GraphCreate.py:124-133). Uses the C++ kernel
+    (csrc/native.cpp::bg_shell_edges) when available."""
+    from buckgnn_tpu_torch.utils import native
+
+    if len(mesh.quads) or len(mesh.trias):
+        res = native.shell_edges_native(mesh.quads, mesh.trias)
+        if res is not None:
+            return res
+    return _shell_edges_numpy(mesh)
+
+
+def _shell_edges_numpy(mesh: MeshModel) -> tuple[np.ndarray, np.ndarray]:
+    """`shell_edges` without the native library."""
     pairs = []
     for conn in (mesh.quads, mesh.trias):
         if len(conn) == 0:
@@ -345,6 +359,20 @@ def _virtual_edge_mask(g: GraphData) -> np.ndarray:
     return mask
 
 
+def rcm_edges(g: GraphData) -> tuple[int, np.ndarray, np.ndarray]:
+    """(node count, senders, receivers) of the graph `rcm_reorder` orders:
+    the mesh edges (no virtual edge, no supernode star) over the nodes
+    before the supernode."""
+    s = np.asarray(g.senders, dtype=np.int64)
+    r = np.asarray(g.receivers, dtype=np.int64)
+    keep = ~_virtual_edge_mask(g)
+    n = g.n_node
+    if g.supernode >= 0:
+        keep &= (s != g.supernode) & (r != g.supernode)
+        n -= 1
+    return n, s[keep], r[keep]
+
+
 def rcm_reorder(g: GraphData) -> GraphData:
     """Relabel nodes with a reverse Cuthill-McKee permutation so edges
     concentrate near the diagonal — the locality the block-banded SAGE path
@@ -365,15 +393,9 @@ def rcm_reorder(g: GraphData) -> GraphData:
     from buckgnn_tpu_torch.utils import native
 
     n = g.n_node
-    s = np.asarray(g.senders, dtype=np.int64)
-    r = np.asarray(g.receivers, dtype=np.int64)
-    keep = ~_virtual_edge_mask(g)
+    perm = native.rcm_order(*rcm_edges(g))
     if g.supernode >= 0:
-        keep &= (s != g.supernode) & (r != g.supernode)
-        perm_core = native.rcm_order(n - 1, s[keep], r[keep])
-        perm = np.concatenate([perm_core, [n - 1]])
-    else:
-        perm = native.rcm_order(n, s[keep], r[keep])
+        perm = np.concatenate([perm, [n - 1]])
     inv = np.empty(n, dtype=np.int64)
     inv[perm] = np.arange(n)
     y = g.y
@@ -386,8 +408,8 @@ def rcm_reorder(g: GraphData) -> GraphData:
         ms = ms[perm] if ms.shape[0] == n else ms[perm[: ms.shape[0]]]
     return GraphData(
         x=g.x[perm],
-        senders=inv[s].astype(np.int32),
-        receivers=inv[r].astype(np.int32),
+        senders=inv[g.senders].astype(np.int32),
+        receivers=inv[g.receivers].astype(np.int32),
         edge_attr=g.edge_attr,
         y=y,
         supernode=g.supernode,

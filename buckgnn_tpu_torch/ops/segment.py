@@ -15,6 +15,7 @@ to run. So on bf16 data the port's sums are the f32 sums of the CSR kernel
 reductions of :76-120 as one-hot products with the same casts (the product
 accumulates in float32, the sum returns the data's dtype): plain products
 outside any kernel (graph readout and the first layer's star table).
+`segment_softmax_weights` is the per-segment softmax of :123-141.
 """
 
 from __future__ import annotations
@@ -101,3 +102,20 @@ def segment_count_dense(
     """Element counts per segment (float32)."""
     p = one_hot_matrix(segment_ids, num_segments, keep)
     return p.float().sum(dim=1)
+
+
+def segment_softmax_weights(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    indices_are_sorted: bool = False,
+) -> torch.Tensor:
+    """Per-segment softmax of per-element logits (for attention pooling),
+    buckgnn_tpu/ops/segment.py:123-141: shifted by the segment's maximum
+    (0 for an empty segment or a non-finite maximum), the denominator
+    clamped at 1e-16. ``indices_are_sorted`` is accepted for the JAX
+    signature and changes nothing; the gradient comes from autograd."""
+    del indices_are_sorted
+    ids = segment_ids.long()
+    expd = torch.exp(logits - segment_max(logits, ids, num_segments)[ids])
+    return expd / segment_sum(expd, ids, num_segments)[ids].clamp_min(1e-16)

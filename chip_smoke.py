@@ -4,8 +4,9 @@
 
 Phases, each fatal on failure:
   1. require CUDA; print the card's name and power limit; turn TF32 off;
-  2. build every CUDA kernel of the port from the sources (nvcc, sm_90a),
-     one nvcc per source, all started together;
+  2. build the native host library (csrc/native.cpp, g++; a failed build
+     is fatal) and every CUDA kernel of the port from the sources (nvcc,
+     sm_90a), one nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card, at the
      flagship shape (weights with a nonzero bias) and on one small ragged
      batch: the forward's serving and training variants (z, the emitted
@@ -107,7 +108,8 @@ Phases, each fatal on failure:
      and whether they are bit-equal); run_inference on weights/best (6 #1
      per batch, its MAPE the best epoch's val MAPE); the epoch loop's step
      time beside the flagship bench's (``run/loop_overhead``) and the line
-     of ``python -m buckgnn_tpu_torch.bench``;
+     of ``python -m buckgnn_tpu_torch.bench``; the runs' log folders (the
+     trainer's own MetricsWriter) stay for phase 15;
  11. the command line on folder datasets (``cli``), in the README's order
      through ``cli.main``: three ``python -m buckgnn_tpu_torch datagen``
      processes at once (256 cases with stiffeners into D/Train, 64 into
@@ -209,7 +211,26 @@ Phases, each fatal on failure:
      wtile_kernel for the products of weights as stored, gemm_kernel for
      the transposed weights and the weight pass, `ea_tile_flops`),
      its step memory, and each variant's time beside its bound, its plain
-     version and the float32 composition.
+     version and the float32 composition;
+ 15. the host side (``host``): fail unless utils/native.py loaded its C++
+     library; native RCM against ``_rcm_order_numpy`` on the flagship's
+     and the virtual cell's 128 panels (the mesh-only edge sets
+     rcm_reorder orders, graph/build.py::rcm_edges), ``band_fraction``
+     native against its NumPy branch at widths 64, 128 and 256 under those
+     orders, ``shell_edges_native`` against the NumPy path on 32 meshes of
+     24-32 a side, ``select_band_geometry`` on the flagship panels native
+     against NumPy (the same geometry); utils/harvest.py on phase 10's
+     folder (the run found with its train_config.json, its
+     Perf/train_step_ms series the values phase 10 read, run_index.json
+     and the metric .npz files); ``segment_softmax_weights`` on the card
+     against the CPU over the flagship batch's graphs, each weight and
+     each non-empty segment's total (1) within ``softmax_tol``, the float32
+     summation bound of the largest segment; the feature names of
+     utils/visualization.py as wide as the flagship's x, and its feature
+     table. One ``host`` line: the seconds of each native and NumPy pair,
+     the card and the host CPU's model. The plots and the connectivity
+     reports need matplotlib and networkx, which the card's machine lacks:
+     this phase does not call them (the CPU tests hold them).
 Prints JSON lines (serving and training numbers, then the kernel table),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -217,8 +238,10 @@ the nvidia-smi line, and last {"ok": true, "device": {...}}.
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -245,7 +268,8 @@ from buckgnn_tpu_torch.ops.banded import make_agg_context
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, keep_mask,
 )
-from buckgnn_tpu_torch.utils import cuda_build
+from buckgnn_tpu_torch.utils import cuda_build, native
+from buckgnn_tpu_torch.utils.logging import MetricsWriter
 
 # kernel vs plain (allclose-style, atol + rtol * |ref|), reasons beside
 # their definitions: z within sl.KERNEL_Z_TOL, the emitted table within
@@ -2281,25 +2305,21 @@ RUN_EPOCHS = 3
 RUN_TRAIN, RUN_VAL = 256, 64  # the flagship's panels: 2 batches and 1
 
 
-class RecordingWriter:
-    """Stands in for the trainer's MetricsWriter: makes its log directory
-    and keeps each scalar train_gnn writes (Perf/train_step_ms among
-    them) instead of writing it."""
+class RecordingWriter(MetricsWriter):
+    """The trainer's MetricsWriter, which also keeps each scalar train_gnn
+    writes (Perf/train_step_ms among them): the run phase reads them, and
+    the host phase harvests what it wrote."""
 
     made = []
 
     def __init__(self, log_dir):
-        import os
-
-        os.makedirs(log_dir, exist_ok=True)
+        super().__init__(log_dir)
         self.scalars = {}
         RecordingWriter.made.append(self)
 
     def add_scalar(self, tag, value, step):
+        super().add_scalar(tag, value, step)
         self.scalars.setdefault(tag, []).append(float(value))
-
-    def close(self):
-        pass
 
 
 @contextlib.contextmanager
@@ -2367,15 +2387,16 @@ def check_run(label, res, epochs):
         fail(f"{label}: {len(res.history)} epochs, expected {epochs}")
 
 
-def training_run(dev, card, bench_step_ms, bench_n_node_cap):
+def training_run(dev, card, bench_step_ms, bench_n_node_cap, out):
     """Phase 10: train_gnn on the flagship's config and panels, its resume
     at dropout 0, run_inference on the weights/best it wrote, and the epoch
-    loop's own cost per step over the bench's. Returns the launches of the
-    run's two paths."""
+    loop's own cost per step over the bench's; every run writes under the
+    directory ``out``, which the host phase harvests. Returns the launches
+    of the run's two paths, its epochs' Perf/train_step_ms, its log
+    directory and its config."""
     import dataclasses
     import io
     import os
-    import tempfile
 
     from buckgnn_tpu_torch import bench as port_bench
     from buckgnn_tpu_torch.eval.inference import run_inference
@@ -2390,90 +2411,89 @@ def training_run(dev, card, bench_step_ms, bench_n_node_cap):
     cfg = dataclasses.replace(port_bench.cell_config("flagship"),
                               num_epochs=RUN_EPOCHS)
     layers = cfg.num_layers
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        reset_launch_counts()
-        res, scalars, (packed, val_packed) = recorded_run(
-            cfg, train, val, nz, out, trial_id="run", verbose=False,
-            device=dev)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        train_launches = launch_counts()
-        steps, val_batches = len(packed), len(val_packed)
-        n_cap = packed[0].n_node_cap
-        del val_packed
-        # batches of 128 panels: 2 train steps and 1 val batch an epoch
-        if (steps, val_batches) != (-(-RUN_TRAIN // cfg.batch_size),
-                                    -(-RUN_VAL // cfg.batch_size)):
-            fail(f"run/train packed {steps} train and {val_batches} val "
-                 "batches")
-        expect_launches(
-            f"run/train ({RUN_EPOCHS} epochs of {steps} train steps and "
-            f"{val_batches} val batch)", train_launches,
-            {"sage_layer_fwd": layers * RUN_EPOCHS * (steps + val_batches),
-             "sage_layer_bwd": layers * RUN_EPOCHS * steps})
-        check_run("run/train", res, RUN_EPOCHS)
-        wdir = os.path.join(res.log_dir, "weights")
-        for d in ("last", "best"):
-            if not os.path.exists(os.path.join(wdir, d, "state.pt")):
-                fail(f"run/train wrote no weights/{d}/state.pt")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res, scalars, (packed, val_packed) = recorded_run(
+        cfg, train, val, nz, out, trial_id="run", verbose=False,
+        device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    train_launches = launch_counts()
+    steps, val_batches = len(packed), len(val_packed)
+    n_cap = packed[0].n_node_cap
+    del val_packed
+    # batches of 128 panels: 2 train steps and 1 val batch an epoch
+    if (steps, val_batches) != (-(-RUN_TRAIN // cfg.batch_size),
+                                -(-RUN_VAL // cfg.batch_size)):
+        fail(f"run/train packed {steps} train and {val_batches} val "
+             "batches")
+    expect_launches(
+        f"run/train ({RUN_EPOCHS} epochs of {steps} train steps and "
+        f"{val_batches} val batch)", train_launches,
+        {"sage_layer_fwd": layers * RUN_EPOCHS * (steps + val_batches),
+         "sage_layer_bwd": layers * RUN_EPOCHS * steps})
+    check_run("run/train", res, RUN_EPOCHS)
+    wdir = os.path.join(res.log_dir, "weights")
+    for d in ("last", "best"):
+        if not os.path.exists(os.path.join(wdir, d, "state.pt")):
+            fail(f"run/train wrote no weights/{d}/state.pt")
 
-        # ---- resume at dropout 0 ----
-        t0 = time.perf_counter()
-        cfg0 = dataclasses.replace(cfg, dropout_rate=0.0)
-        first = recorded_run(dataclasses.replace(cfg0, num_epochs=2),
-                             train, val, nz, os.path.join(out, "a"),
-                             trial_id="a", verbose=False, device=dev)[0]
-        resumed = recorded_run(cfg0, train, val, nz, os.path.join(out, "b"),
-                               trial_id="b", resume_from=os.path.join(
-                                   first.log_dir, "weights", "last"),
-                               verbose=False, device=dev)[0]
-        whole = recorded_run(cfg0, train, val, nz, os.path.join(out, "c"),
-                             trial_id="c", verbose=False, device=dev)[0]
-        resume_s = time.perf_counter() - t0
-        check_run("run/resume", resumed, 1)
-        check_run("run/whole", whole, RUN_EPOCHS)
-        if resumed.history[0]["epoch"] != RUN_EPOCHS - 1:
-            fail(f"run/resume started at epoch {resumed.history[0]}")
-        b, c = resumed.history[0], whole.history[-1]
-        keys = ("train_loss", "val_loss", "train_mape", "val_mape")
-        for k in keys:
-            check_close(f"run/resume/{k}", torch.tensor(b[k]),
-                        torch.tensor(c[k]), PRED_TOL)
-        pa = first.state.model.state_dict()
-        pb = resumed.state.model.state_dict()
-        rel = {}
-        bit_equal = all(b[k] == c[k] for k in keys)
-        for k, p in whole.state.model.state_dict().items():
-            upd = float((p - pa[k]).float().norm())
-            diff = float((pb[k] - p).float().norm())
-            rel[k] = diff / upd if upd else (0.0 if diff == 0 else math.inf)
-            bit_equal &= torch.equal(pb[k], p)
-        worst = max(rel, key=rel.get)
-        print(json.dumps({
-            "check": "run/resume: 2 epochs + resume to 3 vs 3, dropout 0",
-            "card": card, "third_epoch": {"resumed": b, "whole": c},
-            "worst_param": worst, "param_rel_diff": rel[worst],
-            "tol": RESUME_TOL, "bit_equal": bit_equal,
-            "ok": rel[worst] <= RESUME_TOL}))
-        if rel[worst] > RESUME_TOL:
-            fail(f"run/resume: {worst} differs by {rel[worst]} of its "
-                 "third-epoch update from the uninterrupted run")
+    # ---- resume at dropout 0 ----
+    t0 = time.perf_counter()
+    cfg0 = dataclasses.replace(cfg, dropout_rate=0.0)
+    first = recorded_run(dataclasses.replace(cfg0, num_epochs=2),
+                         train, val, nz, os.path.join(out, "a"),
+                         trial_id="a", verbose=False, device=dev)[0]
+    resumed = recorded_run(cfg0, train, val, nz, os.path.join(out, "b"),
+                           trial_id="b", resume_from=os.path.join(
+                               first.log_dir, "weights", "last"),
+                           verbose=False, device=dev)[0]
+    whole = recorded_run(cfg0, train, val, nz, os.path.join(out, "c"),
+                         trial_id="c", verbose=False, device=dev)[0]
+    resume_s = time.perf_counter() - t0
+    check_run("run/resume", resumed, 1)
+    check_run("run/whole", whole, RUN_EPOCHS)
+    if resumed.history[0]["epoch"] != RUN_EPOCHS - 1:
+        fail(f"run/resume started at epoch {resumed.history[0]}")
+    b, c = resumed.history[0], whole.history[-1]
+    keys = ("train_loss", "val_loss", "train_mape", "val_mape")
+    for k in keys:
+        check_close(f"run/resume/{k}", torch.tensor(b[k]),
+                    torch.tensor(c[k]), PRED_TOL)
+    pa = first.state.model.state_dict()
+    pb = resumed.state.model.state_dict()
+    rel = {}
+    bit_equal = all(b[k] == c[k] for k in keys)
+    for k, p in whole.state.model.state_dict().items():
+        upd = float((p - pa[k]).float().norm())
+        diff = float((pb[k] - p).float().norm())
+        rel[k] = diff / upd if upd else (0.0 if diff == 0 else math.inf)
+        bit_equal &= torch.equal(pb[k], p)
+    worst = max(rel, key=rel.get)
+    print(json.dumps({
+        "check": "run/resume: 2 epochs + resume to 3 vs 3, dropout 0",
+        "card": card, "third_epoch": {"resumed": b, "whole": c},
+        "worst_param": worst, "param_rel_diff": rel[worst],
+        "tol": RESUME_TOL, "bit_equal": bit_equal,
+        "ok": rel[worst] <= RESUME_TOL}))
+    if rel[worst] > RESUME_TOL:
+        fail(f"run/resume: {worst} differs by {rel[worst]} of its "
+             "third-epoch update from the uninterrupted run")
 
-        # ---- serve weights/best ----
-        t0 = time.perf_counter()
-        reset_launch_counts()
-        served = run_inference(os.path.join(wdir, "best"), val,
-                               os.path.join(out, "serve"),
-                               batch_size=cfg.batch_size, device=dev)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        serve_launches = launch_counts()
-        expect_launches(f"run/serve ({val_batches} batch)", serve_launches,
-                        {"sage_layer_fwd": layers * val_batches})
-        check_close("run/serve/mape vs the best epoch's val MAPE",
-                    torch.tensor(served["MAPE"]),
-                    torch.tensor(res.best_val_mape), PRED_TOL)
+    # ---- serve weights/best ----
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    served = run_inference(os.path.join(wdir, "best"), val,
+                           os.path.join(out, "serve"),
+                           batch_size=cfg.batch_size, device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = launch_counts()
+    expect_launches(f"run/serve ({val_batches} batch)", serve_launches,
+                    {"sage_layer_fwd": layers * val_batches})
+    check_close("run/serve/mape vs the best epoch's val MAPE",
+                torch.tensor(served["MAPE"]),
+                torch.tensor(res.best_val_mape), PRED_TOL)
 
     # the loop's own cost: Perf/train_step_ms spans an epoch's steps and
     # its one fetch, not the packing; beside it, the run's first batch
@@ -2505,7 +2525,8 @@ def training_run(dev, card, bench_step_ms, bench_n_node_cap):
         "loop_own": [ms / float(np.median(cold_ms)) - 1.0 for ms in step_ms],
         "n_node_cap": n_cap, "bench_n_node_cap": bench_n_node_cap,
         "bench_main_value": json.loads(bench_line)["value"]}))
-    return {"run_train": train_launches, "run_serve": serve_launches}, step_ms
+    return ({"run_train": train_launches, "run_serve": serve_launches},
+            step_ms, res.log_dir, cfg)
 
 
 # ---- 11. the command line on folder datasets ------------------------------
@@ -2650,7 +2671,6 @@ def cli_phase(dev, card, run_step_ms):
     launches, and the kernels' errors against their plain versions on the
     train run's batches."""
     import os
-    import tempfile
     from unittest import mock
 
     from buckgnn_tpu_torch.eval import inference
@@ -4162,7 +4182,6 @@ def multi_phase(dev, card, ebatch):
     one process per card, and ``python -m buckgnn_tpu_torch scale``.
     Returns (launches by path, the largest shard errors of #5 and #6)."""
     import os
-    import tempfile
 
     from buckgnn_tpu_torch.parallel.scaling import run_world
 
@@ -4205,6 +4224,202 @@ def multi_phase(dev, card, ebatch):
     return r["launches"], (fwd_err, bwd_err)
 
 
+# ---- phase 15: the host side -------------------------------------------
+
+# segment_softmax_weights on the card against the CPU, in float32: exp
+# rounds each term and index_add_'s atomics sum a segment in another order
+# than the CPU's loop. Two orders of n float32 additions part by at most
+# about 2 (n - 1) 2^-24 of the sum, so each weight, and each non-empty
+# segment's total, may part by that share of itself (plus a few ulps of
+# exp and the division), n the largest segment. On the flagship batch
+# (segments of up to 1,025 nodes and the pad segment) an absolute 1e-6
+# failed at 3.46e-6 on an H100. A lost shift, a wrong segment or another
+# segment's denominator moves the weights by O(1).
+def softmax_tol(n_max):
+    return (2 * n_max + 8) * 2.0 ** -24
+
+
+HOST_SHELL_MESHES = 32  # generate_mesh at 24-32 a side
+
+
+def cpu_model():
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return None
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def rcm_native_vs_numpy(label, graphs):
+    """Native RCM against `_rcm_order_numpy` on the edge sets rcm_reorder
+    orders; seconds of each over the panels."""
+    from buckgnn_tpu_torch.graph.build import rcm_edges
+
+    edges = [rcm_edges(g) for g in graphs]
+    got, native_s = timed(lambda: [native.rcm_order(*e) for e in edges])
+    ref, numpy_s = timed(lambda: [native._rcm_order_numpy(*e)
+                                  for e in edges])
+    bad = [i for i, (a, b) in enumerate(zip(got, ref))
+           if not np.array_equal(a, b)]
+    if bad:
+        fail(f"host/{label}: native RCM differs from NumPy on panels {bad}")
+    return edges, got, {"native_s": native_s, "numpy_s": numpy_s}
+
+
+def band_fractions_agree(label, edges, perms, tile):
+    """`band_fraction` native against its NumPy branch on each panel's
+    mesh edges under its RCM order, at widths 64, 128 and 256."""
+    for i, ((n, s, r), perm) in enumerate(zip(edges, perms)):
+        pos = np.empty(n, dtype=np.int64)
+        pos[perm] = np.arange(n)
+        for width in (64, 128, 256):
+            got = native.band_fraction(s, r, pos, n, tile, width)
+            ref = native._band_fraction_numpy(s, r, pos, n, tile, width)
+            if got != ref:
+                fail(f"host/{label}: band_fraction at width {width} on "
+                     f"panel {i}: native {got!r}, NumPy {ref!r}")
+
+
+def harvest_run(run_root, log_dir, cfg, step_ms):
+    """utils/harvest.py on the run phase's folder: the run found with its
+    train_config.json, its Perf/train_step_ms series the values the run
+    phase read, run_index.json and the metric .npz files written."""
+    import os
+
+    from buckgnn_tpu_torch.utils import harvest
+
+    runs = {r["run_dir"]: r for r in harvest.find_runs(run_root)}
+    run = runs.get(log_dir)
+    if run is None:
+        fail(f"host/harvest: find_runs missed {log_dir} (found {sorted(runs)})")
+    if run["config"] != json.loads(cfg.to_json()):
+        fail(f"host/harvest: the run's train_config.json {run['config']}")
+    series = harvest.extract_scalars(log_dir)["Perf/train_step_ms"]
+    want = np.asarray(step_ms, dtype=np.float64)
+    if run["source"] == "tfevents":  # tfevents keep float32 scalars
+        want = want.astype(np.float32).astype(np.float64)
+    if not (np.array_equal(series[:, 1], want)
+            and np.array_equal(series[:, 0], np.arange(len(want)))):
+        fail(f"host/harvest: Perf/train_step_ms {series.tolist()}, the run "
+             f"phase read {step_ms}")
+    out = os.path.join(run_root, "harvested")
+    index = harvest.harvest(run_root, out)
+    run_id = os.path.basename(log_dir)
+    files = sorted(os.listdir(out))
+    if (harvest.load_run_index(out) != index or run_id not in index
+            or "metric_Perf_train_step_ms.npz" not in files):
+        fail(f"host/harvest: index {sorted(index)}, files {files}")
+    with np.load(os.path.join(out, "metric_Perf_train_step_ms.npz")) as z:
+        if not np.array_equal(z[run_id], series):
+            fail("host/harvest: the metric file's series is not the run's")
+    return {"runs": len(index), "source": run["source"], "files": files,
+            "train_step_ms": series[:, 1].tolist()}
+
+
+def softmax_on_card(dev, batch):
+    """segment_softmax_weights over the flagship batch's graphs (pad nodes
+    in the last segment, one segment no node belongs to) on the card
+    against the CPU, each weight within `softmax_tol` of itself, and each
+    non-empty segment's weights summing to 1 within it."""
+    from buckgnn_tpu_torch.ops import segment_softmax_weights
+
+    gen = torch.Generator().manual_seed(15)
+    ids = batch.node_graph.cpu()
+    num = batch.n_graph_cap + 1
+    logits = torch.randn(ids.shape[0], generator=gen) * 4 + 30
+    ref = segment_softmax_weights(logits, ids, num)
+    got = segment_softmax_weights(logits.to(dev), ids.to(dev), num).cpu()
+    counts = torch.bincount(ids.long(), minlength=num)
+    tol = softmax_tol(int(counts.max()))
+    rel = float(((got - ref).abs() / ref).max())
+    sums = torch.zeros(num, dtype=torch.float64).index_add_(
+        0, ids.long(), got.double())
+    sum_err = float((sums[counts > 0] - 1).abs().max())
+    print(json.dumps({"check": "host/segment_softmax_weights: card vs cpu",
+                      "max_abs_err": float((got - ref).abs().max()),
+                      "max_rel_err": rel, "sum_err": sum_err,
+                      "segments": num, "largest": int(counts.max()),
+                      "empty": int((counts == 0).sum()), "rtol": tol}))
+    if not (rel <= tol and sum_err <= tol and bool(torch.isfinite(got).all())
+            and int(counts[-1]) == 0):
+        fail(f"host/segment_softmax_weights: card vs cpu {rel} of the "
+             f"weight, sums {sum_err} (tol {tol})")
+    return float((got - ref).abs().max())
+
+
+def host_phase(dev, card, setup, vsetup, run_root, run_log, run_cfg,
+               run_step_ms):
+    """Phase 15: the native library on the packing path and the host
+    utilities (see the module docstring). The plots (plot_graph,
+    plot_transform_check, MetricPlotter.plot_*) and connectivity_stats /
+    virtual_edge_report need matplotlib and networkx, which the card's
+    machine does not have: this phase does not call them, and the CPU
+    tests hold them to the JAX package."""
+    from unittest import mock
+
+    from buckgnn_tpu_torch.graph.build import _shell_edges_numpy
+    from buckgnn_tpu_torch.graph.synthetic import generate_mesh
+    from buckgnn_tpu_torch.utils import visualization
+
+    if not native.available():
+        fail("host: the native library did not load (utils/native.py "
+             "falls back to NumPy; this phase does not)")
+    flagship, virtual = setup["dataset"], vsetup["dataset"]
+    tile = setup["batch"].band_tile
+    edges, perms, rcm_s = rcm_native_vs_numpy("flagship", flagship)
+    band_fractions_agree("flagship", edges, perms, tile)
+    vedges, vperms, vrcm_s = rcm_native_vs_numpy("virtual", virtual)
+    band_fractions_agree("virtual", vedges, vperms, tile)
+
+    meshes = [generate_mesh(seed=i, min_side=24, max_side=32)
+              for i in range(HOST_SHELL_MESHES)]
+    got, shell_native_s = timed(lambda: [
+        native.shell_edges_native(m.quads, m.trias) for m in meshes])
+    ref, shell_numpy_s = timed(lambda: [_shell_edges_numpy(m)
+                                        for m in meshes])
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail(f"host/shell_edges: native differs from NumPy on mesh {i}")
+
+    geometry, band_native_s = timed(select_band_geometry, flagship)
+    with mock.patch.object(native, "_load", lambda: None):
+        geometry_numpy, band_numpy_s = timed(select_band_geometry, flagship)
+    if geometry != geometry_numpy:
+        fail(f"host/select_band_geometry: native {geometry}, NumPy "
+             f"{geometry_numpy}")
+
+    harvested = harvest_run(run_root, run_log, run_cfg, run_step_ms)
+    softmax_err = softmax_on_card(dev, setup["batch"])
+
+    names = visualization.get_feature_names(use_super_node=True)
+    width = flagship[0].x.shape[1]
+    table = visualization.feature_table(flagship[0], flagship[0], names)
+    if len(names) != width or not (isinstance(table, str)
+                                   and "Max |diff|" in table
+                                   and names[0] in table):
+        fail(f"host/visualization: {len(names)} feature names for x of "
+             f"width {width}, or no table")
+
+    print(json.dumps({
+        "host": "the native library on the packing path (128 flagship "
+                "panels, 24-32 a side)", "card": card, "cpu": cpu_model(),
+        "rcm_flagship_s": rcm_s, "rcm_virtual_s": vrcm_s,
+        "select_band_geometry_s": {"native_s": band_native_s,
+                                   "numpy_s": band_numpy_s},
+        "band_geometry": list(geometry),
+        "shell_edges_s": {"native_s": shell_native_s,
+                          "numpy_s": shell_numpy_s,
+                          "meshes": HOST_SHELL_MESHES},
+        "harvest": harvested, "softmax_max_abs_err": softmax_err,
+        "feature_names": len(names)}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -4217,9 +4432,16 @@ def main():
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
+    try:
+        native_lib = native.build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        fail(f"the native library (csrc/native.cpp, g++) did not build: {e}")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     built = cuda_build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "per_kernel_s": built}))
+                      "per_kernel_s": built, "native_build_s": native_s,
+                      "native_lib": native_lib}))
     for name in cuda_build.SOURCES:
         with open(cuda_build.lib_path(name)[:-3] + ".log") as f:
             for line in f:
@@ -4583,8 +4805,10 @@ def main():
                                         etrain)
 
     # ---- 10. the training run and the checkpoint it serves from ---------
-    run_paths, run_step_ms = training_run(dev, card, bench["train_step_ms"],
-                                          train["batch"].n_node_cap)
+    run_root = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    run_paths, run_step_ms, run_log, run_cfg = training_run(
+        dev, card, bench["train_step_ms"], train["batch"].n_node_cap,
+        run_root)
 
     # ---- 11. the command line on folder datasets -----------------------
     cli_paths, cli_errs = cli_phase(dev, card, run_step_ms)
@@ -4604,6 +4828,11 @@ def main():
     # ---- 14. the same for the EA kernels: the ea-virtual-f32 cell -------
     ea_width_kernels, ea_width_paths = ea_widths_phase(dev, card, esetup,
                                                        etrain)
+
+    # ---- 15. the host side: the native library, harvest, softmax --------
+    host_phase(dev, card, setup, vsetup, run_root, run_log, run_cfg,
+               run_step_ms)
+    shutil.rmtree(run_root)
 
     print(json.dumps({
         "serve": "flagship 6L h512 bf16, 128 supernode panels",

@@ -150,14 +150,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_serve_setup()
 
 
-# the command line and the modules it brought (ROADMAP items 8b-8c, 10a)
+# the command line and the modules it brought (ROADMAP items 8b-8c, 10a),
+# and the host utilities of item 10b
 CLI_MODULES = tuple(f"buckgnn_tpu_torch.{m}" for m in (
     "__main__", "cli", "graph.mesh", "graph.op2", "graph.io", "graph.folder",
     "graph.split", "graph.flatten", "graph.materialize", "datagen",
     "datagen.shapes", "datagen.loadcases", "datagen.runner", "eval.timer",
     "train.tune", "parallel", "parallel.mesh", "parallel.edge_partition",
     "parallel.partitioned", "parallel.ea_shard", "parallel.dp",
-    "parallel.scaling", "parallel.dryrun"))
+    "parallel.scaling", "parallel.dryrun", "utils.native", "utils.harvest",
+    "utils.visualization"))
 
 
 def test_port_imports_no_jax():
