@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from buckgnn_tpu_torch.utils.device import resolve_device
+from buckgnn_tpu_torch.utils.profiling import span, traced
 
 
 @dataclasses.dataclass
@@ -454,6 +455,7 @@ def _tensors(arrays: dict, device) -> dict:
             for k, v in arrays.items()}
 
 
+@traced("data.pack")
 def pack_graphs(
     graphs: Sequence[GraphData],
     n_node_cap: int,
@@ -653,7 +655,8 @@ def batch_iterator(
     if rcm:
         from buckgnn_tpu_torch.graph.build import rcm_reorder
 
-        dataset = [rcm_reorder(g) for g in dataset]
+        with span("data.pack"):
+            dataset = [rcm_reorder(g) for g in dataset]
     idx = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
@@ -702,14 +705,16 @@ def batch_iterator(
                  min_spill2_cap)
     eb_cap = max(max(int(b.band_senders.shape[0]) for b in batches),
                  min_band_cap)
-    batches = [_pad_spill_to(b, es_cap, e2_cap, eb_cap) for b in batches]
-    # local star windows are all-or-nothing across the run
-    if not local_star_windows or any(
-        b.gcode is not None and b.gwin is None for b in batches
-    ):
-        batches = [
-            b.replace(gwin=None, lcode=None, lacc=None) for b in batches
-        ]
+    with span("data.pack"):
+        batches = [_pad_spill_to(b, es_cap, e2_cap, eb_cap)
+                   for b in batches]
+        # local star windows are all-or-nothing across the run
+        if not local_star_windows or any(
+            b.gcode is not None and b.gwin is None for b in batches
+        ):
+            batches = [
+                b.replace(gwin=None, lcode=None, lacc=None) for b in batches
+            ]
     caps = None
     if batches and batches[0].win_edges is not None:
         caps = (
@@ -720,10 +725,12 @@ def batch_iterator(
             max(max(b.win_fs_src.shape[1] for b in batches), min_fs_cap),
         )
     for b in batches:
-        if caps is not None:
-            b = _pad_windows_to(b, *caps)
-        yield b.replace(has_spill_edges=any_spill,
-                        has_spill2_edges=any_spill2)
+        with span("data.pack"):
+            if caps is not None:
+                b = _pad_windows_to(b, *caps)
+            b = b.replace(has_spill_edges=any_spill,
+                          has_spill2_edges=any_spill2)
+        yield b
 
 
 def _pad_windows_to(b: GraphBatch, w_max: int, f_max: int, ct_max: int,

@@ -61,6 +61,7 @@ from buckgnn_tpu_torch.models.blocks import (
 from buckgnn_tpu_torch.ops import pooling as pool_ops
 from buckgnn_tpu_torch.ops import segment
 from buckgnn_tpu_torch.ops.dropout import xla_dropout
+from buckgnn_tpu_torch.utils.profiling import span
 
 # the per-layer SAGE variants and their aggregation
 SAGE_VARIANTS = {
@@ -196,28 +197,33 @@ class BuckGNN(nn.Module):
         real_node_mask = batch.node_mask & ~is_super
         run = _Run(self, batch, rate, deterministic, generator)
 
-        x = self.node_encoder(batch.nodes)
+        with span("model.encoder"):
+            x = self.node_encoder(batch.nodes)
         node_keep = batch.node_mask
         name = self.model_name
-        if name == "GraphSage_addAggr_Shared":
-            x = self._shared_sage(x, run)
-        elif name in SAGE_VARIANTS:
-            x = self._sage_variant(x, run)
-        elif name == "GraphSage_MLP":
-            x = self._sage_mlp(x, run)
-        elif name in ("EA_GNN", "EA_GNN_Shared"):
-            x = self._ea_stack(x, run)
-        elif name == "GraphSAGE_SAG":
-            x, node_keep = self._sage_sag(x, run)
-        else:
-            x, node_keep = self._ea_sag(x, run)
+        with span("model.stack"):
+            if name == "GraphSage_addAggr_Shared":
+                x = self._shared_sage(x, run)
+            elif name in SAGE_VARIANTS:
+                x = self._sage_variant(x, run)
+            elif name == "GraphSage_MLP":
+                x = self._sage_mlp(x, run)
+            elif name in ("EA_GNN", "EA_GNN_Shared"):
+                x = self._ea_stack(x, run)
+            elif name == "GraphSAGE_SAG":
+                x, node_keep = self._sage_sag(x, run)
+            else:
+                x, node_keep = self._ea_sag(x, run)
 
         aux = {"real_node_mask": real_node_mask, "node_keep": node_keep}
         if self.prediction_type == "buckling":
-            pooled = self._pool(x, batch, is_super, node_keep)
-            return self.decoder(pooled).squeeze(-1), aux
+            with span("model.pool"):
+                pooled = self._pool(x, batch, is_super, node_keep)
+            with span("model.decoder"):
+                return self.decoder(pooled).squeeze(-1), aux
         # node-level heads: supernodes leave through aux['real_node_mask']
-        return self.decoder(x), aux
+        with span("model.decoder"):
+            return self.decoder(x), aux
 
     # ---- SAGE stacks ---------------------------------------------------- #
 

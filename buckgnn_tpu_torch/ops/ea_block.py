@@ -99,6 +99,7 @@ from buckgnn_tpu_torch.ops.banded_matmul import variant_of, variant_tol
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
 )
+from buckgnn_tpu_torch.utils.profiling import traced
 
 LAUNCHES = {"ea_block_fwd": 0, "ea_block_bwd": 0, "ea_block_fwd_simple": 0,
             "ea_block_bwd_simple": 0}
@@ -889,6 +890,7 @@ class _FusedBlock(torch.autograd.Function):
         return zx, ze
 
     @staticmethod
+    @traced("ea.bwd")
     def backward(ctx_, dzx, dze):
         x, e_win, bias, e1s, m1s, *weights = ctx_.saved_tensors
         spec = ctx_.spec
@@ -952,6 +954,7 @@ def extended_rows(x, ctx: EAContext, x_full=None):
     return torch.cat([x, src[ctx.ext_ids], x.new_zeros((pad, x.shape[1]))])
 
 
+@traced("ea.fwd")
 def fused_ea_block(x, e_win, block, ctx: EAContext, *, skip: bool,
                    rate: float = 0.0, seed=None, deterministic: bool = True,
                    encoder=None, far_grad: str = "fold", far_local: int = 0,

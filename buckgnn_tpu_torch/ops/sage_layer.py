@@ -59,6 +59,7 @@ from buckgnn_tpu_torch.ops.banded_matmul import (
 from buckgnn_tpu_torch.ops.dropout import (
     apply_dropout, dropout_scale, dropout_threshold,
 )
+from buckgnn_tpu_torch.utils.profiling import traced
 
 # launches of each kernel wrapper (reset by callers that count a run): the
 # product engine's kernels and, under ``*_simple``, csrc/sage_simple.cu's
@@ -862,6 +863,7 @@ class _FusedLayer(torch.autograd.Function):
         return z, t_out, ftab
 
     @staticmethod
+    @traced("sage.bwd")
     def backward(ctx, dz, dt_out, _dftab):
         x, w_l, w_r, y, inv, agg = ctx.saved_tensors
         spec = ctx.spec
@@ -916,6 +918,7 @@ def _split_backward(dz, dt_out, y, inv, agg, x, w_l, w_r, spec):
     return dx, dwl, dwr, dbl
 
 
+@traced("sage.fwd")
 def fused_sage_layer(x, w_l, b_l, w_r, ctx, *, skip: bool, rate: float = 0.0,
                      seed=None, deterministic: bool = True, star_in=None,
                      star_next: bool = False, table_in=None,

@@ -39,7 +39,7 @@ from buckgnn_tpu_torch.train.schedule import lr_for_epoch
 from buckgnn_tpu_torch.utils import profiling
 from buckgnn_tpu_torch.utils.device import resolve_device
 from buckgnn_tpu_torch.utils.logging import MetricsWriter, ResultsFile
-from buckgnn_tpu_torch.utils.profiling import StepTimer
+from buckgnn_tpu_torch.utils.profiling import StepTimer, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -177,17 +177,23 @@ def make_train_step(model: BuckGNN, optimizer: torch.optim.Optimizer,
 
     def train_step(batch: GraphBatch, lr: float,
                    generator: torch.Generator | None):
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-        optimizer.zero_grad(set_to_none=True)
-        pred, aux = model(batch, deterministic=False, generator=generator)
-        loss = compute_loss(pred, aux, batch)
-        loss.backward()
-        optimizer.step()
-        with torch.no_grad():
-            metrics = compute_metrics(pred.detach(), aux, batch)
-        metrics["loss"] = loss.detach()
-        return metrics
+        with span("train.step"):
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr)
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                pred, aux = model(batch, deterministic=False,
+                                  generator=generator)
+            with span("train.loss"):
+                loss = compute_loss(pred, aux, batch)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                optimizer.step()
+            with span("train.metrics"), torch.no_grad():
+                metrics = compute_metrics(pred.detach(), aux, batch)
+            metrics["loss"] = loss.detach()
+            return metrics
 
     return train_step, make_eval_step(model, criterion, cfg, normalizer)
 
@@ -202,10 +208,13 @@ def make_eval_step(model: BuckGNN, criterion, cfg: TrainConfig,
 
     @torch.no_grad()
     def eval_step(batch: GraphBatch):
-        pred, aux = model(batch, deterministic=True)
-        metrics = compute_metrics(pred, aux, batch)
-        metrics["loss"] = compute_loss(pred, aux, batch)
-        return metrics, (pred, aux)
+        with span("eval.step"):
+            with span("eval.forward"):
+                pred, aux = model(batch, deterministic=True)
+            with span("eval.loss"):
+                metrics = compute_metrics(pred, aux, batch)
+                metrics["loss"] = compute_loss(pred, aux, batch)
+            return metrics, (pred, aux)
 
     return eval_step
 
