@@ -13,12 +13,12 @@
 // bf16 operands MN-major into wgmma, which takes tf32 only K-major, and one
 // pass of TF32 keeps three digits, so these take their products from the
 // 3xTF32 tiles instead (float32 operands split into tf32 hi and lo parts,
-// float32 accuracy): every product whose B is a weight as stored (all of
-// #5's, and #6's recomputed forward chain: the node chain, the encoder and
-// e2, so that #6's relu masks are the bits #5 computed) on wtile.cuh's
-// weight tile, from the weights pre-split once a call into the scratch
-// (`WS`); the products with a transposed weight and the weight pass on
-// simple.cuh's gemm_kernel.
+// float32 accuracy): every product whose B is a weight on wtile.cuh's
+// weight tile, from the weights pre-split once a call into the scratch:
+// as stored (`WS`: all of #5's, and #6's recomputed forward chain: the
+// node chain, the encoder and e2, so that #6's relu masks are the bits #5
+// computed) and transposed (`WT`: #6's dz @ W^T, W's rows split); the
+// weight pass on simple.cuh's gemm_kernel.
 //
 // What each computes is the engine kernels' function, cast point for cast
 // point: the chain of ops/ea_block.py's module docstring, step by step as
@@ -31,8 +31,9 @@
 // 'autodiff' are rows like any other. Each pass of the engine kernels
 // (FWD_PASSES, BWD_PASSES of ops/ea_block.py) is a few launches of four
 // pieces, every kernel's name carrying its pass (profiles):
-//  - the product tiles (simple::wtile_kernel and simple::gemm_kernel,
-//    128-row tiles of two 64-row halves) with this file's epilogue `Epi`,
+//  - the weight tile (simple::wtile_kernel, 128-row tiles of two 64-row
+//    halves) with this file's epilogue `Epi` (`Halves`: two of them, one
+//    for each half of C's columns),
 //    each product's instance compiled with its own terms only (`E_*`):
 //    gathered projection rows by slot (p_r[recv], p_s[send], p_p
 //    [send]; id < 0 adds nothing), the bias row or the mean's (v + cnt *
@@ -50,7 +51,8 @@
 //    as FMAs;
 //  - the weight pass: every dW = A^T @ B over node or slot rows in
 //    2,048-row chunks (dW's error grows with a chunk's rows) into f32
-//    partials summed in chunk order (simple::atb_rows), dW_en0 ([8, 128])
+//    partials summed in chunk order (simple::atb_rows, on gemm_kernel),
+//    dW_en0 ([8, 128])
 //    by its own chunked kernel, and the bias rows from the column-sum
 //    partials in block order.
 // No float atomics: two runs give the same bits.
@@ -121,10 +123,10 @@ __device__ __forceinline__ float dropped(const Drop& d, uint32_t rk, int col,
 // PERF.md).
 enum : int {
   E_G0 = 1, E_G1 = 2, E_CNT = 4, E_ADD = 8, E_DADD = 16, E_MASK = 32,
-  E_COLSUM = 64, E_OUTF = 128, E_OUTT = 256, E_OUT2 = 512, E_ALL = 1023
+  E_COLSUM = 64, E_OUTF = 128, E_OUTT = 256, E_OUT2 = 512
 };
 
-template <typename T, class Pass, int F = E_ALL>
+template <typename T, class Pass, int F>
 struct Epi {
   __host__ __device__ static constexpr bool has(int f) {
     return (F & f) != 0;
@@ -251,40 +253,32 @@ struct Epi {
   }
 };
 
-// out = the epilogue of A0 @ B0^T (+ A1 @ B1^T) over ``rows`` rows, N
-// columns, row stride ldc: a transposed weight, on simple.cuh's tile
-template <typename T, class E>
-cudaError_t prod_t(const T* a0, int lda0, const T* b0, int ldb0, int k0,
-                   const T* a1, int lda1, const T* b1, int ldb1, int k1,
-                   int rows, int n, int ldc, const E& epi, cudaStream_t st) {
-  Gemm g = {};
-  g.a0 = a0;
-  g.b0 = b0;
-  g.a1 = a1;
-  g.b1 = b1;
-  g.lda0 = lda0;
-  g.ldb0 = ldb0;
-  g.lda1 = lda1;
-  g.ldb1 = ldb1;
-  g.k0 = g.kchunk = k0;
-  g.k1 = k1;
-  g.m = (rows + RB - 1) / RB * RB;
-  g.rows = rows;
-  g.n = n;
-  g.ldc = ldc;
-  return simple::gemm<T, false, true, E>(g, 1, st, epi);
-}
-
-template <typename T, class E>
-cudaError_t prod_t(const T* a, int lda, const T* b, int ldb, int k, int rows,
-                   int n, const E& epi, cudaStream_t st) {
-  return prod_t<T>(a, lda, b, ldb, k, nullptr, 0, nullptr, 0, 0, rows, n, n,
-                   epi, st);
-}
+// C = [C0 | C1] in two H-wide halves, each through its own epilogue
+// (dxacc | dagg = dzg @ W_g0^T): a 128-column tile lies in one half, and
+// both see N = H, C1's columns as [0, H)
+template <class E0, class E1>
+struct Halves {
+  E0 lo;
+  E1 hi;
+  int h;
+  template <typename U>
+  __device__ __forceinline__ void operator()(const Gemm& g,
+                                             const Rows& f) const {
+    Gemm gh = g;
+    gh.n = h;
+    if (f.n0 < h) {
+      lo.template operator()<U>(gh, f);
+    } else {
+      Rows fh = f;
+      fh.n0 -= h;
+      hi.template operator()<U>(gh, fh);
+    }
+  }
+};
 
 // out = the epilogue of A0 @ W0 (+ A1 @ W1) over ``rows`` rows, N columns,
-// row stride ldc: a weight as stored, ``w`` its pre-split [W0; W1]
-// (wtile.cuh), on the weight tile
+// row stride ldc, on the weight tile: ``w`` the pre-split [W0; W1]
+// (wtile.cuh) of weights as stored or transposed
 template <typename T, class E>
 cudaError_t wprod(const T* a0, int lda0, int k0, const T* a1, int lda1,
                   int k1, const float* w, int rows, int n, int ldc,
@@ -466,11 +460,22 @@ struct WS {
       *wen2;
 };
 
+// the backward's pre-split transposed weights, B = W^T of each dz @ W^T:
+// [W_er^T; W_sp^T] stacked in depth [3H, H] (dx), W_g0^T [H, 2H] (dxacc |
+// dagg), the others [H, H]; the encoder's W_en2^T [H, 128] and W_en1^T
+struct WT {
+  float *wx, *wb1, *wb0, *wg1, *wg0, *wp1, *wpe, *we1, *wee, *wen2, *wen1;
+};
+
+// scratch for a [k, n] B pre-split
+template <typename T>
+float* wtake(Carver& c, int k, int n) {
+  return static_cast<float*>(c.take(simple::wsplit_floats<T>(k, n) * 4));
+}
+
 template <typename T>
 void carve_ws(Carver& c, int h, int enc, bool fwd, WS* s) {
-  auto take = [&](int k, int n) {
-    return static_cast<float*>(c.take(simple::wsplit_floats<T>(k, n) * 4));
-  };
+  auto take = [&](int k, int n) { return wtake<T>(c, k, n); };
   *s = {};
   if (fwd) {
     s->wsp = take(h, 2 * h);
@@ -483,6 +488,20 @@ void carve_ws(Carver& c, int h, int enc, bool fwd, WS* s) {
   if (enc) {
     s->wen1 = take(ENC_HID, ENC_HID);
     s->wen2 = take(ENC_HID, h);
+  }
+}
+
+template <typename T>
+void carve_wt(Carver& c, int h, int enc, WT* s) {
+  *s = {};
+  s->wx = wtake<T>(c, 3 * h, h);
+  float** sq[] = {&s->wb1, &s->wb0, &s->wg1, &s->wp1, &s->wpe, &s->we1,
+                  &s->wee};
+  for (float** q : sq) *q = wtake<T>(c, h, h);
+  s->wg0 = wtake<T>(c, h, 2 * h);
+  if (enc) {
+    s->wen2 = wtake<T>(c, h, ENC_HID);
+    s->wen1 = wtake<T>(c, ENC_HID, ENC_HID);
   }
 }
 
@@ -525,6 +544,7 @@ struct BwdScratch {
   float *nsum, *esum;  // column-sum partials: 5 node rows, 6 slot rows
   float* part;         // weight-gradient partials
   WS ws;
+  WT wt;
 };
 
 size_t part_floats(int n, int e, int h, int enc) {
@@ -563,6 +583,7 @@ size_t carve_bwd(unsigned char* base, int n, int e, int h, int enc,
   s->esum = static_cast<float*>(c.take(6 * blocks(e) * h * 4));
   s->part = static_cast<float*>(c.take(part_floats(n, e, h, enc) * 4));
   carve_ws<T>(c, h, enc, false, &s->ws);
+  carve_wt<T>(c, h, enc, &s->wt);
   return c.off;
 }
 
@@ -593,6 +614,27 @@ simple::WJobs ws_jobs(const W<T>& w, const WS& s, int h) {
   job(w.wb1, h, h, h, s.wb1);
   job(w.wen1, ENC_HID, ENC_HID, ENC_HID, s.wen1);
   job(w.wen2, h, ENC_HID, h, s.wen2);
+  return js;
+}
+
+// the pre-split of every transposed weight that ``s`` holds a place for
+template <typename T>
+simple::WJobs wt_jobs(const W<T>& w, const WT& s, int h) {
+  simple::WJobs js = {};
+  auto job = [&](const T* b, int n, int k, float* out) {
+    if (out) simple::add_wtjob<T>(&js, b, n, k, out, 0);
+  };
+  simple::add_wtjob<T>(&js, w.wer, h, h, s.wx, 0, w.wsp, 2 * h);
+  job(w.wb1, h, h, s.wb1);
+  job(w.wb0, h, h, s.wb0);
+  job(w.wg1, h, h, s.wg1);
+  job(w.wg0, 2 * h, h, s.wg0);
+  job(w.wp1, h, h, s.wp1);
+  job(w.wpe, h, h, s.wpe);
+  job(w.we1, h, h, s.we1);
+  job(w.wee, h, h, s.wee);
+  job(w.wen2, ENC_HID, h, s.wen2);
+  job(w.wen1, ENC_HID, ENC_HID, s.wen1);
   return js;
 }
 
@@ -766,10 +808,12 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   float* esum[6];  // bias rows 0-2, 8-10
   for (int i = 0; i < 6; ++i) esum[i] = s.esum + i * ebk;
 
-  // ---- pass 1: node side: the recomputed chain's weights pre-split,
-  // recompute sm, agg, g1, x1, b1 (on the forward's tile: the same relu
-  // masks), then beta, gamma, the mean and phi's second layer backward
+  // ---- pass 1: node side: the recomputed chain's weights and the
+  // transposed weights pre-split, recompute sm, agg, g1, x1, b1 (on the
+  // forward's tile: the same relu masks), then beta, gamma, the mean and
+  // phi's second layer backward
   TRY((simple::wsplit<T, bwd_node1>(ws_jobs<T>(w, s.ws, h), st)));
+  TRY((simple::wsplit<T, bwd_node1>(wt_jobs<T>(w, s.wt, h), st)));
   TRY((run_sums<T, bwd_node1>(a.m1s, h, a.geo.rlo, a.geo.rhi, nullptr, s.sm,
                               h, n, h, st)));
   // x1f is not needed: dxacc's buffer holds it until dxacc is written
@@ -779,41 +823,40 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   TRY((ew<T, bwd_node1>(a.dzx, nullptr, nullptr, a.d, e, s.dx2, s.dx2c,
                         nsum[4], n, h, st)));
   // dzb = T(where(b1 > 0, dx2c @ W_b1^T, 0)); b_b0
-  Epi<T, bwd_node1> np = {};
-  np.mask = s.b1;
-  np.colsum = nsum[3];
-  np.out_t = s.dzb;
-  TRY((prod_t<T>(s.dx2c, h, w.wb1, h, h, n, h, np, st)));
+  Epi<T, bwd_node1, E_MASK | E_COLSUM | E_OUTT> mp = {};
+  mp.mask = s.b1;
+  mp.colsum = nsum[3];
+  mp.out_t = s.dzb;
+  TRY((wprod<T>(s.dx2c, h, h, s.wt.wb1, n, h, mp, st)));
   // dx1 = dx2 + dzb @ W_b0^T, dx1c = T(dx1); b_g1
-  np = {};
-  np.add32 = s.dx2;
-  np.colsum = nsum[2];
-  np.out_t = s.dx1c;
-  TRY((prod_t<T>(s.dzb, h, w.wb0, h, h, n, h, np, st)));
+  Epi<T, bwd_node1, E_ADD | E_COLSUM | E_OUTT> ap = {};
+  ap.add32 = s.dx2;
+  ap.colsum = nsum[2];
+  ap.out_t = s.dx1c;
+  TRY((wprod<T>(s.dzb, h, h, s.wt.wb0, n, h, ap, st)));
   // dzg = T(where(g1 > 0, dx1c @ W_g1^T, 0)); b_g0
-  np = {};
-  np.mask = s.g1;
-  np.colsum = nsum[1];
-  np.out_t = s.dzg;
-  TRY((prod_t<T>(s.dx1c, h, w.wg1, h, h, n, h, np, st)));
-  // dxacc = dzg @ W_g0[:H]^T (+ dx2 with the skip), f32
-  np = {};
-  np.add32 = a.skip ? s.dx2 : nullptr;
-  np.out_f = s.dxacc;
-  TRY((prod_t<T>(s.dzg, h, w.wg0, h, h, n, h, np, st)));
-  // dagg = (dzg @ W_g0[H:]^T) / max(cnt, 1), daggc = T(dagg); b_p1 sums
-  // cnt * dagg
-  np = {};
-  np.cnt = a.geo.cnt;
-  np.colsum = nsum[0];
-  np.cs_cnt = 1;
-  np.out_t = s.daggc;
-  TRY((prod_t<T>(s.dzg, h, w.wg0 + (size_t)h * h, h, h, n, h,
-                            np, st)));
+  mp = {};
+  mp.mask = s.g1;
+  mp.colsum = nsum[1];
+  mp.out_t = s.dzg;
+  TRY((wprod<T>(s.dx1c, h, h, s.wt.wg1, n, h, mp, st)));
+  // dzg @ W_g0^T in one launch: dxacc = its columns [0, H) (+ dx2 with the
+  // skip), f32; dagg = its columns [H, 2H) / max(cnt, 1), daggc =
+  // T(dagg); b_p1 sums cnt * dagg
+  Epi<T, bwd_node1, E_ADD | E_OUTF> xp = {};
+  xp.add32 = a.skip ? s.dx2 : nullptr;
+  xp.out_f = s.dxacc;
+  Epi<T, bwd_node1, E_CNT | E_COLSUM | E_OUTT> gp = {};
+  gp.cnt = a.geo.cnt;
+  gp.colsum = nsum[0];
+  gp.cs_cnt = 1;
+  gp.out_t = s.daggc;
+  TRY((wprod<T>(s.dzg, h, h, nullptr, 0, 0, s.wt.wg0, n, 2 * h, h,
+                Halves<decltype(xp), decltype(gp)>{xp, gp, h}, st)));
   // dsm = T(daggc @ W_p1^T)
-  np = {};
-  np.out_t = s.dsm;
-  TRY((prod_t<T>(s.daggc, h, w.wp1, h, h, n, h, np, st)));
+  Epi<T, bwd_node1, E_OUTT> op = {};
+  op.out_t = s.dsm;
+  TRY((wprod<T>(s.daggc, h, h, s.wt.wp1, n, h, op, st)));
 
   // ---- pass 2: slot side
   const T* ein = a.e_in;
@@ -831,44 +874,43 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
   TRY((ew<T, bwd_edge>(s.dsm, a.geo.recv, a.m1s, none, 0, nullptr, s.dzm,
                        esum[2], e, h, st)));
   // de2 = dropout(dz_e) + dzm @ W_pe^T, de2c = T(de2); b_e1
-  Epi<T, bwd_edge> ep = {};
-  ep.dadd = a.dze;
-  ep.d = a.d;
-  ep.colsum = esum[1];
-  ep.out_t = s.de2c;
-  TRY((prod_t<T>(s.dzm, h, w.wpe, h, h, e, h, ep, st)));
+  Epi<T, bwd_edge, E_DADD | E_COLSUM | E_OUTT> dp = {};
+  dp.dadd = a.dze;
+  dp.d = a.d;
+  dp.colsum = esum[1];
+  dp.out_t = s.de2c;
+  TRY((wprod<T>(s.dzm, h, h, s.wt.wpe, e, h, dp, st)));
   // de1 = T(where(e1 > 0, de2c @ W_e1^T, 0)); b_e0
-  ep = {};
+  Epi<T, bwd_edge, E_MASK | E_COLSUM | E_OUTT> ep = {};
   ep.mask = a.e1s;
   ep.colsum = esum[0];
   ep.out_t = s.de1;
-  TRY((prod_t<T>(s.de2c, h, w.we1, h, h, e, h, ep, st)));
+  TRY((wprod<T>(s.de2c, h, h, s.wt.we1, e, h, ep, st)));
   // deo = de1 @ W_ee^T (+ dropout(dz_e) with the skip): de_win = T(deo),
   // or in encoder mode deoc = T(deo), b_en2, and the encoder's backward
-  ep = {};
-  ep.dadd = a.skip ? a.dze : nullptr;
-  ep.d = a.d;
+  dp = {};
+  dp.dadd = a.skip ? a.dze : nullptr;
+  dp.d = a.d;
   if (a.enc) {
-    ep.colsum = esum[5];
-    ep.out_t = s.deoc;
+    dp.colsum = esum[5];
+    dp.out_t = s.deoc;
   } else {
-    ep.out_t = a.de_win;
+    dp.out_t = a.de_win;
   }
-  TRY((prod_t<T>(s.de1, h, w.wee, h, h, e, h, ep, st)));
+  TRY((wprod<T>(s.de1, h, h, s.wt.wee, e, h, dp, st)));
   if (a.enc) {
     // dz2 = T(where(h2 > 0, deoc @ W_en2^T, 0)) [E, 128]; b_en1
     ep = {};
     ep.mask = s.hen2;
     ep.colsum = esum[4];
     ep.out_t = s.dz2;
-    TRY((prod_t<T>(s.deoc, h, w.wen2, h, h, e, ENC_HID, ep, st)));
+    TRY((wprod<T>(s.deoc, h, h, s.wt.wen2, e, ENC_HID, ep, st)));
     // dz1 = T(where(h1 > 0, dz2 @ W_en1^T, 0)); b_en0
     ep = {};
     ep.mask = s.hen1;
     ep.colsum = esum[3];
     ep.out_t = s.dz1;
-    TRY((prod_t<T>(s.dz2, ENC_HID, w.wen1, ENC_HID, ENC_HID, e,
-                             ENC_HID, ep, st)));
+    TRY((wprod<T>(s.dz2, ENC_HID, ENC_HID, s.wt.wen1, e, ENC_HID, ep, st)));
   }
 
   // ---- pass 3: the receiver and sender folds into dx
@@ -878,12 +920,13 @@ cudaError_t bwd(const BwdArgs<T>& a, cudaStream_t st) {
                               a.geo.sorder, s.snode, 2 * h, n, h, st)));
   TRY((run_sums<T, bwd_node2>(s.dzm, h, a.geo.soff, a.geo.soff + 1,
                               a.geo.sorder, s.snode + h, 2 * h, n, h, st)));
-  // dx = T(r_de1 @ W_er^T + s @ W_sp^T + dxacc)
-  Epi<T, bwd_node2> xp = {};
-  xp.add32 = s.dxacc;
-  xp.out_t = a.dx;
-  TRY((prod_t<T>(s.rde1, h, w.wer, h, h, s.snode, 2 * h, w.wsp,
-                            2 * h, 2 * h, n, h, h, xp, st)));
+  // dx = T(r_de1 @ W_er^T + s @ W_sp^T + dxacc), one product on
+  // [W_er^T; W_sp^T]
+  Epi<T, bwd_node2, E_ADD | E_OUTT> dxp = {};
+  dxp.add32 = s.dxacc;
+  dxp.out_t = a.dx;
+  TRY((wprod<T>(s.rde1, h, h, s.snode, 2 * h, 2 * h, s.wt.wx, n, h, h, dxp,
+                st)));
 
   // ---- pass 4: the weight gradients and the bias rows
   struct Job {

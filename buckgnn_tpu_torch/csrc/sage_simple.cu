@@ -1092,6 +1092,26 @@ extern "C" int wtile_split_t(const void* w0, const void* w1, int n0, int n1,
   return (int)simple::wsplit<float>(js, st);
 }
 
+// wsplit [parts, n, k0 + k1] f32 = the pre-split of B = [W0^T; W1^T]
+// stacked in depth (W0 [n, k0], W1 [n, k1] as stored; ea_simple.cu's dx =
+// [r_de1 | s] @ [W_er^T; W_sp^T]), for wtile_gemm
+extern "C" int wtile_split_tk(const void* w0, const void* w1, int n, int k0,
+                              int k1, void* wsplit, int bf16_in,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  simple::WJobs js = {};
+  float* out = static_cast<float*>(wsplit);
+  if (bf16_in) {
+    using B = simple::bf16;
+    simple::add_wtjob<B>(&js, static_cast<const B*>(w0), n, k0, out, 0,
+                         static_cast<const B*>(w1), k1);
+    return (int)simple::wsplit<B>(js, st);
+  }
+  simple::add_wtjob<float>(&js, static_cast<const float*>(w0), n, k0, out, 0,
+                           static_cast<const float*>(w1), k1);
+  return (int)simple::wsplit<float>(js, st);
+}
+
 // dsplit [parts, n, rows rounded up to 32] f32 = the weight pass's
 // pre-split of B = b [rows, n] (tdepth order, depths past rows zero)
 extern "C" int wtile_split_act(const void* b, int rows, int n, void* dsplit,

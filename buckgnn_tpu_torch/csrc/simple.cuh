@@ -5,9 +5,10 @@
 // Which tile takes which product: wtile.cuh's weight tile every product
 // of the SAGE variants (#1's [agg | x] @ [W_l; W_r], #2s's and #3s's
 // dagg | dxp = dout @ [W_l^T | W_r^T] and their weight pass [agg | x]^T
-// @ dout) and every product of #5 and of #6's recomputed forward chain,
-// from B pre-split once a call; this file's gemm_kernel #6's transposed
-// weights (dz @ W^T) and its weight passes (A^T @ B, `atb_rows`).
+// @ dout) and every product of #5 and #6 whose B is a weight, as stored
+// (#5's, #6's recomputed forward chain) or transposed (#6's dz @ W^T),
+// from B pre-split once a call; this file's gemm_kernel #6's weight
+// passes (A^T @ B, `atb_rows`).
 //
 // gemm_kernel: C = A0 @ op(B0) (+ A1 @ op(B1)), then an epilogue, on the
 // tensor cores in 3xTF32. One pass of TF32 keeps about 2^-11 of each

@@ -3,15 +3,17 @@
 //  - every product whose B is a weight as stored, [K, N] (sage_simple.cu:
 //    #1's [agg | x] @ [W_l; W_r]; ea_simple.cu: every product of #5 and of
 //    #6's recomputed forward chain);
-//  - the SAGE backward's (#2s, #3s) dagg | dxp = dout @ [W_l^T | W_r^T] in
-//    one launch, B = W^T pre-split from W's rows (`add_wtjob`), N = 2H,
-//    the epilogue storing C's halves to dagg and to dxp (+ dz_eff);
-//  - their weight pass [dW_l; dW_r] = [agg | x]^T @ dout (`wgemm_at`): A
-//    read transposed out of row-major boxes (`at_fragment`), B = dout
-//    pre-split over its N rows (`asplit`), the depth split into row
-//    chunks whose f32 partials sum_parts adds in chunk order.
-// #6s's transposed weights and weight pass stay on simple.cuh's
-// gemm_kernel.
+//  - every product whose B is a transposed weight, B = W^T pre-split from
+//    W's rows (`add_wtjob`): the SAGE backward's (#2s, #3s) dagg | dxp =
+//    dout @ [W_l^T | W_r^T] in one launch, N = 2H, the epilogue storing
+//    C's halves to dagg and to dxp (+ dz_eff); #6s's dz @ W^T, its dx from
+//    B = [W_er^T; W_sp^T] stacked in depth;
+//  - the SAGE backward's weight pass [dW_l; dW_r] = [agg | x]^T @ dout
+//    (`wgemm_at`): A read transposed out of row-major boxes
+//    (`at_fragment`), B = dout pre-split over its N rows (`asplit`), the
+//    depth split into row chunks whose f32 partials sum_parts adds in
+//    chunk order.
+// #6s's weight pass stays on simple.cuh's gemm_kernel.
 //
 // Arithmetic: as gemm_kernel's, 3xTF32 (lo.hi + hi.lo + hi.hi of the tf32
 // parts hi = tf32(x), lo = tf32(x - hi), cvt.rna; bf16 in one pass, a bf16
@@ -84,10 +86,10 @@ __host__ __device__ constexpr int tdepth(int p) {
 // ---- the pre-split ------------------------------------------------------
 
 // one weight: W0 [k0, n] (row stride ldb0) and, below it, W1 [k1, n] as
-// stored; or, with ``trans``, B = W0^T for W0 [n, k0] as stored (the
-// backward's transposed weights, k1 0). Into out [parts, n, k0 + k1]
-// (parts ``pstride`` floats apart, 0: n * (k0 + k1)), each slice in
-// `wdepth` order.
+// stored; or, with ``trans``, B = W0^T and, below it, W1^T for W0 [n, k0]
+// and W1 [n, k1] as stored (the backward's transposed weights). Into out
+// [parts, n, k0 + k1] (parts ``pstride`` floats apart, 0: n * (k0 + k1)),
+// each slice in `wdepth` order.
 struct WJob {
   const void *b0, *b1;
   int ldb0, ldb1, k0, k1, n;
@@ -130,9 +132,12 @@ __global__ void __launch_bounds__(256) wsplit_kernel(
   __shared__ float s[32][33];  // [depth, n]
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   if (jb.trans) {
+    const bool p1 = ks >= jb.k0;  // k0 % 32 == 0: a slice is in one weight
+    const T* src = static_cast<const T*>(p1 ? jb.b1 : jb.b0) +
+                   (p1 ? ks - jb.k0 : ks) + tx;
+    const int ld = p1 ? jb.ldb1 : jb.ldb0;
     for (int c = ty; c < 32; c += 8)
-      s[tx][c] = to_f(static_cast<const T*>(jb.b0)[(size_t)(n0 + c) *
-                                                       jb.ldb0 + ks + tx]);
+      s[tx][c] = to_f(src[(size_t)(n0 + c) * ld]);
   } else {
     for (int r = ty; r < 32; r += 8) {
       const int d = ks + r;
@@ -232,13 +237,13 @@ void add_wjob(WJobs* js, const T* b0, int ldb0, int k0, const T* b1,
   add_job(js, {b0, b1, ldb0, ldb1, k0, k1, n, 0, 0, out});
 }
 
-// add a job: B = W^T for W [n, k] as stored, into rows of an out whose
-// parts are ``pstride`` floats apart (two such jobs side by side make [W0^T
-// | W1^T])
+// add a job: B = W^T for W [n, k] as stored (and below it W1^T for W1 [n,
+// k1]), into rows of an out whose parts are ``pstride`` floats apart (0: n
+// * (k + k1); two such jobs side by side make [W0^T | W1^T])
 template <typename T>
 void add_wtjob(WJobs* js, const T* w, int n, int k, float* out,
-               size_t pstride) {
-  add_job(js, {w, nullptr, k, 0, k, 0, n, 1, pstride, out});
+               size_t pstride, const T* w1 = nullptr, int k1 = 0) {
+  add_job(js, {w, w1, k, k1, k, k1, n, 1, pstride, out});
 }
 
 // ---- the tile ---------------------------------------------------------------

@@ -199,6 +199,14 @@ def presplit_t_plain(w0: torch.Tensor, w1: torch.Tensor | None = None
     return presplit_plain(b)
 
 
+def presplit_tk_plain(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The pre-split of B = [w0^T; w1^T] stacked in depth, for weights w0
+    [N, k0], w1 [N, k1] as stored (k0 % 32 == 0; the EA backward's dx =
+    [r_de1 | s] @ [W_er^T; W_sp^T]), as wsplit_kernel writes it from W's
+    rows: `presplit_plain` of that B."""
+    return presplit_plain(w0.t(), w1.t())
+
+
 def presplit_parts(p: torch.Tensor, order=WTILE_DEPTH) -> torch.Tensor:
     """The pre-split layout mapped back: [parts, K, N] in depth order."""
     inv = torch.argsort(_slice_order(p.shape[2], order))

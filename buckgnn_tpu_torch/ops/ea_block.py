@@ -70,10 +70,10 @@ bf16 at H in {128, 256, 512} takes the product engine's kernels
 (csrc/ea_block_fwd.cu, csrc/ea_block_bwd.cu), counted in ``LAUNCHES`` as
 "ea_block_fwd" / "ea_block_bwd"; float32 at every H % 128 == 0, and bf16
 at the other widths, take the variants of csrc/ea_simple.cu (products on
-the 3xTF32 tensor-core tiles: those of weights as stored on
-csrc/wtile.cuh's weight tile, from the weights pre-split once a call into
-the scratch the wrapper allocates at the size
-``ea_block_{fwd,bwd}_simple_scratch_bytes`` gives, the others on
+the 3xTF32 tensor-core tiles: those of weights, as stored or transposed,
+on csrc/wtile.cuh's weight tile, from the weights pre-split once a call
+into the scratch the wrapper allocates at the size
+``ea_block_{fwd,bwd}_simple_scratch_bytes`` gives, the weight pass on
 csrc/simple.cuh's), counted as
 "ea_block_fwd_simple" / "ea_block_bwd_simple"; any other dtype or width
 raises a ValueError naming both. A failed build or launch raises: nothing

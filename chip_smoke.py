@@ -208,8 +208,9 @@ Phases, each fatal on failure:
      forward, the loss and its gradients against the plain path at
      PRED_TOL and GRAD_TOL), one line per pass of each variant from the
      train step's profile (with each product tile's own ms and TFLOP/s:
-     wtile_kernel for the products of weights as stored, gemm_kernel for
-     the transposed weights and the weight pass, `ea_tile_flops`),
+     wtile_kernel for the products of weights as stored or transposed,
+     gemm_kernel for the weight pass, `ea_tile_flops`; it fails if another
+     EA product ran on gemm_kernel),
      its step memory, and each variant's time beside its bound, its plain
      version and the float32 composition;
  15. the host side (``host``): fail unless utils/native.py loaded its C++
@@ -1575,21 +1576,18 @@ def pass_lines(kind, rows, kernels, flops, card, calls=None, tiles=None,
 
 def ea_tile_flops(n, ev, h, enc):
     """The variants' product operations by pass and tile: the weight tile
-    (csrc/wtile.cuh: every product whose B is a weight as stored, the
-    forward's and the backward's recomputed chain) and simple.cuh's
-    gemm_kernel (the transposed weights, the weight pass); the encoder's
-    K = 8 first layer runs on neither."""
+    (csrc/wtile.cuh: every product whose B is a weight, as stored or
+    transposed) and simple.cuh's gemm_kernel (the weight pass); the
+    encoder's K = 8 first layer runs on neither."""
     c, hh = eb.ENC_HID, h * h
     ew = (c * c + c * h) if enc else 0  # the encoder's two tile layers
     total = eb.pass_flops(n, ev, h, enc=enc)
-    wtile = {"fwd_proj": 2 * n * 3 * hh, "fwd_edge": 2 * ev * (3 * hh + ew),
-             "fwd_node": 2 * n * 6 * hh, "bwd_node1": 2 * n * 5 * hh,
-             "bwd_edge": 2 * ev * (hh + ew)}
     first = 2 * ev * eb.ENC_IN * c if enc else 0  # the K = 8 layer
-    gemm = {"bwd_node1": total["bwd_node1"] - wtile["bwd_node1"],
-            "bwd_edge": total["bwd_edge"] - wtile["bwd_edge"] - first,
-            "bwd_node2": total["bwd_node2"],
-            "bwd_weights": total["bwd_weights"] - first}
+    wtile = {"fwd_proj": 2 * n * 3 * hh, "fwd_edge": 2 * ev * (3 * hh + ew),
+             "fwd_node": 2 * n * 6 * hh, "bwd_node1": total["bwd_node1"],
+             "bwd_edge": total["bwd_edge"] - first,
+             "bwd_node2": total["bwd_node2"]}
+    gemm = {"bwd_weights": total["bwd_weights"] - first}
     return {"wtile_kernel": wtile, "gemm_kernel": gemm}
 
 
@@ -3726,6 +3724,10 @@ def ea_widths_phase(dev, card, esetup, etrain):
     print(json.dumps(summary))
     ea_pass_lines(rows, train["batch"], card, kernels=EA_SIMPLE_PASS_KERNELS,
                   tiles=True, cell="ea-virtual-f32")
+    if any("simple::gemm_kernel" in r[0] and "ea_simple::" in r[0]
+           and "bwd_weights" not in r[0] for r in rows):
+        fail("ea-virtual-f32: an EA product other than the weight pass ran "
+             "on gemm_kernel")
     times = ea_variant_timings(train, card)
     launches = paths["ea-virtual-f32_train"]
     replaces = {"ea_block_fwd_simple": TPU_EA_FWD_KERNEL,

@@ -1774,6 +1774,9 @@ def _wtile_lib():
     lib.wtile_split_t.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                                   + [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_void_p])
+    lib.wtile_split_tk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p])
     lib.wtile_split_act.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2
                                     + [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_void_p])
@@ -1781,7 +1784,7 @@ def _wtile_lib():
                                   + [ctypes.c_void_p] * 4
                                   + [ctypes.c_int, ctypes.c_void_p])
     for fn in (lib.wtile_split, lib.wtile_gemm, lib.wtile_split_t,
-               lib.wtile_split_act, lib.wtile_gemm_at):
+               lib.wtile_split_tk, lib.wtile_split_act, lib.wtile_gemm_at):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1899,6 +1902,23 @@ def _wsplit_t(w0, w1=None):
     return out.view(-1, n0 + n1, k)
 
 
+def _wsplit_tk(w0, w1):
+    """sage_simple.cu::wtile_split_tk: the pre-split of [W0^T; W1^T]
+    stacked in depth (W0 [n, k0], W1 [n, k1] as stored), [parts, n, k0 +
+    k1]."""
+    n, k0 = w0.shape
+    k1 = w1.shape[1]
+    out = torch.empty((bm.presplit_floats(w0.dtype, k0 + k1, n),),
+                      dtype=torch.float32, device=w0.device)
+    err = _wtile_lib().wtile_split_tk(
+        w0.data_ptr(), w1.data_ptr(), n, k0, k1, out.data_ptr(),
+        int(w0.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_split_tk: CUDA error {err}"
+    torch.cuda.synchronize()
+    return out.view(-1, n, k0 + k1)
+
+
 def _wsplit_act(b):
     """sage_simple.cu::wtile_split_act: b [rows, n]'s pre-split in
     WTILE_TDEPTH order, [parts, n, rows rounded up to 32]."""
@@ -1947,6 +1967,20 @@ def test_wtile_split_t_matches_plain_layout_bit_for_bit(dtype, h):
 
 
 @pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+def test_wtile_split_tk_matches_plain_layout_bit_for_bit(dtype, h):
+    """The EA backward's [W_er^T; W_sp^T], stacked in depth from W_er [H,
+    H] and W_sp [H, 2H] as stored, is `bm.presplit_tk_plain`'s buffer, bit
+    for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(h + 2)
+    w_er = torch.randn((h, h), generator=g, device=dev).to(dtype)
+    w_sp = torch.randn((h, 2 * h), generator=g, device=dev).to(dtype)
+    got = _wsplit_tk(w_er, w_sp)
+    want = bm.presplit_tk_plain(w_er.cpu(), w_sp.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
 @pytest.mark.parametrize("rows", [1000, 4160])
 def test_wtile_split_act_matches_plain_layout_bit_for_bit(dtype, h, rows):
     """dout's pre-split kernel (WTILE_TDEPTH order over the rows, the
@@ -1974,6 +2008,34 @@ def test_wtile_transposed_weights_match_3xtf32_on_cuda(dtype, h, m):
                 .to(dtype) for _ in range(2))
     got = _wgemm(dout, None, _wsplit_t(w_l, w_r), 2 * h)
     ref = bm.mm_3xtf32(dout.float(), torch.cat([w_l, w_r]).float().t(),
+                       lo=dtype == torch.float32)
+    atol = bm.SIMPLE_F32_TOL * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,h", SIMPLE_CASES, ids=SIMPLE_IDS)
+@pytest.mark.parametrize("m", [1000, 4099])
+def test_wtile_stacked_transposed_weights_match_3xtf32_on_cuda(dtype, h, m):
+    """The EA backward's dx = [r_de1 | s] @ [W_er^T; W_sp^T]: A0 and A1
+    the two column ranges of one [M, 3H] operand, B the depth-stacked
+    pre-split, at ragged M, against `bm.mm_3xtf32` (float32) or the
+    one-pass product (bf16) within the float32 gate of max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + h + 6)
+    a = torch.randn((m, 3 * h), generator=g, device=dev).to(dtype)
+    w_er = (torch.randn((h, h), generator=g, device=dev)
+            / h ** 0.5).to(dtype)
+    w_sp = (torch.randn((h, 2 * h), generator=g, device=dev)
+            / (2 * h) ** 0.5).to(dtype)
+    p = _wsplit_tk(w_er, w_sp)
+    got = torch.empty((m, h), dtype=torch.float32, device=dev)
+    err = _wtile_lib().wtile_gemm(
+        a.data_ptr(), a[:, h:].data_ptr(), 3 * h, h, 2 * h, m, h,
+        p.data_ptr(), got.data_ptr(), int(dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"wtile_gemm: CUDA error {err}"
+    torch.cuda.synchronize()
+    ref = bm.mm_3xtf32(a.float(), torch.cat([w_er, w_sp], 1).float().t(),
                        lo=dtype == torch.float32)
     atol = bm.SIMPLE_F32_TOL * float(ref.abs().max())
     torch.testing.assert_close(got, ref, atol=atol, rtol=0)

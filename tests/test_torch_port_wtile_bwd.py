@@ -7,18 +7,22 @@ The float32 / any-width SAGE backward (#2s, #3s) runs dagg | dxp = dout @
 order), and its weight pass [dW_l; dW_r] = [agg | x]^T @ dout on the same
 tile with A read transposed, from dout pre-split over its rows in
 WTILE_TDEPTH order (`presplit_plain(..., order=WTILE_TDEPTH)`), in row
-chunks (`weight_pass_plain`). The kernels have no CPU mode; held here:
+chunks (`weight_pass_plain`). The float32 / any-width EA backward (#6s)
+runs its dz @ W^T on the same tile, its dx = [r_de1 | s] @ [W_er^T;
+W_sp^T] from the two transposed weights stacked in depth
+(`presplit_tk_plain`). The kernels have no CPU mode; held here:
 - WTILE_TDEPTH is a permutation of each slice under which a quarter warp's
   transposed fragment reads (rows fr..fr + 7 of C, depths 8 kk + 2 q + j)
   fall on distinct shared-memory banks (float32) or on 16 words, two lanes
   each (bf16);
 - both pre-splits map back to tf32(B) and tf32(B - hi) bit for bit at H
   128, 384 and 512 (the activation one at ragged row counts, its depths
-  past the rows zero), their parts are tf32 values and add up to B within
-  2^-22;
+  past the rows zero; the depth-stacked pair at H 128 and 384), their
+  parts are tf32 values and add up to B within 2^-22;
 - the weight pass over ragged row counts in chunks, and the transposed
-  weights' product, stay within `SIMPLE_F32_TOL` of max|ref| of the
-  float64 product; bf16 takes one pass;
+  weights' products (SAGE's, EA's K = 3H dx and its encoder's N = 128
+  product), stay within `SIMPLE_F32_TOL` of max|ref| of the float64
+  product; bf16 takes one pass;
 - `_ksplit` gives the weight pass chunks of at most 2,048 rows and at least
   two work items an SM.
 
@@ -74,10 +78,21 @@ def test_transposed_fragment_reads_are_free_of_bank_conflicts(size):
                     assert words == (32 if size == 4 else 16)
 
 
-@pytest.mark.parametrize("h", [128, 384, 512])
-def test_transposed_weights_map_back_bit_for_bit(h):
-    """[W_l^T | W_r^T]'s pre-split is W's rows split in WTILE_DEPTH order,
-    no transpose, and maps back to tf32(B), tf32(B - hi)."""
+# (H, stacked): SAGE's [W_l^T | W_r^T] side by side; the EA backward's
+# [W_er^T; W_sp^T] stacked in depth (W_sp [H, 2H] as stored)
+SPLIT_T_CASES = [(128, False), (384, False), (512, False), (128, True),
+                 (384, True)]
+SPLIT_T_IDS = ["128", "384", "512", "ea_dx-128", "ea_dx-384"]
+
+
+@pytest.mark.parametrize("h,stacked", SPLIT_T_CASES, ids=SPLIT_T_IDS)
+def test_transposed_weights_map_back_bit_for_bit(h, stacked):
+    """[W_l^T | W_r^T]'s pre-split, and [W_er^T; W_sp^T]'s, is W's rows
+    split in WTILE_DEPTH order, no transpose, and maps back to tf32(B),
+    tf32(B - hi)."""
+    if stacked:
+        _check_stacked_t(h)
+        return
     w_l, w_r = _rand((h, h), h, h ** -0.5), _rand((h, h), h + 1, h ** -0.5)
     p = bm.presplit_t_plain(w_l, w_r)
     assert p.shape == (2, 2 * h, h)
@@ -94,6 +109,27 @@ def test_transposed_weights_map_back_bit_for_bit(h):
     assert torch.equal(hi.contiguous().view(torch.int32),
                        want.view(torch.int32))
     assert torch.equal(lo.contiguous().view(torch.int32),
+                       bm.tf32_round(b - want).view(torch.int32))
+
+
+def _check_stacked_t(h):
+    """B = [W_er^T; W_sp^T] [3H, H]: row n of each part is [W_er | W_sp]'s
+    row n in the slices' order, and the parts map back to B's."""
+    w_er = _rand((h, h), h + 11, h ** -0.5)
+    w_sp = _rand((h, 2 * h), h + 12, (2 * h) ** -0.5)
+    p = bm.presplit_tk_plain(w_er, w_sp)
+    assert p.shape == (2, h, 3 * h)
+    rows = torch.cat([w_er, w_sp], 1)[:, bm._slice_order(3 * h)]
+    hi = bm.tf32_round(rows)
+    assert torch.equal(p[0].view(torch.int32), hi.view(torch.int32))
+    assert torch.equal(p[1].view(torch.int32),
+                       bm.tf32_round(rows - hi).view(torch.int32))
+    back_hi, back_lo = bm.presplit_parts(p)
+    b = torch.cat([w_er.t(), w_sp.t()])
+    want = bm.tf32_round(b)
+    assert torch.equal(back_hi.contiguous().view(torch.int32),
+                       want.view(torch.int32))
+    assert torch.equal(back_lo.contiguous().view(torch.int32),
                        bm.tf32_round(b - want).view(torch.int32))
 
 
@@ -145,15 +181,35 @@ def test_bf16_backward_presplits_are_one_part():
                        d.float())
 
 
-@pytest.mark.parametrize("h", [128, 384])
-def test_transposed_weight_product_holds_the_float32_gate(h):
-    """dout @ [W_l^T | W_r^T] on the weight tile's arithmetic from the
-    transposed pre-split, against the float64 product."""
-    dout = _rand((160, h), h + 2)
-    w_l, w_r = _rand((h, h), h + 3, h ** -0.5), _rand((h, h), h + 4,
-                                                      h ** -0.5)
-    got = bm.weight_tile_plain(dout, bm.presplit_t_plain(w_l, w_r))
-    ref = dout.double() @ torch.cat([w_l, w_r]).double().t()
+# (product, H): SAGE's dout @ [W_l^T | W_r^T]; the EA backward's dx =
+# [r_de1 | s] @ [W_er^T; W_sp^T] (K = 3H) and its encoder's deoc @
+# W_en2^T (N = 128)
+PRODUCT_T_CASES = [("sage", 128), ("sage", 384), ("ea_dx", 128),
+                   ("ea_enc", 384)]
+PRODUCT_T_IDS = ["128", "384", "ea_dx-128", "ea_enc-384"]
+
+
+@pytest.mark.parametrize("which,h", PRODUCT_T_CASES, ids=PRODUCT_T_IDS)
+def test_transposed_weight_product_holds_the_float32_gate(which, h):
+    """A product with a transposed weight on the weight tile's arithmetic
+    from the transposed pre-split, against the float64 product."""
+    if which == "sage":
+        a = _rand((160, h), h + 2)
+        w_l, w_r = _rand((h, h), h + 3, h ** -0.5), _rand((h, h), h + 4,
+                                                          h ** -0.5)
+        p, w = bm.presplit_t_plain(w_l, w_r), torch.cat([w_l, w_r])
+    elif which == "ea_dx":
+        a = _rand((160, 3 * h), h + 5)
+        w = torch.cat([_rand((h, h), h + 6, h ** -0.5),
+                       _rand((h, 2 * h), h + 7, (2 * h) ** -0.5)], 1)
+        p = bm.presplit_tk_plain(w[:, :h], w[:, h:])
+    else:
+        a = _rand((160, h), h + 8)
+        w = _rand((128, h), h + 9, h ** -0.5)
+        p = bm.presplit_t_plain(w)
+    got = bm.weight_tile_plain(a, p)
+    assert got.shape == (160, w.shape[0])
+    ref = a.double() @ w.double().t()
     err = float((got.double() - ref).abs().max() / ref.abs().max())
     assert err <= bm.SIMPLE_F32_TOL
 
